@@ -1,0 +1,27 @@
+"""The clustering pipeline in PyTorch: the port of ``repro.core`` as far
+as this slice goes (OPT-TDBHT and HEAP-TDBHT on the dense path).
+
+Public API (the reference's names):
+  PipelineConfig        -- frozen, hashable stage config (module: .config)
+  build_tmfg            -- lazy TMFG construction          (module: .tmfg)
+  run_dbht              -- device DBHT on a TMFG            (module: .dbht)
+  apsp_exact / apsp_hub -- all-pairs shortest paths         (module: .apsp)
+  complete_linkage      -- complete-linkage HAC             (module: .hac)
+  cluster               -- end-to-end pipeline (OPT-TDBHT by default)
+  adjusted_rand_index   -- ARI metric                       (module: .ari)
+"""
+
+from . import apsp, ari, config, dbht, hac, pipeline, tmfg  # noqa: F401
+from .apsp import apsp_exact, apsp_hub, edge_lengths  # noqa: F401
+from .ari import ari as adjusted_rand_index  # noqa: F401
+from .config import PipelineConfig, VARIANTS  # noqa: F401
+from .dbht import DBHTResult, dbht as run_dbht  # noqa: F401
+from .hac import complete_linkage, cut_linkage  # noqa: F401
+from .pipeline import ClusterResult, cluster  # noqa: F401
+from .tmfg import TMFGResult, build_tmfg, tmfg_adjacency  # noqa: F401
+
+# restore submodule attributes clobbered by same-named function imports
+import sys as _sys
+apsp = _sys.modules[__name__ + ".apsp"]
+ari = _sys.modules[__name__ + ".ari"]
+dbht = _sys.modules[__name__ + ".dbht"]

@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels of the port, with plain PyTorch twins.
+
+  * pearson.py   -- fused Pearson correlation (csrc/pearson.cu)
+  * minplus.py   -- tropical matmul for APSP (csrc/minplus.cu)
+  * gainscan.py  -- masked row argmax, the HAC merge scan
+                    (csrc/masked_argmax.cu)
+
+Each kernel is built from ``csrc/`` with nvcc at first use
+(``_build.py``) and has a plain version in ``ref.py``; ``ops.py``
+dispatches between them.
+"""
+
+from . import ops, ref  # noqa: F401

@@ -1,0 +1,74 @@
+"""Backend dispatch for the port's kernels.
+
+Backends (``PipelineConfig.backend``):
+  * ``"cuda"``  — the hand-written CUDA kernel; raises for a CPU tensor.
+  * ``"torch"`` — the plain PyTorch version (``ref.py``) on the tensor's
+    own device.
+  * ``"auto"``  — the kernel for a tensor on the card, the plain version
+    for a tensor on the CPU (mirroring ``repro.kernels.ops._resolve``,
+    which picks Pallas on a TPU and jnp elsewhere).
+
+A failed build or launch raises; nothing falls back to the plain
+version.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from . import gainscan, minplus as minplus_mod, pearson as pearson_mod, ref
+
+BACKENDS = ("auto", "cuda", "torch")
+
+# name -> the kernel's _build.Kernel (its symbol and launch count)
+KERNELS = {
+    "pearson": pearson_mod.KERNEL,
+    "minplus": minplus_mod.KERNEL,
+    "masked_argmax": gainscan.KERNEL,
+}
+
+
+def use_kernel(t: torch.Tensor, backend: str) -> bool:
+    """Whether ``backend`` sends tensor ``t`` to the CUDA kernel."""
+    if backend == "cuda":
+        return True
+    if backend == "torch":
+        return False
+    if backend == "auto":
+        return t.device.type == "cuda"
+    raise ValueError(f"unknown backend {backend!r}; have {BACKENDS}")
+
+
+def minplus(A: torch.Tensor, B: torch.Tensor, *,
+            backend: str = "auto") -> torch.Tensor:
+    """Tropical matmul: out[i,j] = min_k A[i,k] + B[k,j]."""
+    if use_kernel(A, backend):
+        return minplus_mod.minplus_cuda(A.contiguous(), B.contiguous())
+    return ref.minplus_ref(A, B)
+
+
+def pearson(X: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
+    """Pearson correlation matrix of the rows of X."""
+    if use_kernel(X, backend):
+        return pearson_mod.pearson_cuda(X.float().contiguous())
+    return ref.pearson_ref(X)
+
+
+def masked_argmax(S: torch.Tensor, mask: torch.Tensor, *,
+                  backend: str = "auto"):
+    """Per-row (max, argmax) of S with True-masked columns excluded."""
+    if use_kernel(S, backend):
+        return gainscan.masked_argmax_cuda(S, mask)
+    return ref.masked_argmax_ref(S, mask)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of each kernel since the last reset."""
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0

@@ -1,0 +1,81 @@
+"""Plain PyTorch versions of the port's CUDA kernels.
+
+Each function is the twin of the same-named oracle in
+``repro.kernels.ref`` and computes exactly what the hand-written kernel
+computes.  The wrappers in ``kernels/ops.py`` run these for tensors on
+the CPU (that is how the CPU tests run the whole port), the tests hold
+them against the JAX package, and ``chip_smoke.py`` holds every kernel
+against its twin on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG = float("-inf")
+
+# Elements of the (m, panel, n) broadcast that one min-plus k-panel may
+# hold: 2**26 float32 = 256 MiB, so the plain product fits beside the
+# (n, n) matrices at the main path's widths.
+_MINPLUS_PANEL_ELEMS = 1 << 26
+
+
+def minplus_ref(A: torch.Tensor, B: torch.Tensor, *,
+                panel: int = 0) -> torch.Tensor:
+    """Tropical (min-plus) matrix product: out[i,j] = min_k A[i,k] + B[k,j].
+
+    Blocked over k like ``repro.kernels.minplus.minplus_jnp``: each
+    k-panel's (m, panel, n) broadcast is reduced into a running minimum,
+    so the peak memory is bounded whatever k is.  ``panel=0`` picks the
+    widest panel under a fixed element budget.  The result does not
+    depend on the panel: every entry is the minimum of the same exactly
+    rounded sums.
+    """
+    m, k = A.shape
+    k2, n = B.shape
+    if k != k2:
+        raise ValueError(f"inner sizes differ: {tuple(A.shape)} x "
+                         f"{tuple(B.shape)}")
+    A = A.float()
+    B = B.float()
+    if panel <= 0:
+        panel = max(1, _MINPLUS_PANEL_ELEMS // max(m * n, 1))
+    panel = min(panel, k)
+    out = torch.full((m, n), float("inf"), dtype=torch.float32,
+                     device=A.device)
+    for k0 in range(0, k, panel):
+        a = A[:, k0:k0 + panel]
+        b = B[k0:k0 + panel, :]
+        torch.minimum(out, (a[:, :, None] + b[None, :, :]).amin(dim=1),
+                      out=out)
+    return out
+
+
+def standardize_rows(X: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Center and L2-normalize rows so Z @ Z.T is Pearson correlation."""
+    X = X.float()
+    mu = X.mean(dim=1, keepdim=True)
+    Z = X - mu
+    denom = torch.sqrt(torch.sum(Z * Z, dim=1, keepdim=True)) + eps
+    return Z / denom
+
+
+def pearson_ref(X: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Pearson correlation matrix of the rows of X (n, L) -> (n, n).
+
+    The product runs in full fp32: the package turns TF32 off on import
+    (``repro_torch/__init__.py``)."""
+    Z = standardize_rows(X, eps)
+    return torch.clamp(Z @ Z.T, -1.0, 1.0)
+
+
+def masked_argmax_ref(S: torch.Tensor, mask: torch.Tensor):
+    """Per-row (max value, argmax index) of S with masked columns excluded.
+
+    ``mask`` is (n,) bool; True columns are excluded (read as -inf).
+    Ties break to the lowest index; a fully masked row gives (-inf, 0).
+    Returns (values (m,) f32, indices (m,) int32).
+    """
+    masked = S.float().masked_fill(mask[None, :], NEG)
+    vals, idx = masked.max(dim=1)
+    return vals, idx.int()

@@ -1,0 +1,181 @@
+"""The port's kernels (``repro_torch.kernels``) against the JAX package.
+
+On the CPU the port runs each kernel's plain PyTorch version; these tests
+hold those against the Pallas kernels in interpret mode and against
+``repro.kernels.ref``, on the same numpy inputs:
+
+  * Pearson within 1e-6 absolute (different matmuls round differently);
+  * min-plus bitwise, inf entries and ragged shapes included (a minimum
+    of exactly rounded sums does not depend on their order);
+  * masked argmax bitwise, ties included, and the ref's (-inf, 0) on
+    fully masked rows.
+
+``tests/test_torch_cuda.py`` holds each CUDA kernel against its plain
+version on the card.
+"""
+
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.gainscan import masked_argmax_pallas  # noqa: E402
+from repro.kernels.minplus import minplus_pallas  # noqa: E402
+from repro.kernels.pearson import pearson_pallas  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+# ---------------------------------------------------------------------------
+# Pearson
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,L", [(8, 16), (45, 70), (33, 46), (64, 128)])
+def test_pearson_matches_pallas_and_ref(n, L):
+    X = _rng(n * L).normal(size=(n, L)).astype(np.float32)
+    got = ref.pearson_ref(torch.from_numpy(X)).numpy()
+    pallas = np.asarray(pearson_pallas(jnp.asarray(X), bm=16, bn=16, bl=32,
+                                       interpret=True))
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got, np.asarray(jref.pearson_ref(
+        jnp.asarray(X))), rtol=0, atol=1e-6)
+
+
+def test_standardize_rows_matches_ref():
+    X = _rng(1).normal(size=(20, 33)).astype(np.float32)
+    np.testing.assert_allclose(
+        ref.standardize_rows(torch.from_numpy(X)).numpy(),
+        np.asarray(jref.standardize_rows(jnp.asarray(X))), rtol=0, atol=1e-6)
+
+
+def test_pearson_dispatch_on_cpu():
+    X = torch.from_numpy(_rng(2).normal(size=(12, 30)).astype(np.float32))
+    assert torch.equal(ops.pearson(X), ref.pearson_ref(X))
+    assert torch.equal(ops.pearson(X, backend="torch"), ref.pearson_ref(X))
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.pearson(X, backend="cuda")
+    with pytest.raises(ValueError, match="unknown backend"):
+        ops.pearson(X, backend="pallas")
+
+
+# ---------------------------------------------------------------------------
+# min-plus
+# ---------------------------------------------------------------------------
+
+def _dist(rng, shape, inf_frac):
+    A = rng.uniform(0, 5, shape).astype(np.float32)
+    if inf_frac:
+        A[rng.random(shape) < inf_frac] = np.inf
+    return A
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 8, 8), (17, 33, 9), (1, 50, 1),
+                                   (64, 64, 64), (130, 7, 127)])
+@pytest.mark.parametrize("inf_frac", [0.0, 0.3])
+def test_minplus_bitwise(m, k, n, inf_frac):
+    rng = _rng(m * 1000 + k * 10 + n)
+    A, B = _dist(rng, (m, k), inf_frac), _dist(rng, (k, n), inf_frac)
+    got = ref.minplus_ref(torch.from_numpy(A), torch.from_numpy(B)).numpy()
+    want = np.asarray(jref.minplus_ref(jnp.asarray(A), jnp.asarray(B)))
+    pallas = np.asarray(minplus_pallas(jnp.asarray(A), jnp.asarray(B), bm=16,
+                                       bk=8, bn=16, interpret=True))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, pallas)
+    # the k-panel only bounds memory: every panel gives the same bits
+    for panel in (1, 5):
+        np.testing.assert_array_equal(ref.minplus_ref(
+            torch.from_numpy(A), torch.from_numpy(B), panel=panel).numpy(),
+            got)
+    np.testing.assert_array_equal(
+        ops.minplus(torch.from_numpy(A), torch.from_numpy(B)).numpy(), got)
+
+
+def test_minplus_rejects_mismatched_shapes():
+    with pytest.raises(ValueError, match="inner sizes"):
+        ref.minplus_ref(torch.zeros(3, 4), torch.zeros(5, 3))
+
+
+# ---------------------------------------------------------------------------
+# masked argmax
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,n", [(8, 8), (13, 40), (40, 600)])
+def test_masked_argmax_bitwise_with_ties(m, n):
+    rng = _rng(m + n)
+    S = rng.integers(0, 4, (m, n)).astype(np.float32)   # many ties
+    mask = rng.random(n) < 0.5
+    mask[rng.integers(0, n)] = False                     # one open column
+    vals, idx = ref.masked_argmax_ref(torch.from_numpy(S),
+                                      torch.from_numpy(mask))
+    pv, pi = masked_argmax_pallas(jnp.asarray(S), jnp.asarray(mask), bm=8,
+                                  bn=16, interpret=True)
+    rv, ri = jref.masked_argmax_ref(jnp.asarray(S), jnp.asarray(mask))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(pv))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(pi))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(rv))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
+    assert idx.dtype == torch.int32 and vals.dtype == torch.float32
+
+
+def test_masked_argmax_fully_masked_rows_match_ref():
+    S = _rng(3).normal(size=(6, 10)).astype(np.float32)
+    mask = np.ones(10, bool)
+    vals, idx = ops.masked_argmax(torch.from_numpy(S), torch.from_numpy(mask))
+    rv, ri = jref.masked_argmax_ref(jnp.asarray(S), jnp.asarray(mask))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(rv))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
+    assert np.isneginf(vals.numpy()).all() and (idx.numpy() == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# build and binding (checked without a compiler)
+# ---------------------------------------------------------------------------
+
+_C_ENTRY = re.compile(r'extern "C" int (\w+)\(([^)]*)\)', re.S)
+
+
+def test_every_kernel_has_a_matching_c_entry_point():
+    """Each wrapper's ctypes signature matches its C entry point: the
+    pointer/int parameters in order, then the stream."""
+    entries = {}
+    for src in _build.sources():
+        for name, params in _C_ENTRY.findall(src.read_text()):
+            kinds = ["p" if "*" in p else "i" for p in params.split(",")]
+            entries[name] = "".join(kinds)
+    assert {p.name for p in _build.sources()} == {
+        "pearson.cu", "minplus.cu", "masked_argmax.cu"}
+    for kname, kern in ops.KERNELS.items():
+        assert entries[kern.symbol] == kern.signature + "p", kname
+
+
+def test_source_hash_tracks_sources_and_flags(monkeypatch):
+    h = _build.source_hash()
+    assert h == _build.source_hash() and len(h) == 16
+    monkeypatch.setattr(_build, "COMPILE_FLAGS", _build.COMPILE_FLAGS + ["-G"])
+    assert _build.source_hash() != h
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
+    ops.reset_launch_counts()
+    from repro_torch.kernels.gainscan import masked_argmax_cuda
+    from repro_torch.kernels.minplus import minplus_cuda
+    from repro_torch.kernels.pearson import pearson_cuda
+    x = torch.zeros(4, 4)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pearson_cuda(x)
+    with pytest.raises(ValueError, match="CUDA device"):
+        minplus_cuda(x, x)
+    with pytest.raises(ValueError, match="CUDA device"):
+        masked_argmax_cuda(x, torch.zeros(4, dtype=torch.bool))
+    with pytest.raises(TypeError, match="takes 6 arguments"):
+        ops.KERNELS["pearson"].launch(1, 2, stream=0)
+    assert ops.launch_counts() == {"pearson": 0, "minplus": 0,
+                                   "masked_argmax": 0}
