@@ -3,7 +3,7 @@
 
 Usage, from the root of a checkout, on a machine with one NVIDIA GPU::
 
-    python3 chip_smoke.py                  # the main path at Crop size
+    python3 chip_smoke.py                  # the main paths at Crop size
     python3 chip_smoke.py --dataset CBF    # a smaller Table-1 size
 
 Phases (any failure exits non-zero; no phase is skipped):
@@ -11,19 +11,33 @@ Phases (any failure exits non-zero; no phase is skipped):
 1. Environment: the card's name and power limit, torch and CUDA
    versions, and the build of every kernel from ``kernels/csrc/``.
 2. Kernels: each CUDA kernel against its plain PyTorch version on the
-   card, at the shapes the main path gives it (Pearson at (n, L); the
+   card, at the shapes the main paths give it (Pearson at (n, L); the
    hub Bellman-Ford round (h, n) x (n, n) and the hub composition
-   (n, h) x (h, n) for min-plus; the (n, n) HAC scan for masked argmax),
-   with times from CUDA events.
-3. Main path: ``cluster(X, k, config=PipelineConfig.opt())`` on the
-   dataset (random-free: ``make_ucr_like`` from a seed), once as the
-   default back-to-back run, with every kernel's launch count reset
-   just before and read just after, and once with ``fused=False`` for
-   per-stage seconds; the two linkages must be bitwise equal.
-4. Parity: at n = 2000, the ``cuda`` and ``torch`` backends give a
-   bitwise-equal linkage on one S (OPT, and HEAP with its exact
-   (n, n) x (n, n) squarings), and agreeing labels (ARI >= 0.99) from
-   one X.
+   (n, h) x (h, n) for min-plus, and min-plus with NaN inputs; the
+   (n, n) HAC scan for masked argmax; top-K at (n, L, 64) and at a
+   small n with k = n-1, bitwise a stable top-k of the Pearson kernel's
+   rows; one sparse relaxation round and its fixed point from h sources
+   over 3n-6 edges, NaN entries included), with times from CUDA events.
+3. Dense main path: ``cluster(X, k, config=PipelineConfig.opt())`` on
+   the dataset (``make_ucr_like`` from a seed), once as the default
+   back-to-back run, with every kernel's launch count reset just before
+   and read just after, then ``fused=False`` for per-stage seconds at
+   CBF size (with its own default run, unless the dataset is CBF); the
+   two linkages must be bitwise equal.
+4. Approx path: ``cluster(X, k, config=PipelineConfig.approx(sim_k=64))``
+   fused, counts reset just before and read just after: one top-K
+   launch, one sparse-relaxation launch per Bellman-Ford round, masked
+   argmax in the per-cluster HAC, no slot overflow, peak device memory
+   below one (n, n) float32 matrix, k labels, a monotone finite
+   linkage, ARI against the generator and the dense labels; then
+   ``fused=False`` for per-stage seconds and counts, and whether its
+   linkage equals the fused one (at CBF size, with its own fused run,
+   where a repeat at the dataset's size would take the script past
+   600 s).
+5. Parity at n = 2000: the ``cuda`` and ``torch`` backends give a
+   bitwise-equal linkage on one S (OPT, HEAP with its exact squarings,
+   and approx), agreeing labels (ARI >= 0.99) from one X, and at
+   sim_k = n-1 the sparse TMFG from X is bitwise the dense OPT TMFG.
 
 The line before the last is the JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.  The script needs the
@@ -50,6 +64,18 @@ FP32_OPS_PER_S = 67e12
 
 PARITY_N = 2000
 
+# the dense path's fused=False repeat runs at this size: a Crop-size
+# repeat takes as long as the dense run itself
+REPEAT_DATASET = "CBF"
+
+# The approx fused=False repeat runs at the main dataset's size unless the
+# script would then pass half its 1200 s limit: the projection adds 1.1x
+# the fused approx run (the staged run's share measured at Crop) and
+# PARITY_S for the n=2000 phase (128 s on the slowest machine seen); past
+# the budget the repeat runs at REPEAT_DATASET size, with its own fused run
+STAGED_BUDGET_S = 600.0
+PARITY_S = 150.0
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -72,10 +98,18 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def same_nan(a, b) -> bool:
+    """Bitwise equal, NaN entries at the same places."""
+    import torch
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        torch.where(na, 0.0, a), torch.where(nb, 0.0, b)))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dataset", default="Crop",
-                    help="UCR_SIZES entry for the main path (default Crop)")
+                    help="UCR_SIZES entry for the main paths (default Crop)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -88,16 +122,21 @@ def main() -> None:
 
     import numpy as np
 
+    from repro_torch.approx import knn, sparse_tmfg
     from repro_torch.core import PipelineConfig, adjusted_rand_index, cluster
+    from repro_torch.core import tmfg as tmfg_mod
     from repro_torch.core.apsp import hub_count
     from repro_torch.data.timeseries import make_dataset, make_ucr_like
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import sparse_apsp as sp
     from repro_torch.kernels.gainscan import masked_argmax_cuda
     from repro_torch.kernels.minplus import minplus_cuda
     from repro_torch.kernels.pearson import pearson_cuda
+    from repro_torch.kernels.topk import topk_pearson_cuda
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
+    t_start = time.perf_counter()
 
     # ---- 1. environment ------------------------------------------------
     smi = subprocess.run(
@@ -130,7 +169,7 @@ def main() -> None:
         sync()
         return start.elapsed_time(end) / reps
 
-    # ---- 2. kernels at the main path's shapes --------------------------
+    # ---- 2. kernels at the main paths' shapes --------------------------
     name, X_np, y, k = make_ucr_like(args.dataset, seed=args.seed)
     n, L = X_np.shape
     h = hub_count(n)
@@ -147,7 +186,7 @@ def main() -> None:
     err = float((S_k - S_p).abs().max())
     check(err <= 1e-5, f"pearson kernel vs plain: max abs err {err} > 1e-5")
     check(bool(torch.equal(S_k, S_k.T)), "pearson kernel output not symmetric")
-    del S_k, S_p
+    del S_p
     # the output is symmetric: n (n + 1) / 2 dot products of length L
     b_ms, b_by = bound(4 * (n * L + 2 * n + n * n), n * (n + 1) * L)
     entries["pearson"] = dict(
@@ -160,6 +199,47 @@ def main() -> None:
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.corrcoef(X), 10))
     log(f"[kernel] pearson ok: {entries['pearson']}")
+
+    # top-K: bitwise a stable top-k of the Pearson kernel's rows
+    K = 64
+    tv, ti = topk_pearson_cuda(X, K)
+    pv, _ = ref.topk_pearson_ref(X, K)
+    sync()
+    S_k.fill_diagonal_(float("-inf"))
+    for r0 in range(0, n, 2048):
+        sv, si = torch.sort(S_k[r0:r0 + 2048], dim=1, descending=True,
+                            stable=True)
+        check(bool(torch.equal(tv[r0:r0 + 2048], sv[:, :K]))
+              and bool(torch.equal(ti[r0:r0 + 2048], si[:, :K].int())),
+              f"topk kernel is not a stable top-{K} of pearson_cuda rows "
+              f"(rows {r0}..)")
+    del sv, si, S_k
+    err = float((tv - pv).abs().max())
+    check(err <= 1e-6, f"topk kernel vs plain: max abs err {err} > 1e-6")
+    ns = 700
+    Xs = X[:ns].contiguous()
+    sv_, si_ = topk_pearson_cuda(Xs, ns - 1)
+    P = pearson_cuda(Xs)
+    P.fill_diagonal_(float("-inf"))
+    wv, wi = torch.sort(P, dim=1, descending=True, stable=True)
+    check(bool(torch.equal(sv_, wv[:, :ns - 1]))
+          and bool(torch.equal(si_, wi[:, :ns - 1].int())),
+          f"topk kernel at k = n-1 (n={ns}) is not a stable sort of rows")
+    err_s = float((sv_ - ref.topk_pearson_ref(Xs, ns - 1)[0]).abs().max())
+    check(err_s <= 1e-6, f"topk kernel vs plain at k = n-1: {err_s} > 1e-6")
+    del P, wv, wi, sv_, si_, Xs, tv, ti, pv
+    b_ms, b_by = bound(4 * (n * L + 2 * n) + 8 * n * K, n * (n + 1) * L)
+    entries["topk"] = dict(
+        name="topk", route="cuda",
+        source="src/repro_torch/kernels/csrc/topk.cu",
+        replaces="src/repro/kernels/topk.py:99",
+        shape=[n, L, K], max_abs_err=err, max_abs_err_full_k=err_s,
+        ms=cuda_ms(lambda: topk_pearson_cuda(X, K), 5),
+        plain_ms=cuda_ms(lambda: ref.topk_pearson_ref(X, K), 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"[kernel] topk ok (bitwise vs a stable top-k of pearson_cuda): "
+        f"{entries['topk']}")
+    torch.cuda.empty_cache()
 
     # min-plus: the hub Bellman-Ford round and the hub composition
     def dist(rows, cols, inf_frac=0.3):
@@ -186,6 +266,16 @@ def main() -> None:
     comp_ms = cuda_ms(lambda: minplus_cuda(DhT, Dh), 3)
     comp_plain = cuda_ms(lambda: ref.minplus_ref(DhT, Dh), 1)
     del DhT, Dh
+    # NaN operands: the kernel keeps them where the plain version does
+    An, Bn = dist(h, 4096), dist(4096, 4096)
+    idx = torch.randint(0, An.numel(), (3,), generator=gen, device=dev)
+    An.view(-1)[idx] = float("nan")
+    idx = torch.randint(0, Bn.numel(), (3,), generator=gen, device=dev)
+    Bn.view(-1)[idx] = float("nan")
+    nk, npl = minplus_cuda(An, Bn), ref.minplus_ref(An, Bn)
+    check(bool(torch.isnan(npl).any()) and same_nan(nk, npl),
+          "minplus kernel vs plain differ with NaN inputs")
+    del An, Bn, nk, npl
     b_ms, b_by = bound(4 * (h * n + n * n + h * n), 2 * h * n * n)
     c_ms, c_by = bound(4 * (n * h + h * n + n * n), 2 * n * h * n)
     entries["minplus"] = dict(
@@ -196,7 +286,7 @@ def main() -> None:
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         compose=dict(shape=[n, h, n], ms=comp_ms, plain_ms=comp_plain,
                      bound_ms=c_ms, bound_by=c_by, max_abs_err=0.0))
-    log(f"[kernel] minplus ok (bitwise): {entries['minplus']}")
+    log(f"[kernel] minplus ok (bitwise, NaN included): {entries['minplus']}")
 
     # masked argmax: the HAC scan; values on a 1/1000 grid give many ties
     Sm = torch.randint(0, 1000, (n, n), generator=gen, device=dev).float()
@@ -224,7 +314,68 @@ def main() -> None:
     log(f"[kernel] masked_argmax ok (bitwise): {entries['masked_argmax']}")
     torch.cuda.empty_cache()
 
-    # ---- 3. the main path ----------------------------------------------
+    # sparse relaxation: h sources over a connected graph of 3n-6 edges (a
+    # path plus random chords), one round and the fixed point, NaN included
+    E = 3 * n - 6
+    r = np.random.default_rng(args.seed)
+    pairs = {(i, i + 1) for i in range(n - 1)}
+    while len(pairs) < E:
+        a, b = (int(v) for v in r.integers(0, n, 2))
+        if a != b:
+            pairs.add((min(a, b), max(a, b)))
+    edges = torch.tensor(sorted(pairs), dtype=torch.int32, device=dev)
+    wts = torch.rand(E, generator=gen, device=dev) * 1.9 + 0.1
+    g = sp.csr_from_edges(n, edges, wts)
+    m = int(g.cols.shape[0])
+    src = torch.randperm(n, generator=gen, device=dev)[:h]
+    fk, fp = {}, {}
+    Dk = sp.sparse_apsp_sources(g, src, backend="cuda", stats=fk)
+    Dp = sp.sparse_apsp_sources(g, src, backend="torch", stats=fp)
+    check(bool(torch.equal(Dk, Dp)) and fk == fp and bool(
+        torch.isfinite(Dk).all()),
+        f"sparse_relax fixed point differs ({fk} vs {fp} rounds)")
+    D1 = torch.full((h, n), float("inf"), device=dev)
+    D1[torch.arange(h, device=dev), src] = 0.0
+    for _ in range(3):
+        D1 = ops.sparse_relax(D1, g, backend="torch")[0]
+    D1.view(-1)[torch.randint(0, h * n, (h,), generator=gen,
+                              device=dev)] = float("nan")
+    ok, ck = ops.sparse_relax(D1, g, backend="cuda")
+    op, cp = ops.sparse_relax(D1, g, backend="torch")
+    check(same_nan(ok, op) and bool(torch.isnan(op).any())
+          and int(ck.item()) == int(bool(cp.item())),
+          "sparse_relax kernel vs plain differ on one round with NaN")
+    del D1, ok, op
+    b_ms, b_by = bound(4 * 2 * h * n + 4 * (n + 1) + 8 * m, 2 * h * m)
+    entries["sparse_relax"] = dict(
+        name="sparse_relax", route="cuda",
+        source="src/repro_torch/kernels/csrc/sparse_relax.cu",
+        replaces="src/repro/kernels/sparse_apsp.py:114",
+        shape=[h, n, m], max_abs_err=0.0, fixed_point_rounds=fk["bf_rounds"],
+        ms=cuda_ms(lambda: sp.sparse_relax_cuda(
+            Dk, g.indptr, g.cols, g.vals), 20),
+        plain_ms=cuda_ms(lambda: ref.sparse_relax_ref(
+            Dk, g.indptr, g.cols, g.vals), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del Dk, Dp, g, edges, wts
+    log(f"[kernel] sparse_relax ok (bitwise, NaN included): "
+        f"{entries['sparse_relax']}")
+    del X
+    torch.cuda.empty_cache()
+    log(f"[time] kernels phase done at {time.perf_counter() - t_start:.1f} s")
+
+    def check_linkage(Z, nn, kk, labels, what):
+        check(labels.shape == (nn,), f"{what}: labels shape {labels.shape}")
+        check(Z.shape == (nn - 1, 4) and Z.dtype == np.float32,
+              f"{what}: linkage {Z.shape} {Z.dtype}")
+        check(bool(np.isfinite(Z).all()), f"{what}: non-finite linkage")
+        check(bool((np.diff(Z[:, 2]) >= 0).all()),
+              f"{what}: complete-linkage heights are not monotone")
+        check(int(Z[-1, 3]) == nn, f"{what}: last merge does not hold all")
+        check(len(np.unique(labels)) == kk,
+              f"{what}: labels do not have {kk} clusters")
+
+    # ---- 3. the dense main path ----------------------------------------
     cfg = PipelineConfig.opt()
     sync()
     torch.cuda.reset_peak_memory_stats()
@@ -240,38 +391,149 @@ def main() -> None:
     check(launches["masked_argmax"] == n - 1,
           f"masked_argmax launches {launches} != n-1 = {n - 1}")
     Z = res.linkage
-    check(res.labels.shape == (n,), f"labels shape {res.labels.shape}")
-    check(Z.shape == (n - 1, 4) and Z.dtype == np.float32,
-          f"linkage {Z.shape} {Z.dtype}")
-    check(bool(np.isfinite(Z).all()), "non-finite linkage entries")
-    check(bool((np.diff(Z[:, 2]) >= 0).all()),
-          "complete-linkage heights are not monotone")
-    check(int(Z[-1, 3]) == n, "last merge does not hold all n points")
-    check(len(np.unique(res.labels)) == k, "labels do not have k clusters")
+    check_linkage(Z, n, k, res.labels, "dense")
     ari = adjusted_rand_index(y, res.labels)
+    dense_labels = res.labels
     t = res.timings
     log(f"[main] {name} n={n} L={L}: total {total:.3f} s, pops "
         f"{int(t['tmfg_pops'])}, tmfg host syncs {int(t['tmfg_host_syncs'])}, "
         f"hub Bellman-Ford rounds {int(t['apsp_rounds'])}, launches "
         f"{launches}, peak memory {peak} B, ARI vs generator labels {ari:.4f}")
 
-    res2 = cluster(X_np, k=k, config=cfg, fused=False, collect_timings=True)
-    check(np.array_equal(res2.linkage, Z), "fused=False linkage differs")
-    check(np.array_equal(res2.labels, res.labels), "fused=False labels differ")
-    stages = {s: res2.timings[s] for s in
+    # the staged repeat, at REPEAT_DATASET size (its own default run first
+    # when that is another dataset)
+    rep = REPEAT_DATASET
+    if rep == args.dataset:
+        Xr, Zr, lr = X_np, Z, res.labels
+    else:
+        _, Xr, _, kr = make_ucr_like(rep, seed=args.seed)
+        r0_ = cluster(Xr, k=kr, config=cfg)
+        Zr, lr = r0_.linkage, r0_.labels
+        del r0_
+    del res
+    res2 = cluster(Xr, k=len(np.unique(lr)), config=cfg, fused=False,
+                   collect_timings=True)
+    check(np.array_equal(res2.linkage, Zr), "fused=False linkage differs")
+    check(np.array_equal(res2.labels, lr), "fused=False labels differ")
+    stages = {s_: res2.timings[s_] for s_ in
               ("similarity", "tmfg", "apsp", "dbht", "hac", "total")}
-    log(f"[main] per-stage seconds (fused=False): {json.dumps(stages)}")
-    main = dict(dataset=name, n=n, L=L, k=k, total_s=total, stages_s=stages,
-                pops=int(t["tmfg_pops"]),
+    log(f"[main] per-stage seconds (fused=False, {rep} n={Xr.shape[0]}): "
+        f"{json.dumps(stages)}")
+    main = dict(dataset=name, n=n, L=L, k=k, total_s=total,
+                stages_dataset=rep, stages_n=int(Xr.shape[0]),
+                stages_s=stages, pops=int(t["tmfg_pops"]),
                 tmfg_host_syncs=int(t["tmfg_host_syncs"]),
                 bf_rounds=int(t["apsp_rounds"]), launches=launches,
                 peak_bytes=peak, ari=ari)
-    del res, res2
+    del res2
     torch.cuda.empty_cache()
+    log(f"[time] dense phase done at {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 4. cuda vs torch backends at n = 2000 --------------------------
+    # ---- 4. the approx path --------------------------------------------
+    cfg_a = PipelineConfig.approx(sim_k=K)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ra = cluster(X_np, k=k, config=cfg_a, collect_timings=True)
+    sync()
+    total_a = time.perf_counter() - t0
+    launches_a = ops.launch_counts()
+    peak_a = torch.cuda.max_memory_allocated()
+    ta = ra.timings
+    # a slot-grid overflow reruns staged, whose timings carry the stages
+    check("tmfg" not in ta and ra.dbht.hubs is not None,
+          "approx: the fused run overflowed its slot caps and reran staged")
+    check(launches_a["topk"] == 1, f"approx: topk launches {launches_a}")
+    check(launches_a["sparse_relax"] == int(ta["apsp_rounds"]) > 0,
+          f"approx: sparse_relax launches {launches_a} != rounds "
+          f"{ta['apsp_rounds']}")
+    check(launches_a["masked_argmax"] > 0,
+          f"approx: masked_argmax launches {launches_a}")
+    check(launches_a["pearson"] == 0, f"approx: pearson ran {launches_a}")
+    # below a few panels' worth of rows the (512, n) sweep panels are
+    # themselves a large share of (n, n); the bound is checked from there
+    if n >= 8 * 512:
+        check(peak_a < n * n * 4, f"approx: peak memory {peak_a} B >= one "
+              f"(n, n) f32 {n * n * 4} B")
+    Za = ra.linkage
+    check_linkage(Za, n, k, ra.labels, "approx")
+    ari_a = adjusted_rand_index(y, ra.labels)
+    ari_ad = adjusted_rand_index(dense_labels, ra.labels)
+    log(f"[approx] {name} n={n} sim_k={K}: total {total_a:.3f} s, pops "
+        f"{int(ta['tmfg_pops'])}, tmfg host syncs "
+        f"{int(ta['tmfg_host_syncs'])}, sparse Bellman-Ford rounds "
+        f"{int(ta['apsp_rounds'])}, fallbacks {int(ta['sim_fallbacks'])} "
+        f"(rate {ta['sim_fallback_rate']:.4f}), pair misses "
+        f"{int(ta['sim_pair_misses'])}, launches {launches_a}, peak memory "
+        f"{peak_a} B, ARI vs generator {ari_a:.4f}, vs dense {ari_ad:.4f}")
+    Xs, ks, rep_a = X_np, k, name
+    projected = time.perf_counter() - t_start + 1.1 * total_a + PARITY_S
+    if projected > STAGED_BUDGET_S and name != REPEAT_DATASET:
+        rep_a = REPEAT_DATASET
+        _, Xs, _, ks = make_ucr_like(rep_a, seed=args.seed)
+        log(f"[approx] projected finish {projected:.1f} s > "
+            f"{STAGED_BUDGET_S} s: the fused=False repeat runs at {rep_a} "
+            f"size")
+        del ra
+        ra = cluster(Xs, k=ks, config=cfg_a)
+        Za = ra.linkage
+    ra_dir = ra.dbht.direction.cpu().numpy()
+    ra_labels = ra.labels
+    del ra
+    torch.cuda.empty_cache()
+    rs = cluster(Xs, k=ks, config=cfg_a, fused=False, collect_timings=True)
+    ts = rs.timings
+    same_link = bool(np.array_equal(rs.linkage, Za))
+    same_merges = bool(np.array_equal(rs.linkage[:, [0, 1, 3]],
+                                      Za[:, [0, 1, 3]]))
+    height_diff = float(np.abs(rs.linkage[:, 2] - Za[:, 2]).max())
+    # the per-cluster assembly orders equal heights of two clusters by a
+    # stable sort, the one global run by its flat-argmin scan: with equal
+    # sorted heights, a difference in row order lies in such ties
+    same_heights = bool(np.array_equal(np.sort(rs.linkage[:, 2]),
+                                       np.sort(Za[:, 2])))
+    _, hcount = np.unique(Za[:, 2], return_counts=True)
+    tied_rows = int(hcount[hcount > 1].sum())
+    rows_differ = int((rs.linkage != Za).any(axis=1).sum())
+    dir_diff = int((rs.dbht.direction.cpu().numpy() != ra_dir).sum())
+    ari_fs = adjusted_rand_index(rs.labels, ra_labels)
+    stages_a = {s_: ts[s_] for s_ in
+                ("similarity", "tmfg", "apsp", "dbht", "hac", "total")}
+    log(f"[approx] per-stage seconds (fused=False, {rep_a} n={Xs.shape[0]}):"
+        f" {json.dumps(stages_a)}; "
+        f"linkage equal to the fused run: {same_link} (merges equal: "
+        f"{same_merges}, max height difference {height_diff}, rows that "
+        f"differ {rows_differ}, sorted heights equal {same_heights}, rows "
+        f"in tied heights {tied_rows}); ARI fused vs staged {ari_fs:.4f}; "
+        f"directions that differ {dir_diff}")
+    approx = dict(dataset=name, n=n, L=L, k=k, sim_k=K, total_s=total_a,
+                  stages_dataset=rep_a, stages_n=int(Xs.shape[0]),
+                  stages_s=stages_a, pops=int(ta["tmfg_pops"]),
+                  tmfg_host_syncs=int(ta["tmfg_host_syncs"]),
+                  bf_rounds=int(ta["apsp_rounds"]),
+                  staged_pops=int(ts["tmfg_pops"]),
+                  staged_host_syncs=int(ts["tmfg_host_syncs"]),
+                  staged_bf_rounds=int(ts["apsp_rounds"]),
+                  fallbacks=int(ta["sim_fallbacks"]),
+                  fallback_rate=ta["sim_fallback_rate"],
+                  pair_misses=int(ta["sim_pair_misses"]),
+                  launches=launches_a, peak_bytes=peak_a, ari=ari_a,
+                  ari_vs_dense=ari_ad, staged_equal=same_link,
+                  staged_merges_equal=same_merges,
+                  staged_max_height_diff=height_diff,
+                  staged_rows_differ=rows_differ,
+                  staged_sorted_heights_equal=same_heights,
+                  tied_height_rows=tied_rows,
+                  ari_fused_vs_staged=ari_fs, directions_differ=dir_diff)
+    del rs
+    torch.cuda.empty_cache()
+    log(f"[time] approx phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 5. cuda vs torch backends at n = 2000 --------------------------
     Xp, yp = make_dataset(PARITY_N, 46, 8, noise=0.5, seed=args.seed + 1)
-    Sp = ops.pearson(torch.from_numpy(Xp).to(dev), backend="torch")
+    Xpd = torch.from_numpy(Xp).to(dev)
+    Sp = ops.pearson(Xpd, backend="torch")
     rc = cluster(S=Sp, config=PipelineConfig.opt(backend="cuda"), k=8)
     rt = cluster(S=Sp, config=PipelineConfig.opt(backend="torch"), k=8)
     check(np.array_equal(rc.linkage, rt.linkage),
@@ -284,18 +546,43 @@ def main() -> None:
     ht = cluster(S=Sp, config=PipelineConfig.heap(backend="torch"), k=8)
     check(np.array_equal(hc.linkage, ht.linkage),
           "heap: cuda and torch backends: linkage differs on one S")
+    # approx: the sparse tail through the relaxation, min-plus and
+    # masked-argmax kernels against the plain path
+    ac = cluster(S=Sp, config=PipelineConfig.approx(sim_k=K, backend="cuda"),
+                 k=8)
+    at = cluster(S=Sp, config=PipelineConfig.approx(sim_k=K,
+                                                    backend="torch"), k=8)
+    check(ac.dbht.hubs is not None and np.array_equal(ac.linkage, at.linkage),
+          "approx: cuda and torch backends: linkage differs on one S")
     lc = cluster(Xp, config=PipelineConfig.opt(backend="cuda"), k=8).labels
     lt = cluster(Xp, config=PipelineConfig.opt(backend="torch"), k=8).labels
     ari_x = adjusted_rand_index(lc, lt)
     check(ari_x >= 0.99, f"cuda vs torch labels from X: ARI {ari_x} < 0.99")
-    log(f"[parity] n={PARITY_N}: opt and heap linkage bitwise equal on one "
-        f"S; labels "
-        f"from X ARI {ari_x:.4f}; ARI vs generator "
-        f"{adjusted_rand_index(yp, lc):.4f}")
+    # at sim_k = n-1 the top-K kernel's table holds the Pearson kernel's
+    # values, so the sparse TMFG is the dense OPT one, bit for bit
+    dense_tm = tmfg_mod.build_tmfg(ops.pearson(Xpd, backend="cuda"), topk=64)
+    table, Zp = knn.topk_pearson_and_z(Xpd, PARITY_N - 1, backend="cuda")
+    sparse_tm, w_e, cnt = sparse_tmfg.build_tmfg_sparse(table, Xn=Zp)
+    for f in dense_tm._fields:
+        check(bool(torch.equal(getattr(dense_tm, f), getattr(sparse_tm, f))),
+              f"full-K sparse TMFG differs from the dense one in {f}")
+    Sc = ops.pearson(Xpd, backend="cuda")
+    e_ = dense_tm.edges.long()
+    check(bool(torch.equal(w_e, Sc[e_[:, 0], e_[:, 1]])),
+          "full-K sparse TMFG edge weights differ from S")
+    log(f"[parity] n={PARITY_N}: opt, heap and approx linkage bitwise equal "
+        f"on one S; labels from X ARI {ari_x:.4f}; ARI vs generator "
+        f"{adjusted_rand_index(yp, lc):.4f}; sim_k=n-1 sparse TMFG bitwise "
+        f"the dense OPT TMFG ({int(dense_tm.pops)} pops, "
+        f"{cnt.fallbacks} fallbacks, {cnt.pair_misses} misses)")
 
+    dense_kernels = ("pearson", "minplus", "masked_argmax")
     for e in entries.values():
-        e["launches"] = launches[e["name"]]
+        e["launches"] = (launches if e["name"] in dense_kernels
+                         else launches_a)[e["name"]]
+    main["seconds_in_all"] = time.perf_counter() - t_start
     log(f"[main] {json.dumps(main)}")
+    log(f"[approx] {json.dumps(approx)}")
     log(smi_line)
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {

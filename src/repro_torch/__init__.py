@@ -1,6 +1,6 @@
 """repro_torch — the PyTorch/CUDA port of ``repro`` (TMFG-DBHT clustering).
 
-Mirrors the layout of the JAX package (``core/``, ``kernels/``,
+Mirrors the layout of the JAX package (``core/``, ``approx/``, ``kernels/``,
 ``data/``); the JAX package is the reference each part is tested
 against.  The port imports torch and numpy only, never jax or repro.
 

@@ -1,5 +1,6 @@
 """The clustering pipeline in PyTorch: the port of ``repro.core`` as far
-as this slice goes (OPT-TDBHT and HEAP-TDBHT on the dense path).
+as the port goes (OPT-TDBHT and HEAP-TDBHT on the dense path, and the
+approx path, ``PipelineConfig.approx()``, in ``fused_approx``).
 
 Public API (the reference's names):
   PipelineConfig        -- frozen, hashable stage config (module: .config)

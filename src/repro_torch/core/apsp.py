@@ -11,7 +11,14 @@ The port of ``repro.core.apsp`` for the dense methods (DESIGN.md §4.3):
 Every product goes through ``kernels.ops.minplus`` (the CUDA kernel on
 the card).  The Bellman-Ford convergence test is one host sync per round,
 as the ``lax.while_loop`` predicate is one device value per round in the
-reference.  The sparse method is ROADMAP Queue 1 item 8.
+reference.
+
+The sparse hub factor (``hub_factor_sparse``, DESIGN.md §14.2) runs the
+same fixed point over the 2(3n-6) CSR entries of the TMFG with
+``kernels.sparse_apsp`` (``ops.sparse_relax``, the CUDA kernel on the
+card), in O(h·n + E) memory; ``apsp_sparse`` densifies it for parity
+tests.  ``apsp(method="sparse")`` in the pipeline is ROADMAP Queue 1
+item 8.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import math
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels import sparse_apsp as sparse_kernels
 
 from .config import not_ported
 
@@ -103,6 +111,51 @@ def apsp_hub(W: torch.Tensor, *, n_hubs: int = 0, rounds: int = 0,
         stats["bf_rounds"] = i
     est = ops.minplus(D_h.T.contiguous(), D_h, backend=backend)   # (n, n)
     torch.minimum(est, W, out=est)                       # in place: no copy
+    est = torch.minimum(est, est.T)
+    est.fill_diagonal_(0.0)
+    return est
+
+
+def hub_factor_sparse(graph: sparse_kernels.CSRGraph, *, n_hubs: int = 0,
+                      rounds: int = 0, backend: str = "auto",
+                      stats: dict = None):
+    """Hub factorization of sparse APSP: ``(hubs (h,), D_h (h, n))``.
+
+    The weighted-degree hubs of :func:`hub_rows` from the CSR form of the
+    strength (``sparse_apsp.hub_strength``), ties to the lowest index,
+    and the Bellman-Ford fixed point from them over the CSR entries
+    (``rounds=0`` caps at n).  Any distance is then
+    ``min(min_h D_h[h, u] + D_h[h, v], w(u, v) if an edge)``.
+    ``stats``, if a dict, receives ``bf_rounds``."""
+    h = hub_count(graph.n, n_hubs)
+    strength = sparse_kernels.hub_strength(graph)
+    hubs = torch.sort(strength, descending=True, stable=True)[1][:h]
+    D_h = sparse_kernels.sparse_apsp_sources(graph, hubs, rounds=rounds,
+                                             backend=backend, stats=stats)
+    return hubs, D_h
+
+
+def csr_from_dense(W: torch.Tensor) -> sparse_kernels.CSRGraph:
+    """CSR adjacency from a dense length matrix (finite off-diagonal
+    entries are edges, taken from the upper triangle in row-major order,
+    as the reference's ``np.triu_indices``)."""
+    n = W.shape[0]
+    iu, ju = torch.triu_indices(n, n, 1, device=W.device)
+    w = W[iu, ju].float()
+    keep = torch.isfinite(w)
+    edges = torch.stack([iu[keep], ju[keep]], dim=1).int()
+    return sparse_kernels.csr_from_edges(n, edges, w[keep])
+
+
+def apsp_sparse(W: torch.Tensor, *, n_hubs: int = 0, rounds: int = 0,
+                backend: str = "auto") -> torch.Tensor:
+    """Sparse hub APSP densified back to (n, n), for parity tests: the hub
+    factor of W's CSR composed as ``min_h D_h[:, u] + D_h[:, v]`` with
+    :func:`apsp_hub`'s edge floor, symmetrization and zero diagonal."""
+    _, D_h = hub_factor_sparse(csr_from_dense(W), n_hubs=n_hubs,
+                               rounds=rounds, backend=backend)
+    est = ops.minplus(D_h.T.contiguous(), D_h, backend=backend)
+    torch.minimum(est, W.float(), out=est)
     est = torch.minimum(est, est.T)
     est.fill_diagonal_(0.0)
     return est

@@ -215,7 +215,6 @@ _NOT_PORTED = (
     ("method", "corr", "Queue 1 item 2 (CORR-TMFG construction)"),
     ("method", "orig", "Queue 1 item 2 (ORIG-TMFG construction)"),
     ("apsp_method", "sparse", "Queue 1 item 8 (sparse APSP tail)"),
-    ("similarity", "topk", "Queue 1 item 7 (approx path)"),
     ("filter", "mst", "Queue 1 item 10 (filters)"),
     ("filter", "pmfg", "Queue 1 item 10 (filters)"),
     ("filter", "ag", "Queue 1 item 10 (filters)"),

@@ -38,7 +38,9 @@ class DBHTResult:
     bubble_of: torch.Tensor      # (n,) i32 fine bubble per vertex
     converging: torch.Tensor     # int64 ids of converging bubbles
     direction: torch.Tensor      # (n-4,) i32: +1 edge points parent->child
-    apsp: torch.Tensor           # (n, n) f32 distances
+    apsp: torch.Tensor           # (n, n) f32 distances, or the hub
+    #                              factor D_h (h, n) of the sparse tail
+    hubs: Optional[torch.Tensor] = None  # (h,) i32 hub ids (sparse tail)
 
     def labels(self, k: int) -> np.ndarray:
         n = self.cluster_of.shape[0]
@@ -157,6 +159,33 @@ def _dbht_device_core(S, edges, bubble_parent, bubble_tri, bubble_verts,
     return out
 
 
+def _no_stage(name: str) -> None:
+    pass
+
+
+def dense_tail(S: torch.Tensor, tm, cfg: PipelineConfig, *,
+               D: Optional[torch.Tensor] = None, done=_no_stage):
+    """The dense tail on a TMFG ``tm`` of S: edge lengths and APSP (unless
+    ``D`` is given), the device DBHT tree and one nested linkage.
+    Returns (the device-core dict, Bellman-Ford rounds); ``done(stage)``
+    is called after "apsp", "dbht" and "hac" (the staged run's fences)."""
+    stats = {"bf_rounds": 0}
+    if D is None:
+        W = apsp_mod.edge_lengths(S.shape[0], tm.edges, S)
+        D = apsp_mod.apsp(W, method=cfg.apsp_method, n_hubs=cfg.apsp_hubs,
+                          rounds=cfg.apsp_rounds, backend=cfg.backend,
+                          stats=stats)
+        del W
+    done("apsp")
+    out = _dbht_tree(S, tm.edges, tm.bubble_parent, tm.bubble_tri,
+                     tm.bubble_verts, tm.home_bubble, D)
+    done("dbht")
+    out["Z"] = hac_mod.complete_linkage(out.pop("adj"), backend=cfg.backend)
+    out["D"] = D
+    done("hac")
+    return out, stats["bf_rounds"]
+
+
 def _result_from_device(out) -> DBHTResult:
     """DBHTResult from the device-core output dict."""
     conv = torch.nonzero(out["conv_mask"]).reshape(-1)
@@ -199,14 +228,7 @@ def dbht(S: torch.Tensor, tmfg, *, apsp_method: Optional[str] = None,
     if impl != "device":
         raise ValueError(f"unknown DBHT impl {impl!r}")
     S = S.float()
-    if precomputed_apsp is not None:
-        D = precomputed_apsp.to(S.device, torch.float32)
-    else:
-        W = apsp_mod.edge_lengths(S.shape[0], tmfg.edges, S)
-        D = apsp_mod.apsp(W, method=cfg.apsp_method, n_hubs=cfg.apsp_hubs,
-                          rounds=cfg.apsp_rounds, backend=cfg.backend)
-        del W
-    out = _dbht_device_core(S, tmfg.edges, tmfg.bubble_parent,
-                            tmfg.bubble_tri, tmfg.bubble_verts,
-                            tmfg.home_bubble, D, backend=cfg.backend)
+    D = None if precomputed_apsp is None else \
+        precomputed_apsp.to(S.device, torch.float32)
+    out, _ = dense_tail(S, tmfg, cfg, D=D)
     return _result_from_device(out)

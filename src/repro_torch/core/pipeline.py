@@ -19,6 +19,14 @@ the ones the algorithm needs (one per lazy-TMFG pop, one per Bellman-Ford
 round) and one device->host copy at the end; ``fused=False`` synchronises
 after each stage and reports per-stage seconds.  Both give bitwise the
 same result.
+
+``PipelineConfig.approx()`` (``similarity="topk"``) never builds the
+(n, n) similarity: the default runs ``core/fused_approx.py`` (top-K
+kernel, sparse TMFG, sparse hub APSP with the relaxation kernel, the
+sparse DBHT tail); ``fused=False`` runs the staged form the reference
+runs -- the table, the sparse TMFG, the weighted adjacency and the dense
+tail above -- and is also where a fused run whose clusters overflow the
+reference's slot caps is rerun.
 """
 
 from __future__ import annotations
@@ -32,11 +40,15 @@ import torch
 
 from repro_torch.kernels import ops
 
-from . import apsp as apsp_mod
+from repro_torch.approx import knn as knn_mod
+from repro_torch.approx import sparse_tmfg as sparse_tmfg_mod
+
 from . import dbht as dbht_mod
+from . import fused_approx as fa_mod
 from . import hac as hac_mod
 from .config import VARIANTS, PipelineConfig, check_ported  # noqa: F401
-from .tmfg import TMFGResult, _build_lazy, prepare_similarity
+from .tmfg import (TMFGResult, _build_lazy, adjacency_from_weights,
+                   prepare_similarity)
 
 
 @dataclass
@@ -107,12 +119,15 @@ def cluster(X=None, *, S=None, k: Optional[int] = None,
     (and, with ``fused=False``, ``similarity``, ``tmfg``, ``apsp``,
     ``dbht`` and ``hac``), plus the counts ``tmfg_pops``,
     ``tmfg_host_syncs`` and ``apsp_rounds`` (Bellman-Ford rounds; 0 on
-    the exact path).
+    the exact path), and for the approx configs ``sim_fallbacks``,
+    ``sim_fallback_rate`` and ``sim_pair_misses``.
     """
     cfg = config if config is not None else PipelineConfig()
     check_ported(cfg)
     dev = resolve_device(device)
     fused = True if fused is None else bool(fused)
+    if cfg.similarity == "topk":
+        return _cluster_approx(X, S, k, cfg, fused, dev, collect_timings)
     t0 = time.perf_counter()
     st = _Stages(dev, fenced=not fused)
 
@@ -127,33 +142,90 @@ def cluster(X=None, *, S=None, k: Optional[int] = None,
     tm, syncs = _build_lazy(prepare_similarity(S), cfg.topk)
     st.done("tmfg")
 
-    W = apsp_mod.edge_lengths(S.shape[0], tm.edges, S)
-    apsp_stats = {"bf_rounds": 0}
-    D = apsp_mod.apsp(W, method=cfg.apsp_method, n_hubs=cfg.apsp_hubs,
-                      rounds=cfg.apsp_rounds, backend=cfg.backend,
-                      stats=apsp_stats)
-    del W
-    st.done("apsp")
+    core, rounds = dbht_mod.dense_tail(S, tm, cfg, done=st.done)
+    out = _finish(dbht_mod._result_from_device(core), tm, k)
+    if collect_timings:
+        out.timings = _timings(st, t0, tm, syncs, rounds)
+    return out
 
-    out = dbht_mod._dbht_tree(S, tm.edges, tm.bubble_parent, tm.bubble_tri,
-                              tm.bubble_verts, tm.home_bubble, D)
-    st.done("dbht")
-    out["Z"] = hac_mod.complete_linkage(out.pop("adj"),
-                                                 backend=cfg.backend)
-    out["D"] = D
-    st.done("hac")
 
-    res = dbht_mod._result_from_device(out)
+def _timings(st: _Stages, t0: float, tm: TMFGResult, syncs: int,
+             rounds: int) -> Dict[str, float]:
+    """Per-stage seconds (staged runs), ``total`` and the loop counts."""
+    timings = dict(st.seconds)
+    timings["total"] = (sum(st.seconds.values()) if st.fenced
+                        else time.perf_counter() - t0)
+    timings["tmfg_pops"] = float(tm.pops)
+    timings["tmfg_host_syncs"] = float(syncs)
+    timings["apsp_rounds"] = float(rounds)
+    return timings
+
+
+def _finish(res: dbht_mod.DBHTResult, tm: TMFGResult,
+            k: Optional[int]) -> ClusterResult:
+    """The result with the linkage on the host (the one bulk transfer,
+    which waits for the device) and the labels cut there."""
+    n = res.cluster_of.shape[0]
     linkage = res.linkage.cpu().numpy()          # the one bulk transfer
     kk = k if k is not None else int(res.converging.shape[0])
-    labels = hac_mod.cut_linkage(linkage, S.shape[0], kk)
-    timings: Dict[str, float] = {}
-    if collect_timings:
-        timings.update(st.seconds)
-        timings["total"] = (sum(st.seconds.values()) if not fused
-                            else time.perf_counter() - t0)
-        timings["tmfg_pops"] = float(tm.pops)
-        timings["tmfg_host_syncs"] = float(syncs)
-        timings["apsp_rounds"] = float(apsp_stats["bf_rounds"])
+    labels = hac_mod.cut_linkage(linkage, n, kk)
     return ClusterResult(labels=labels, linkage=linkage, tmfg=tm, dbht=res,
-                         edge_sum=float(tm.edge_sum), timings=timings)
+                         edge_sum=float(tm.edge_sum))
+
+
+def _cluster_approx(X, S, k, cfg: PipelineConfig, fused: bool,
+                    dev: torch.device, collect_timings: bool):
+    """``similarity="topk"``: the fused body of ``core/fused_approx.py``,
+    or, with ``fused=False`` (and after a fused run that overflowed the
+    slot caps, as the reference does), the staged path -- the table, the
+    sparse TMFG, the weighted adjacency and the dense tail."""
+    if S is None and X is None:
+        raise ValueError("need X or S")
+    have_S = S is not None
+    arr = _as_f32(S if have_S else X, dev)
+    n = arr.shape[0]
+    t0 = time.perf_counter()
+    if fused:
+        core = fa_mod.fused_one(cfg, have_S, n)(arr)
+        if core["overflow"]:
+            return _cluster_approx(X, S, k, cfg, False, dev,
+                                   collect_timings)
+        tm = core["tmfg"]
+        res = dbht_mod._result_from_device(core)
+        res.hubs = core["hubs"]
+        out = _finish(res, tm, k)
+        if collect_timings:
+            out.timings = _timings(_Stages(dev, fenced=False), t0, tm,
+                                   core["tmfg_host_syncs"], core["bf_rounds"])
+            out.timings.update(_sim_counts(core["counters"]))
+        return out
+
+    st = _Stages(dev, fenced=True)
+    kk = min(cfg.sim_k, n - 1)
+    if have_S:
+        S, Zn = arr, None
+        table = knn_mod.topk_from_similarity(S, kk)
+    else:
+        table, Zn = knn_mod.topk_pearson_and_z(arr, kk, backend=cfg.backend)
+    st.done("similarity")
+    sst = {}
+    tm, w_edges, counters = sparse_tmfg_mod.build_tmfg_sparse(
+        table, Xn=Zn, S=S, stats=sst)
+    del table, Zn
+    if S is None:
+        S = adjacency_from_weights(n, tm.edges, w_edges)
+    st.done("tmfg")
+    core, rounds = dbht_mod.dense_tail(S, tm, cfg, done=st.done)
+    out = _finish(dbht_mod._result_from_device(core), tm, k)
+    if collect_timings:
+        out.timings = _timings(st, t0, tm, sst["host_syncs"], rounds)
+        out.timings.update(_sim_counts(counters))
+    return out
+
+
+def _sim_counts(counters) -> Dict[str, float]:
+    """The sparse construction's diagnostics, as the reference reports
+    them in ``timings``."""
+    return {"sim_fallbacks": float(counters.fallbacks),
+            "sim_fallback_rate": counters.fallbacks / max(counters.lookups, 1),
+            "sim_pair_misses": float(counters.pair_misses)}

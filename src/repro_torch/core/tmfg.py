@@ -10,8 +10,11 @@ value (is the popped face's cached vertex stale?), so an eager PyTorch
 loop has to bring something to the host on every pop.  The port splits
 the state accordingly:
 
-  * on the device: the (n, n) similarity S, the (n, K) candidate table,
-    and the ``inserted`` mask that the candidate lookups read;
+  * on the device: the values -- the (n, n) similarity S and the (n, K)
+    candidate table here (``_Device``), or the table-first source of the
+    sparse build (``repro_torch.approx.sparse_tmfg``), both driven by the
+    one loop :func:`lazy_loop` -- and the ``inserted`` mask that the
+    candidate lookups read;
   * on the host (numpy): the O(n) bookkeeping — faces, edges, bubbles,
     insertion order — and the per-face cached (gain, best vertex), so
     the vectorized heap-pop (argmax over the face gains) and the stale
@@ -21,9 +24,12 @@ Each pop then makes exactly one device round trip: the popped face's
 corner indices go up in one copy from a pinned buffer, the device runs
 the candidate lookups and the face-gain gathers, and one copy brings back
 the new (best vertex, gain) of the touched faces and, on an insert, the
-three new edge weights.  Building at n vertices costs ``pops + 2`` host
-syncs (two for the initial clique), and no host-to-device copy waits
-for the stream; :func:`_build_lazy` returns the count.
+three new edge weights (and the sparse source's fallback and miss
+counts).  Building at n vertices costs ``pops + 2`` host syncs (two for
+the initial clique), and no host-to-device copy waits for the stream;
+:func:`_build_lazy` returns the count.  The clique's row sums reduce
+(64, n) panels, so the dense and the sparse build sum every row with the
+same operands and the same reduction on every device.
 
 Maxcorr (a row's best uninserted vertex) is never cached on the host:
 the reference only ever reads it for the corners of a face it has just
@@ -90,14 +96,43 @@ def candidate_table(S: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat(parts)
 
 
-class _Device:
-    """The device half of the lazy construction: S, the table and the mask."""
+# rows per panel of the clique's row sums; the sparse build reduces
+# (ROW_SUM_PANEL, n) panels of its table, and the dense one panels of S of
+# the same shape, so both sum every row in the same order on every device
+ROW_SUM_PANEL = 64
 
-    def __init__(self, S: torch.Tensor, table: Optional[torch.Tensor]):
-        self.S = S
-        self.table = table
-        dev = S.device
-        self.inserted = torch.zeros(S.shape[0], dtype=torch.bool, device=dev)
+
+def panel_row_sums(panel, n: int) -> torch.Tensor:
+    """Finite row sums ``where(isfinite(P), P, 0).sum(1)`` of the (n, n)
+    matrix whose rows ``panel(r0, r1)`` returns, ROW_SUM_PANEL rows at a
+    time (the reference's ``_row_sums_blocked`` panels)."""
+    parts = []
+    for r0 in range(0, n, ROW_SUM_PANEL):
+        P = panel(r0, min(r0 + ROW_SUM_PANEL, n))
+        parts.append(torch.where(torch.isfinite(P), P, 0.0).sum(dim=1))
+    return torch.cat(parts)
+
+
+class _Source:
+    """The device half of the lazy construction: the ``inserted`` mask the
+    lookups read, the pinned index upload and the counted download.
+
+    A value source (``_Device`` here, the table-first source in
+    ``repro_torch.approx.sparse_tmfg``) adds:
+
+      * ``row_sums()``    -- (n,) finite row sums for the clique choice;
+      * ``seed_lookup(W)`` -- the clique corners' first best vertices;
+      * ``lookup(W)``     -- (best uninserted vertex per row of W,
+                             fallback count or None);
+      * ``values(r, c)``  -- (S[r, c], miss count or None).
+
+    The counts stay on the device and ride the step's one download.
+    """
+
+    def __init__(self, n: int, dev: torch.device):
+        self.n = n
+        self.device = dev
+        self.inserted = torch.zeros(n, dtype=torch.bool, device=dev)
         pin = dev.type == "cuda"
         self._host = torch.empty(4, dtype=torch.int64, pin_memory=pin)
         self._dev = torch.empty(4, dtype=torch.int64, device=dev)
@@ -110,9 +145,9 @@ class _Device:
         """A small index constant on the device; through pinned memory
         on a card, so the copy does not wait for the stream."""
         t = torch.tensor(rows, dtype=torch.int64)
-        if self.S.device.type != "cuda":
+        if self.device.type != "cuda":
             return t
-        return t.pin_memory().to(self.S.device, non_blocking=True)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def upload(self, verts) -> torch.Tensor:
         """The vertex list on the device, through the pinned buffer.
@@ -127,35 +162,73 @@ class _Device:
         self.syncs += 1
         return t.cpu().numpy()
 
+    def first_uninserted(self, table: torch.Tensor, W: torch.Tensor):
+        """(first uninserted entry of each row of W in ``table`` (n, K),
+        whether there is one); the table is sorted best first."""
+        tk = table.index_select(0, W)                        # (w, K)
+        ok = ~self.inserted[tk]
+        j = ok.to(torch.int32).argmax(dim=1, keepdim=True)   # first True
+        return tk.gather(1, j)[:, 0], ok.gather(1, j)[:, 0]
+
+    def pairs(self, W: torch.Tensor, mc: torch.Tensor, nfaces: int):
+        """(best vertex, gain, miss count or None) of the step's
+        ``nfaces`` faces, given as corner positions in W, from the
+        corners' fresh lookups ``mc``."""
+        pos = self._faces[nfaces]
+        fv = W[pos]                                          # (q, 3)
+        cands = mc[pos]                                      # (q, 3)
+        q = fv.shape[0]
+        M, miss = self.values(fv[:, :, None].expand(q, 3, 3),
+                              cands[:, None, :].expand(q, 3, 3))
+        g = (M[:, 0] + M[:, 1]) + M[:, 2]                    # the ref's order
+        j = g.argmax(dim=1, keepdim=True)
+        return cands.gather(1, j)[:, 0], g.gather(1, j)[:, 0], miss
+
+
+class _Device(_Source):
+    """Dense values: S, and the optional candidate table of the lookups."""
+
+    def __init__(self, S: torch.Tensor, table: Optional[torch.Tensor]):
+        self.S = S
+        self.table = table
+        super().__init__(S.shape[0], S.device)
+
+    def row_sums(self) -> torch.Tensor:
+        return panel_row_sums(lambda r0, r1: self.S[r0:r1], self.n)
+
     def lookup_full(self, W: torch.Tensor) -> torch.Tensor:
         """Best uninserted column of each row in W: a masked row argmax."""
         rows = self.S.index_select(0, W)
         return rows.masked_fill_(self.inserted[None, :], NEG).argmax(dim=1)
 
-    def lookup(self, W: torch.Tensor) -> torch.Tensor:
+    def seed_lookup(self, W: torch.Tensor) -> torch.Tensor:
+        # the reference seeds maxcorr with full-row scans, not the table
+        return self.lookup_full(W)
+
+    def lookup(self, W: torch.Tensor):
         """Best uninserted vertex per row of W through the candidate table:
         the first uninserted entry, else the full-row scan.  Both are
         computed and selected with ``torch.where`` (one device program,
         no branch on a device value)."""
         full = self.lookup_full(W)
         if self.table is None:
-            return full
-        tk = self.table.index_select(0, W)                   # (w, K)
-        ok = ~self.inserted[tk]
-        j = ok.to(torch.int32).argmax(dim=1, keepdim=True)   # first True
-        found = ok.gather(1, j)[:, 0]
-        return torch.where(found, tk.gather(1, j)[:, 0], full)
+            return full, None
+        best, found = self.first_uninserted(self.table, W)
+        return torch.where(found, best, full), None
 
-    def pairs(self, W: torch.Tensor, mc: torch.Tensor, nfaces: int):
-        """(best vertex, gain) of the step's ``nfaces`` faces, given as
-        corner positions in W, from the corners' fresh lookups ``mc``."""
-        pos = self._faces[nfaces]
-        fv = W[pos]                                          # (q, 3)
-        cands = mc[pos]                                      # (q, 3)
-        M = self.S[fv[:, :, None], cands[:, None, :]]        # (q, 3 r, 3 t)
-        g = (M[:, 0] + M[:, 1]) + M[:, 2]                    # the ref's order
-        j = g.argmax(dim=1, keepdim=True)
-        return cands.gather(1, j)[:, 0], g.gather(1, j)[:, 0]
+    def values(self, r: torch.Tensor, c: torch.Tensor):
+        return self.S[r, c], None
+
+
+class SparseCounters(NamedTuple):
+    """Lookup and pair-value counts of one lazy construction, the
+    reference's ``SparseCounters`` as host ints (fallbacks and misses
+    stay 0 for dense values)."""
+
+    lookups: int
+    fallbacks: int
+    pair_lookups: int
+    pair_misses: int
 
 
 def _f32_sum(acc: np.float32, vals) -> np.float32:
@@ -165,19 +238,22 @@ def _f32_sum(acc: np.float32, vals) -> np.float32:
     return acc
 
 
-def _build_lazy(S: torch.Tensor, topk: int) -> Tuple[TMFGResult, int]:
-    """The lazy construction on an (n, n) float32 S whose diagonal is -inf.
+def _counts(*ts):
+    """The step's device counts that exist, as doubles for the download."""
+    return [t.double().view(1) for t in ts if t is not None]
 
-    Returns the result and the number of device->host syncs it made."""
-    n = S.shape[0]
-    dev = S.device
+
+def lazy_loop(d: _Source):
+    """The lazy construction over any value source ``d``.
+
+    Returns (TMFGResult, host syncs, per-edge values (3n-6,) float32 in
+    edge order, SparseCounters)."""
+    n = d.n
+    dev = d.device
     F, E, B = 2 * n - 4, 3 * n - 6, n - 3
-    table = candidate_table(S, min(topk, n)) if topk and topk > 0 else None
-    d = _Device(S, table)
 
     # -- initial clique: the 4 largest finite row sums -----------------------
-    row_sums = torch.where(torch.isfinite(S), S, 0.0).sum(dim=1)
-    top4 = torch.sort(row_sums, descending=True, stable=True)[1][:4]
+    top4 = torch.sort(d.row_sums(), descending=True, stable=True)[1][:4]
     clique = [int(x) for x in np.sort(d.download(top4))]
     v1, v2, v3, v4 = clique
 
@@ -188,6 +264,7 @@ def _build_lazy(S: torch.Tensor, topk: int) -> Tuple[TMFGResult, int]:
     edges = np.zeros((E, 2), np.int32)
     init_edges = [(v1, v2), (v1, v3), (v1, v4), (v2, v3), (v2, v4), (v3, v4)]
     edges[:6] = init_edges
+    w_edges = np.zeros(E, np.float32)
     faces = np.zeros((F, 3), np.int32)
     faces[:4] = [(v1, v2, v3), (v1, v2, v4), (v1, v3, v4), (v2, v3, v4)]
     face_bubble = np.zeros(F, np.int32)
@@ -201,14 +278,17 @@ def _build_lazy(S: torch.Tensor, topk: int) -> Tuple[TMFGResult, int]:
 
     W = d.upload(clique)
     d.inserted.index_fill_(0, W, True)
-    # the reference seeds maxcorr with full-row scans, not the table
-    best, gain = d.pairs(W, d.lookup_full(W), 4)
+    best, gain, miss = d.pairs(W, d.seed_lookup(W), 4)
     ei = W[d.clique_edges]                               # (6, 2) vertices
-    ev = S[ei[:, 0], ei[:, 1]]
-    got = d.download(torch.cat([best.double(), gain.double(), ev.double()]))
+    ev, miss_e = d.values(ei[:, 0], ei[:, 1])
+    got = d.download(torch.cat([best.double(), gain.double(), ev.double(),
+                                *_counts(miss, miss_e)]))
     best_v[:4] = got[0:4]
     gains[:4] = got[4:8]
+    w_edges[:6] = got[8:14]
     edge_sum = _f32_sum(np.float32(0.0), got[8:14])
+    lookups, fallbacks, pair_lookups = 0, 0, 6 + 9 * 4
+    misses = int(got[14:].sum())
 
     n_ins, n_faces, n_edges, pops = 4, 4, 6, 0
     while n_ins < n:
@@ -218,22 +298,30 @@ def _build_lazy(S: torch.Tensor, topk: int) -> Tuple[TMFGResult, int]:
         if inserted[v]:
             # stale: re-validate the face's corners (Alg. 2 else-branch)
             W = d.upload([a, b, c])
-            best, gain = d.pairs(W, d.lookup(W), 1)
-            got = d.download(torch.cat([best.double(), gain.double()]))
+            mc, fb = d.lookup(W)
+            best, gain, miss = d.pairs(W, mc, 1)
+            got = d.download(torch.cat([best.double(), gain.double(),
+                                        *_counts(fb, miss)]))
             best_v[f] = got[0]
             gains[f] = got[1]
+            lookups += 3
+            pair_lookups += 9
+            extra = got[2:]
         else:
             W = d.upload([v, a, b, c])
             d.inserted.index_fill_(0, W[:1], True)
             # the 3 new faces' pairs from the 4 refreshed corners
-            best, gain = d.pairs(W, d.lookup(W), 3)
-            ev = d.S[W[:1], W[1:]]
+            mc, fb = d.lookup(W)
+            best, gain, miss = d.pairs(W, mc, 3)
+            ev, miss_e = d.values(W[:1].expand(3), W[1:])
             got = d.download(torch.cat([best.double(), gain.double(),
-                                        ev.double()]))
+                                        ev.double(),
+                                        *_counts(fb, miss, miss_e)]))
             inserted[v] = True
             insert_order[n_ins] = v
             n_ins += 1
             edges[n_edges:n_edges + 3] = [(v, a), (v, b), (v, c)]
+            w_edges[n_edges:n_edges + 3] = got[6:9]
             n_edges += 3
             edge_sum = _f32_sum(edge_sum, got[6:9])
             bub = n_ins - 4
@@ -249,6 +337,12 @@ def _build_lazy(S: torch.Tensor, topk: int) -> Tuple[TMFGResult, int]:
             n_faces += 2
             best_v[list(slots)] = got[0:3]
             gains[list(slots)] = got[3:6]
+            lookups += 4
+            pair_lookups += 3 + 27
+            extra = got[9:]
+        if extra.size:
+            fallbacks += int(extra[0])
+            misses += int(extra[1:].sum())
         pops += 1
 
     def t(a):
@@ -261,7 +355,19 @@ def _build_lazy(S: torch.Tensor, topk: int) -> Tuple[TMFGResult, int]:
         home_bubble=t(home_bubble),
         edge_sum=torch.tensor(edge_sum, dtype=torch.float32, device=dev),
         pops=torch.tensor(pops, dtype=torch.int32, device=dev))
-    return res, d.syncs
+    counters = SparseCounters(lookups=lookups, fallbacks=fallbacks,
+                            pair_lookups=pair_lookups, pair_misses=misses)
+    return res, d.syncs, w_edges, counters
+
+
+def _build_lazy(S: torch.Tensor, topk: int) -> Tuple[TMFGResult, int]:
+    """The lazy construction on an (n, n) float32 S whose diagonal is -inf.
+
+    Returns the result and the number of device->host syncs it made."""
+    n = S.shape[0]
+    table = candidate_table(S, min(topk, n)) if topk and topk > 0 else None
+    res, syncs, _, _ = lazy_loop(_Device(S, table))
+    return res, syncs
 
 
 def prepare_similarity(S: torch.Tensor) -> torch.Tensor:

@@ -4,6 +4,9 @@
   * minplus.py   -- tropical matmul for APSP (csrc/minplus.cu)
   * gainscan.py  -- masked row argmax, the HAC merge scan
                     (csrc/masked_argmax.cu)
+  * topk.py      -- streaming top-K Pearson (csrc/topk.cu)
+  * sparse_apsp.py -- CSR graph and one multi-source relaxation round
+                    (csrc/sparse_relax.cu)
 
 Each kernel is built from ``csrc/`` with nvcc at first use
 (``_build.py``) and has a plain version in ``ref.py``; ``ops.py``

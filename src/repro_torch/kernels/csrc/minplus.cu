@@ -26,8 +26,11 @@
 // no padded copy is made.  The kernel never writes into A or B (apsp_exact
 // squares D into a fresh buffer).  The minimum of exactly rounded sums
 // does not depend on the order in which they are taken, so the result is
-// bitwise equal to the plain version's; inputs are distances, so NaN is
-// not handled (fminf would drop it where the plain version keeps it).
+// bitwise equal to the plain version's.  The minimum is PTX min.NaN.f32,
+// which returns NaN when either operand is NaN: a NaN input reaches every
+// output it is summed into, as in the plain version (torch.amin /
+// torch.minimum) and the JAX kernel (jnp.min / jnp.minimum); fminf would
+// drop it.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,6 +42,13 @@ constexpr int kBM = 64;
 constexpr int kBN = 64;
 constexpr int kBK = 16;
 constexpr int kThreads = 256;
+
+// min(a, b) that returns NaN if either operand is NaN (sm_80 and later)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
 
 __global__ void __launch_bounds__(kThreads)
 minplus_kernel(const float* __restrict__ A, const float* __restrict__ B,
@@ -86,7 +96,7 @@ minplus_kernel(const float* __restrict__ A, const float* __restrict__ B,
       for (int r = 0; r < 4; ++r)
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          acc[r][c] = fminf(acc[r][c], __fadd_rn(a[r], b[c]));
+          acc[r][c] = min_nan(acc[r][c], __fadd_rn(a[r], b[c]));
     }
     __syncthreads();
   }

@@ -19,6 +19,7 @@ from typing import Dict
 import torch
 
 from . import gainscan, minplus as minplus_mod, pearson as pearson_mod, ref
+from . import sparse_apsp as sparse_mod, topk as topk_mod
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -27,6 +28,8 @@ KERNELS = {
     "pearson": pearson_mod.KERNEL,
     "minplus": minplus_mod.KERNEL,
     "masked_argmax": gainscan.KERNEL,
+    "topk": topk_mod.KERNEL,
+    "sparse_relax": sparse_mod.KERNEL,
 }
 
 
@@ -62,6 +65,26 @@ def masked_argmax(S: torch.Tensor, mask: torch.Tensor, *,
     if use_kernel(S, backend):
         return gainscan.masked_argmax_cuda(S, mask)
     return ref.masked_argmax_ref(S, mask)
+
+
+def topk(X: torch.Tensor, k: int, *, backend: str = "auto"):
+    """Top-k Pearson partners of each row of X, the diagonal excluded:
+    (values (n, k) f32, indices (n, k) int32), value desc, index asc."""
+    if use_kernel(X, backend):
+        return topk_mod.topk_pearson_cuda(X.float().contiguous(), k)
+    return ref.topk_pearson_ref(X, k)
+
+
+def sparse_relax(D: torch.Tensor, graph, *, backend: str = "auto"):
+    """One relaxation round over the CSR ``graph`` (a
+    ``sparse_apsp.CSRGraph``): (min(D, candidates), changed), where
+    ``changed`` is a one-element device tensor, nonzero iff some entry
+    decreased."""
+    if use_kernel(D, backend):
+        return sparse_mod.sparse_relax_cuda(
+            D.contiguous(), graph.indptr, graph.cols, graph.vals)
+    out = ref.sparse_relax_ref(D, graph.indptr, graph.cols, graph.vals)
+    return out, (out < D).any().view(1)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -79,3 +79,53 @@ def masked_argmax_ref(S: torch.Tensor, mask: torch.Tensor):
     masked = S.float().masked_fill(mask[None, :], NEG)
     vals, idx = masked.max(dim=1)
     return vals, idx.int()
+
+
+def topk_pearson_ref(X: torch.Tensor, k: int, *, bm: int = 128):
+    """Top-k Pearson partners of each row of X (n, L), the diagonal
+    excluded: (values (n, k) f32, indices (n, k) int32), ordered by value
+    descending, then index ascending.
+
+    The twin of ``repro.kernels.topk.topk_pearson_jnp``: it walks (bm, n)
+    row panels, ``clip(Z[panel] @ Z.T)`` with the diagonal set to -inf,
+    and keeps the first k of a stable descending sort, so the (n, n)
+    matrix never exists.
+    """
+    n = X.shape[0]
+    if not 1 <= k <= n - 1:
+        raise ValueError(f"need 1 <= k <= n-1, got k={k} for n={n}")
+    Z = standardize_rows(X)
+    vals, idxs = [], []
+    for r0 in range(0, n, bm):
+        s = torch.clamp(Z[r0:r0 + bm] @ Z.T, -1.0, 1.0)
+        rows = torch.arange(s.shape[0], device=s.device)
+        s[rows, rows + r0] = NEG
+        v, i = torch.sort(s, dim=1, descending=True, stable=True)
+        vals.append(v[:, :k].contiguous())
+        idxs.append(i[:, :k].int())
+    return torch.cat(vals), torch.cat(idxs)
+
+
+def gather_add_ref(D: torch.Tensor, cols: torch.Tensor,
+                   vals: torch.Tensor) -> torch.Tensor:
+    """cand[s, e] = D[s, cols[e]] + vals[e]: the twin of the Pallas tile
+    ``repro.kernels.sparse_apsp.gather_add_pallas``."""
+    return D[:, cols.long()] + vals[None, :]
+
+
+def sparse_relax_ref(D: torch.Tensor, indptr: torch.Tensor,
+                     cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """One multi-source relaxation round over a row-sorted CSR graph:
+
+        out[s, v] = min(D[s, v], min_{e in row v} D[s, cols[e]] + vals[e])
+
+    The twin of the ``"jnp"`` branch of
+    ``repro.kernels.sparse_apsp.sparse_relax``: a gather, an add, a
+    segmented minimum over the rows, and ``minimum(D, .)``.  Every step
+    propagates NaN; an empty row keeps D."""
+    s, n = D.shape
+    cand = gather_add_ref(D, cols, vals)                 # (s, m)
+    lengths = (indptr[1:] - indptr[:-1]).long().expand(s, n)
+    upd = torch.segment_reduce(cand, "min", lengths=lengths, axis=1,
+                               initial=float("inf"))
+    return torch.minimum(D, upd)

@@ -8,8 +8,11 @@ JAX, so it runs on a machine with only PyTorch and the CUDA toolkit:
 
 Tolerances: Pearson within 1e-5 absolute of the plain version (the
 kernel multiplies by the inverse norm where the plain version divides by
-the norm, and sums in another order); min-plus and masked argmax
-bitwise.
+the norm, and sums in another order); min-plus, masked argmax and the
+sparse relaxation bitwise, NaN entries at the same places; top-K bitwise
+equal to a stable top-k of the Pearson kernel's own rows, and within
+1e-6 of the plain top-K (a PyTorch matmul rounds otherwise) for L up to
+200, within L * 2**-24 for the long series.
 """
 
 import numpy as np
@@ -20,6 +23,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import PipelineConfig, cluster  # noqa: E402
 from repro_torch.data.timeseries import make_dataset  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import sparse_apsp as sp  # noqa: E402
+from repro_torch.kernels.pearson import pearson_cuda  # noqa: E402
 
 
 @pytest.fixture
@@ -37,6 +42,20 @@ def _dist(rng, shape, inf_frac):
     A = rng.uniform(0, 5, shape).astype(np.float32)
     if inf_frac:
         A[rng.random(shape) < inf_frac] = np.inf
+    return A
+
+
+def _same(a, b):
+    """Bitwise equal, NaN entries at the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        torch.where(na, 0.0, a), torch.where(nb, 0.0, b)))
+
+
+def _with_nan(rng, A, count):
+    """A copy of A with NaN at ``count`` random places."""
+    A = A.copy()
+    A.reshape(-1)[rng.choice(A.size, count, replace=False)] = np.nan
     return A
 
 
@@ -70,6 +89,89 @@ def test_cuda_minplus_bitwise(cuda, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(17, 33, 9), (140, 300, 300)])
+def test_cuda_minplus_propagates_nan_as_plain(cuda, m, k, n):
+    rng = _rng(7 * m + k)
+    A = torch.from_numpy(_with_nan(rng, _dist(rng, (m, k), 0.3), 2))
+    B = torch.from_numpy(_with_nan(rng, _dist(rng, (k, n), 0.3), 2))
+    got = ops.minplus(A.to(cuda), B.to(cuda), backend="cuda")
+    want = ref.minplus_ref(A.to(cuda), B.to(cuda))
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want).any()) and _same(got, want)
+
+
+def _check_topk(dev, n, L, k, tol):
+    rng = _rng(n + L + k)
+    X = rng.normal(size=(n, L)).astype(np.float32)
+    X[1::7] = X[0]                  # duplicate rows: exact value ties
+    X = torch.from_numpy(X).to(dev)
+    before = ops.KERNELS["topk"].launches
+    v, i = ops.topk(X, k, backend="cuda")
+    torch.cuda.synchronize()
+    assert ops.KERNELS["topk"].launches == before + 1
+    P = pearson_cuda(X)
+    P.fill_diagonal_(float("-inf"))
+    sv, si = torch.sort(P, dim=1, descending=True, stable=True)
+    assert torch.equal(v, sv[:, :k]) and torch.equal(i, si[:, :k].int())
+    pv, _ = ref.topk_pearson_ref(X, k)
+    assert float((v - pv).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,k", [(2, 3, 1), (65, 46, 64), (130, 17, 5),
+                                   (300, 46, 299), (700, 46, 64),
+                                   (1000, 200, 999), (5000, 46, 4999)])
+def test_cuda_topk_is_a_stable_topk_of_the_pearson_kernel(cuda, n, L, k):
+    _check_topk(cuda, n, L, k, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L", [(2400, 1024), (1370, 2709)])
+def test_cuda_topk_streams_long_series(cuda, n, L):
+    """Series of several shared-memory chunks (the Mallat and HandOutlines
+    lengths): still bitwise the Pearson kernel's rows.  Against the plain
+    top-K the bound is L * 2**-24, the first-order bound on the difference
+    of two float32 sums of L products of standardised series."""
+    _check_topk(cuda, n, L, 64, L * 2.0 ** -24)
+
+
+def _random_csr(rng, n, m, dev):
+    e = rng.integers(0, n, (m, 2))
+    e = e[e[:, 0] != e[:, 1]]
+    e = np.unique(np.sort(e, axis=1), axis=0)
+    w = rng.uniform(0.1, 2.0, e.shape[0]).astype(np.float32)
+    return sp.csr_from_edges(n, torch.from_numpy(e).to(dev),
+                             torch.from_numpy(w).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n,m", [(1, 5, 8), (9, 300, 900), (140, 2000, 6000)])
+def test_cuda_sparse_relax_bitwise_nan_included(cuda, s, n, m):
+    rng = _rng(s + n + m)
+    g = _random_csr(rng, n, m, cuda)
+    D = _with_nan(rng, _dist(rng, (s, n), 0.5), max(1, s * n // 50))
+    D = torch.from_numpy(D).to(cuda)
+    got, ch = ops.sparse_relax(D, g, backend="cuda")
+    want = ref.sparse_relax_ref(D, g.indptr, g.cols, g.vals)
+    torch.cuda.synchronize()
+    assert _same(got, want)
+    assert int(ch.item()) == int(bool((want < D).any()))
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_apsp_fixed_point_bitwise(cuda):
+    rng = _rng(11)
+    g = _random_csr(rng, 3000, 9000, cuda)
+    src = torch.from_numpy(rng.choice(3000, 40, replace=False)).to(cuda)
+    sc, st = {}, {}
+    before = ops.KERNELS["sparse_relax"].launches
+    Dk = sp.sparse_apsp_sources(g, src, backend="cuda", stats=sc)
+    Dp = sp.sparse_apsp_sources(g, src, backend="torch", stats=st)
+    assert torch.equal(Dk, Dp) and sc == st
+    assert ops.KERNELS["sparse_relax"].launches == before + sc["bf_rounds"]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,n", [(1, 1), (13, 40), (40, 600), (7, 5000)])
 def test_cuda_masked_argmax_bitwise(cuda, m, n):
     rng = _rng(m * n)
@@ -96,3 +198,41 @@ def test_cuda_cluster_backends_agree_bitwise(cuda):
     np.testing.assert_array_equal(rc.linkage, rt.linkage)
     np.testing.assert_array_equal(rc.labels, rt.labels)
     assert counts["masked_argmax"] == 299 and counts["minplus"] >= 2
+
+
+@pytest.mark.cuda
+def test_cuda_approx_backends_agree_bitwise(cuda):
+    """The approx path's sparse tail through the kernels (top-K from S is
+    a sort; the relaxation, min-plus and masked argmax kernels) equals
+    the plain path on the card, given one S."""
+    X, _ = make_dataset(300, 46, 5, noise=0.5, seed=4)
+    S = ops.pearson(torch.from_numpy(X).to(cuda), backend="torch")
+    ops.reset_launch_counts()
+    rc = cluster(S=S, k=5, config=PipelineConfig.approx(sim_k=32,
+                                                        backend="cuda"),
+                 collect_timings=True)
+    counts = ops.launch_counts()
+    rt = cluster(S=S, k=5, config=PipelineConfig.approx(sim_k=32,
+                                                        backend="torch"))
+    np.testing.assert_array_equal(rc.linkage, rt.linkage)
+    np.testing.assert_array_equal(rc.labels, rt.labels)
+    assert counts["sparse_relax"] == rc.timings["apsp_rounds"] > 0
+    assert counts["masked_argmax"] > 0 and counts["minplus"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_tmfg_at_full_k_is_the_dense_build(cuda):
+    """From X at K = n-1 the top-K kernel's table holds the Pearson
+    kernel's values, so the sparse TMFG is bitwise the dense OPT one."""
+    from repro_torch.approx import knn, sparse_tmfg
+    from repro_torch.core import tmfg
+    X, _ = make_dataset(400, 46, 5, noise=0.5, seed=5)
+    Xd = torch.from_numpy(X).to(cuda)
+    S = ops.pearson(Xd, backend="cuda")
+    dense = tmfg.build_tmfg(S, topk=64)
+    t, Z = knn.topk_pearson_and_z(Xd, 399, backend="cuda")
+    sparse, w, c = sparse_tmfg.build_tmfg_sparse(t, Xn=Z)
+    for f in dense._fields:
+        assert torch.equal(getattr(dense, f), getattr(sparse, f)), f
+    e = dense.edges.long()
+    assert torch.equal(w, S[e[:, 0], e[:, 1]]) and c.pair_misses == 0

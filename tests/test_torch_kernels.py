@@ -98,6 +98,20 @@ def test_minplus_bitwise(m, k, n, inf_frac):
         ops.minplus(torch.from_numpy(A), torch.from_numpy(B)).numpy(), got)
 
 
+def test_minplus_propagates_nan_as_pallas():
+    """A NaN operand reaches every output it is summed into, at the same
+    places as in the Pallas kernel (jnp.min / jnp.minimum)."""
+    rng = _rng(5)
+    A, B = _dist(rng, (17, 33), 0.3), _dist(rng, (33, 9), 0.3)
+    A[3, 7] = B[20, 2] = B[0, 5] = np.nan
+    got = ops.minplus(torch.from_numpy(A), torch.from_numpy(B)).numpy()
+    want = np.asarray(minplus_pallas(jnp.asarray(A), jnp.asarray(B), bm=16,
+                                     bk=8, bn=16, interpret=True))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(got, want)     # NaN compares equal here
+    assert np.isnan(got[3]).all() and np.isnan(got[:, 2]).all()
+
+
 def test_minplus_rejects_mismatched_shapes():
     with pytest.raises(ValueError, match="inner sizes"):
         ref.minplus_ref(torch.zeros(3, 4), torch.zeros(5, 3))
@@ -151,7 +165,8 @@ def test_every_kernel_has_a_matching_c_entry_point():
             kinds = ["p" if "*" in p else "i" for p in params.split(",")]
             entries[name] = "".join(kinds)
     assert {p.name for p in _build.sources()} == {
-        "pearson.cu", "minplus.cu", "masked_argmax.cu"}
+        "pearson.cu", "minplus.cu", "masked_argmax.cu", "topk.cu",
+        "sparse_relax.cu"}
     for kname, kern in ops.KERNELS.items():
         assert entries[kern.symbol] == kern.signature + "p", kname
 
@@ -168,6 +183,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     from repro_torch.kernels.gainscan import masked_argmax_cuda
     from repro_torch.kernels.minplus import minplus_cuda
     from repro_torch.kernels.pearson import pearson_cuda
+    from repro_torch.kernels.sparse_apsp import sparse_relax_cuda
+    from repro_torch.kernels.topk import topk_pearson_cuda
     x = torch.zeros(4, 4)
     with pytest.raises(ValueError, match="CUDA device"):
         pearson_cuda(x)
@@ -175,7 +192,32 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
         minplus_cuda(x, x)
     with pytest.raises(ValueError, match="CUDA device"):
         masked_argmax_cuda(x, torch.zeros(4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA device"):
+        topk_pearson_cuda(x, 2)
+    i = torch.zeros(5, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        sparse_relax_cuda(x, i, i[:0], torch.zeros(0))
     with pytest.raises(TypeError, match="takes 6 arguments"):
         ops.KERNELS["pearson"].launch(1, 2, stream=0)
     assert ops.launch_counts() == {"pearson": 0, "minplus": 0,
-                                   "masked_argmax": 0}
+                                   "masked_argmax": 0, "topk": 0,
+                                   "sparse_relax": 0}
+
+
+def test_topk_plan_fits_shared_memory():
+    """The top-K kernel's launch plan: the most rows per block whose
+    candidate buffers fit in 227 KB, series chunks of at most 128
+    elements whatever L, and buffers in device memory where no rows fit."""
+    from repro_torch.kernels import topk
+    assert topk.plan(19412, 46, 64) == (
+        64, 256, 48, 4 * (64 * 48 + 48 * 64 + 2 * 64 * 256 + 3 * 64), False)
+    for n, L, k in ((2000, 46, 1), (2000, 46, 1999), (1000, 200, 999),
+                    (5000, 3, 4000), (1370, 2709, 64), (2400, 1024, 64),
+                    (2400, 100000, 2399)):
+        rows, cap, Lc, smem, in_memory = topk.plan(n, L, k)
+        assert smem <= topk.MAX_SMEM and cap >= k + 64 and rows >= 4
+        assert cap & (cap - 1) == 0 and Lc % 4 == 0 and 4 <= Lc <= 128
+        assert not in_memory
+    rows, cap, Lc, smem, in_memory = topk.plan(19412, 46, 19411)
+    assert in_memory and rows == 8 and cap == 32768 and Lc == 48
+    assert smem == 4 * (8 * 48 + 48 * 64 + 3 * 8)

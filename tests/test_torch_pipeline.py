@@ -109,10 +109,16 @@ def test_unported_knobs_raise_with_their_roadmap_item(data, field, value,
         tcore.cluster(X, k=4, config=cfg, device="cpu")
 
 
-def test_approx_config_raises_with_its_roadmap_item(data):
+def test_approx_config_runs_on_cpu_and_needs_a_card_by_default(data):
     X, _, _ = data
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tcore.cluster(X, config=tcore.PipelineConfig.approx(), device="cpu")
+    cfg = tcore.PipelineConfig.approx(sim_k=8)
+    res = tcore.cluster(X, k=4, config=cfg, device="cpu")
+    assert res.labels.shape == (60,) and len(np.unique(res.labels)) == 4
+    assert res.linkage.shape == (59, 4)
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcore.cluster(X, k=4, config=cfg)
 
 
 def test_config_copy_agrees_with_reference():
