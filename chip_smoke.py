@@ -17,14 +17,25 @@ Phases (any failure exits non-zero; no phase is skipped):
    (n, n) HAC scan for masked argmax; top-K at (n, L, 64) and at a
    small n with k = n-1, bitwise a stable top-k of the Pearson kernel's
    rows; one sparse relaxation round and its fixed point from h sources
-   over 3n-6 edges, NaN entries included), with times from CUDA events.
-3. Dense main path: ``cluster(X, k, config=PipelineConfig.opt())`` on
+   over 3n-6 edges, NaN entries included; flash attention at
+   granite-3-8b's prefill shape, gemma3-4b's local layer and an fp32 MQA
+   shape with ragged T), with times from CUDA events.
+3. Serve path: granite-3-8b at full width and depth in bf16, its weights
+   drawn on the card from a seeded ``torch.Generator``; a ``ServeEngine``
+   with 4 slots serves 8 requests (prompts of 128, 512, 2048 and 4096
+   tokens, two each, 16 new tokens each), counts reset just before and
+   read just after: one flash-attention launch per layer per prefill,
+   every request done with 16 tokens below the vocabulary, each first
+   token the argmax of its prefill's logits, all logits finite; then the
+   4096-token prompt's logits with ``backend="cuda"`` against
+   ``backend="torch"`` (cosine of the last position >= 0.999).
+4. Dense main path: ``cluster(X, k, config=PipelineConfig.opt())`` on
    the dataset (``make_ucr_like`` from a seed), once as the default
    back-to-back run, with every kernel's launch count reset just before
    and read just after, then ``fused=False`` for per-stage seconds at
    CBF size (with its own default run, unless the dataset is CBF); the
    two linkages must be bitwise equal.
-4. Approx path: ``cluster(X, k, config=PipelineConfig.approx(sim_k=64))``
+5. Approx path: ``cluster(X, k, config=PipelineConfig.approx(sim_k=64))``
    fused, counts reset just before and read just after: one top-K
    launch, one sparse-relaxation launch per Bellman-Ford round, masked
    argmax in the per-cluster HAC, no slot overflow, peak device memory
@@ -34,7 +45,7 @@ Phases (any failure exits non-zero; no phase is skipped):
    linkage equals the fused one (at CBF size, with its own fused run,
    where a repeat at the dataset's size would take the script past
    600 s).
-5. Parity at n = 2000: the ``cuda`` and ``torch`` backends give a
+6. Parity at n = 2000: the ``cuda`` and ``torch`` backends give a
    bitwise-equal linkage on one S (OPT, HEAP with its exact squarings,
    and approx), agreeing labels (ARI >= 0.99) from one X, and at
    sim_k = n-1 the sparse TMFG from X is bitwise the dense OPT TMFG.
@@ -61,6 +72,15 @@ SRC = HERE / "src"
 # NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
+
+# the serve phase: granite-3-8b, 4 slots, prompts of these lengths (two
+# each), 16 new tokens each, caches sized for the longest prompt
+SERVE_ARCH = "granite-3-8b"
+SERVE_LENGTHS = (128, 512, 2048, 4096)
+SERVE_NEW = 16
+SERVE_SLOTS = 4
+SERVE_MAX_LEN = 4112
 
 PARITY_N = 2000
 
@@ -91,11 +111,18 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of the memory and compute times."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def causal_pairs(T: int, window: int) -> int:
+    """Unmasked (query, key) pairs of one head of causal attention over T
+    positions, within ``window`` keys of the query (0 = no window)."""
+    return sum(min(t + 1, window) if window > 0 else t + 1
+               for t in range(T))
 
 
 def same_nan(a, b) -> bool:
@@ -133,6 +160,10 @@ def main() -> None:
     from repro_torch.kernels.minplus import minplus_cuda
     from repro_torch.kernels.pearson import pearson_cuda
     from repro_torch.kernels.topk import topk_pearson_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
@@ -362,7 +393,186 @@ def main() -> None:
         f"{entries['sparse_relax']}")
     del X
     torch.cuda.empty_cache()
+
+    # flash attention: granite-3-8b's per-sequence prefill (the serve
+    # path's shape), gemma3-4b's local layer, and MQA in fp32 with ragged T
+    flash_cases = [
+        ("granite-3-8b causal", (1, 4096, 32, 8, 128), 0, torch.bfloat16),
+        ("gemma3-4b local", (1, 4096, 8, 4, 256), 1024, torch.bfloat16),
+        ("MQA ragged", (1, 1000, 48, 1, 128), 0, torch.float32),
+    ]
+    fcases = []
+    for label, (B, T, H, KV, hd), win, dt in flash_cases:
+        fq = torch.randn((B, T, H, hd), generator=gen, device=dev).to(dt)
+        fk = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(dt)
+        fv = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(dt)
+        got = flash_attention_cuda(fq, fk, fv, causal=True, window=win)
+        want = ref.flash_attention_ref(fq, fk, fv, causal=True, window=win)
+        sync()
+        err = float((got.float() - want.float()).abs().max())
+        if dt == torch.float32:
+            tol = 1e-5
+        else:   # one bf16 ulp at the plain output's largest magnitude
+            top = float(want.float().abs().max())
+            tol = min(float(2.0 ** (np.floor(np.log2(top)) - 7)), 2e-2)
+        check(got.dtype == dt and got.shape == fq.shape and err <= tol,
+              f"flash kernel vs plain at {label}: max abs err {err} > {tol}")
+        del got, want
+        pairs = B * H * causal_pairs(T, win)
+        elem = fq.element_size()
+        b_ms, b_by = bound(elem * (2 * fq.numel() + 2 * fk.numel()),
+                           4 * hd * pairs,
+                           BF16_TENSOR_OPS_PER_S if dt == torch.bfloat16
+                           else FP32_OPS_PER_S)
+        lib_ms = None
+        if win == 0:    # one PyTorch call computes causal GQA attention
+            qt, kt_, vt = (x.transpose(1, 2) for x in (fq, fk, fv))
+            lib_ms = cuda_ms(lambda: torch.nn.functional.
+                             scaled_dot_product_attention(
+                                 qt, kt_, vt, is_causal=True,
+                                 enable_gqa=True), 10)
+        fcases.append(dict(
+            case=label, shape=[B, T, H, KV, hd], window=win,
+            dtype=str(dt).replace("torch.", ""), max_abs_err=err, tol=tol,
+            ms=cuda_ms(lambda: flash_attention_cuda(
+                fq, fk, fv, causal=True, window=win), 5),
+            plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
+                fq, fk, fv, causal=True, window=win), 2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        log(f"[kernel] flash_attention ok at {label}: {fcases[-1]}")
+        del fq, fk, fv
+        torch.cuda.empty_cache()
+    head = fcases[0]
+    entries["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:87",
+        shape=head["shape"], max_abs_err=head["max_abs_err"], ms=head["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        cases=fcases)
     log(f"[time] kernels phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 3. the serve path ---------------------------------------------
+    cfg_lm = get_config(SERVE_ARCH)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg_lm)
+    lm_gen = torch.Generator(device=dev)
+    lm_gen.manual_seed(args.seed)
+    params = model.init(lm_gen)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in [params["embed"], params["ln_f"]["scale"]]
+                   ) + sum(t.numel() for lp in params["layers"]
+                           for d in lp.values() for t in d.values())
+    padding = (cfg_lm.vocab_padded - cfg_lm.vocab) * cfg_lm.d_model
+    check(n_params - padding == cfg_lm.param_count(),
+          f"serve: {n_params} parameters, param_count "
+          f"{cfg_lm.param_count()} + padding {padding}")
+    check(params["embed"].dtype == torch.bfloat16
+          and len(params["layers"]) == cfg_lm.n_layers,
+          "serve: not bf16 at full depth")
+
+    rng_lm = np.random.default_rng(args.seed)
+    lengths = list(SERVE_LENGTHS) * 2
+    prompts = [rng_lm.integers(0, cfg_lm.vocab, T_, dtype=np.int32)
+               for T_ in lengths]
+    # warm-up (cuBLAS handles, first-call allocations): not counted
+    model.prefill(params, prompts[0][None], max_len=SERVE_MAX_LEN)
+    sync()
+
+    # time every prefill and decode step the engine makes, and keep each
+    # prefill's logits for the checks
+    prefill_log, decode_ms = [], []
+    prefill_fn, decode_fn = model.prefill, model.decode_step
+
+    def timed_prefill(*a, **kw):
+        sync()
+        t_ = time.perf_counter()
+        out = prefill_fn(*a, **kw)
+        sync()
+        prefill_log.append((int(a[1].shape[1]), time.perf_counter() - t_,
+                            bool(torch.isfinite(out[0]).all()),
+                            int(torch.argmax(out[0], -1)[0])))
+        return out
+
+    def timed_decode(*a, **kw):
+        sync()
+        t_ = time.perf_counter()
+        out = decode_fn(*a, **kw)
+        sync()
+        decode_ms.append((time.perf_counter() - t_) * 1e3)
+        check(bool(torch.isfinite(out[0]).all()), "serve: decode logits "
+              "not finite")
+        return out
+
+    model.prefill, model.decode_step = timed_prefill, timed_decode
+    engine = ServeEngine(model, params, n_slots=SERVE_SLOTS,
+                         max_len=SERVE_MAX_LEN)
+    reqs = [Request(uid=i, prompt=pr, max_new_tokens=SERVE_NEW)
+            for i, pr in enumerate(prompts)]
+    for r_ in reqs:
+        engine.submit(r_)
+    sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine.run()
+    sync()
+    run_s = time.perf_counter() - t0
+    launches_s = ops.launch_counts()
+    peak_s = torch.cuda.max_memory_allocated()
+    model.prefill, model.decode_step = prefill_fn, decode_fn
+    check(launches_s["flash_attention"] == cfg_lm.n_layers * len(reqs),
+          f"serve: flash launches {launches_s} != "
+          f"{cfg_lm.n_layers} x {len(reqs)}")
+    check(sum(launches_s.values()) == launches_s["flash_attention"],
+          f"serve: other kernels ran {launches_s}")
+    check(all(r_.done and len(r_.output) == SERVE_NEW
+              and all(0 <= t_ < cfg_lm.vocab for t_ in r_.output)
+              for r_ in reqs), "serve: a request is not done with "
+          f"{SERVE_NEW} tokens below the vocabulary")
+    check(len(prefill_log) == len(reqs)
+          and [e_[0] for e_ in prefill_log] == lengths,
+          f"serve: prefills {[e_[0] for e_ in prefill_log]}")
+    check(all(e_[2] for e_ in prefill_log), "serve: prefill logits not finite")
+    check(all(r_.output[0] == e_[3] for r_, e_ in zip(reqs, prefill_log)),
+          "serve: a first token is not the argmax of its prefill's logits")
+    n_tokens = sum(len(r_.output) for r_ in reqs)
+    prefill_s = {T_: [e_[1] for e_ in prefill_log if e_[0] == T_]
+                 for T_ in SERVE_LENGTHS}
+
+    # the 4096-token prompt through the kernel and through the plain version
+    long_T = max(SERVE_LENGTHS)
+    long_prompt = torch.as_tensor(prompts[lengths.index(long_T)],
+                                  device=dev)[None]
+    lc = model.forward(params, long_prompt, backend="cuda")[0][0]
+    lt = model.forward(params, long_prompt, backend="torch")[0][0]
+    V = cfg_lm.vocab
+    lc, lt = lc[:, :V], lt[:, :V]
+    dlogit = float((lc - lt).abs().max())
+    top1 = float((lc.argmax(-1) == lt.argmax(-1)).float().mean())
+    cos = float(torch.nn.functional.cosine_similarity(
+        lc[-1].double(), lt[-1].double(), dim=0))
+    check(bool(torch.isfinite(lc).all()) and cos >= 0.999,
+          f"serve: cuda vs torch prefill: last-position cosine {cos} < 0.999")
+    serve = dict(arch=SERVE_ARCH, dtype="bfloat16", n_layers=cfg_lm.n_layers,
+                 params=n_params, init_s=init_s, slots=SERVE_SLOTS,
+                 max_len=SERVE_MAX_LEN, requests=len(reqs),
+                 prompt_lengths=lengths, new_tokens=SERVE_NEW,
+                 prefill_s=prefill_s, decode_ms_mean=float(np.mean(decode_ms)),
+                 decode_ms_median=float(np.median(decode_ms)),
+                 decode_steps=len(decode_ms), engine_steps=engine.steps,
+                 run_s=run_s, ms_per_engine_step=run_s * 1e3 / engine.steps,
+                 tokens=n_tokens, tokens_per_s=n_tokens / run_s,
+                 launches=launches_s, peak_bytes=peak_s,
+                 cuda_vs_torch=dict(prompt=long_T, max_abs_dlogit=dlogit,
+                                    top1_agreement=top1, last_cosine=cos))
+    log(f"[serve] {json.dumps(serve)}")
+    del lc, lt, long_prompt, engine, reqs, params, model
+    torch.cuda.empty_cache()
+    log(f"[time] serve phase done at {time.perf_counter() - t_start:.1f} s")
 
     def check_linkage(Z, nn, kk, labels, what):
         check(labels.shape == (nn,), f"{what}: labels shape {labels.shape}")
@@ -375,7 +585,7 @@ def main() -> None:
         check(len(np.unique(labels)) == kk,
               f"{what}: labels do not have {kk} clusters")
 
-    # ---- 3. the dense main path ----------------------------------------
+    # ---- 4. the dense main path ----------------------------------------
     cfg = PipelineConfig.opt()
     sync()
     torch.cuda.reset_peak_memory_stats()
@@ -429,7 +639,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     log(f"[time] dense phase done at {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 4. the approx path --------------------------------------------
+    # ---- 5. the approx path --------------------------------------------
     cfg_a = PipelineConfig.approx(sim_k=K)
     sync()
     torch.cuda.reset_peak_memory_stats()
@@ -530,7 +740,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     log(f"[time] approx phase done at {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 5. cuda vs torch backends at n = 2000 --------------------------
+    # ---- 6. cuda vs torch backends at n = 2000 --------------------------
     Xp, yp = make_dataset(PARITY_N, 46, 8, noise=0.5, seed=args.seed + 1)
     Xpd = torch.from_numpy(Xp).to(dev)
     Sp = ops.pearson(Xpd, backend="torch")
@@ -578,11 +788,13 @@ def main() -> None:
 
     dense_kernels = ("pearson", "minplus", "masked_argmax")
     for e in entries.values():
-        e["launches"] = (launches if e["name"] in dense_kernels
+        e["launches"] = (launches_s if e["name"] == "flash_attention" else
+                         launches if e["name"] in dense_kernels
                          else launches_a)[e["name"]]
     main["seconds_in_all"] = time.perf_counter() - t_start
     log(f"[main] {json.dumps(main)}")
     log(f"[approx] {json.dumps(approx)}")
+    log(f"[serve] {json.dumps(serve)}")
     log(smi_line)
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,14 @@
+"""granite-3-8b [dense]: GQA decoder.
+
+40L, d_model=4096, 32H (GQA kv=8), d_ff=12800, vocab=49155
+[hf:ibm-granite/granite-3.0-2b-base; hf].
+"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-8b", family="dense",
+    n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=12800,
+    vocab=49155, head_dim=128,
+    subquadratic=False,
+)

@@ -14,10 +14,11 @@ and the flags, so an edited source is rebuilt and an unchanged one is
 reused.  Nothing here runs at import: the CPU tests import every module
 of the port on a machine with no ``nvcc``.
 
-Each C entry point takes its pointers and the stream as ``void*`` and
-its sizes as ``int``, launches on the given stream, allocates nothing,
-and returns ``cudaGetLastError()``; :meth:`Kernel.launch` raises if that
-is not ``cudaSuccess`` and counts the launch.
+Each C entry point takes its pointers and the stream as ``void*``, its
+sizes as ``int`` and its scalars as ``float``, launches on the given
+stream, allocates nothing, and returns ``cudaGetLastError()``;
+:meth:`Kernel.launch` raises if that is not ``cudaSuccess`` and counts
+the launch.
 """
 
 from __future__ import annotations
@@ -131,14 +132,15 @@ def library() -> ctypes.CDLL:
 
 
 def _c_type(kind: str):
-    return {"p": ctypes.c_void_p, "i": ctypes.c_int}[kind]
+    return {"p": ctypes.c_void_p, "i": ctypes.c_int,
+            "f": ctypes.c_float}[kind]
 
 
 class Kernel:
     """One C entry point of the library and its launch count.
 
     ``signature`` spells the arguments after which the stream follows:
-    ``"p"`` for a pointer, ``"i"`` for an int.  ``launches`` goes up by
+    ``"p"`` for a pointer, ``"i"`` for an int, ``"f"`` for a float.  ``launches`` goes up by
     one on each successful launch, and nowhere else, so a run can show
     that it went through the kernel.
     """

@@ -19,6 +19,7 @@ from typing import Dict
 import torch
 
 from . import gainscan, minplus as minplus_mod, pearson as pearson_mod, ref
+from . import flash_attention as flash_mod
 from . import sparse_apsp as sparse_mod, topk as topk_mod
 
 BACKENDS = ("auto", "cuda", "torch")
@@ -30,6 +31,7 @@ KERNELS = {
     "masked_argmax": gainscan.KERNEL,
     "topk": topk_mod.KERNEL,
     "sparse_relax": sparse_mod.KERNEL,
+    "flash_attention": flash_mod.KERNEL,
 }
 
 
@@ -85,6 +87,18 @@ def sparse_relax(D: torch.Tensor, graph, *, backend: str = "auto"):
             D.contiguous(), graph.indptr, graph.cols, graph.vals)
     out = ref.sparse_relax_ref(D, graph.indptr, graph.cols, graph.vals)
     return out, (out < D).any().view(1)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    backend: str = "auto") -> torch.Tensor:
+    """Attention of q (B, Tq, H, hd) over k, v (B, Tk, KV, hd), KV head
+    h // (H // KV) for query head h, causal and/or within a sliding
+    window (0 = none); (B, Tq, H, hd) in q's dtype."""
+    if use_kernel(q, backend):
+        return flash_mod.flash_attention_cuda(q, k, v, causal=causal,
+                                              window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
 def launch_counts() -> Dict[str, int]:

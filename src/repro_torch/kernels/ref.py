@@ -10,6 +10,8 @@ against its twin on the card.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 NEG = float("-inf")
@@ -129,3 +131,37 @@ def sparse_relax_ref(D: torch.Tensor, indptr: torch.Tensor,
     upd = torch.segment_reduce(cand, "min", lengths=lengths, axis=1,
                                initial=float("inf"))
     return torch.minimum(D, upd)
+
+
+# masked attention scores: finite, so exp(NEG - NEG) = 1, never NaN
+ATTN_NEG = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """Dense attention of q (B, Tq, H, hd) over k, v (B, Tk, KV, hd) with
+    the KV head of query head h at h // (H // KV): an fp32 softmax over
+    the keys with (causal) s <= t and (window > 0) t - s < window, the
+    rest masked with the finite ``ATTN_NEG``.  Returns (B, Tq, H, hd) in
+    q's dtype.
+
+    The twin of ``repro.kernels.flash_attention.flash_attention_ref``,
+    the oracle of ``flash_attention_pallas``; the (B, KV, G, Tq, Tk)
+    scores exist whole."""
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qh = q.reshape(B, Tq, KV, G, hd).float() / math.sqrt(hd)
+    s = torch.einsum("bqKgh,bsKh->bKgqs", qh, k.float())
+    qi = torch.arange(Tq, device=q.device)[:, None]
+    ki = torch.arange(Tk, device=q.device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qi >= ki
+    if window > 0:
+        mask &= (qi - ki) < window
+    s = torch.where(mask, s, ATTN_NEG)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bKgqs,bsKh->bKgqh", w, v.float())
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, hd).to(q.dtype)

@@ -12,7 +12,10 @@ the norm, and sums in another order); min-plus, masked argmax and the
 sparse relaxation bitwise, NaN entries at the same places; top-K bitwise
 equal to a stable top-k of the Pearson kernel's own rows, and within
 1e-6 of the plain top-K (a PyTorch matmul rounds otherwise) for L up to
-200, within L * 2**-24 for the long series.
+200, within L * 2**-24 for the long series; flash attention within 1e-5
+of the plain version in fp32 (another summation order of the online
+softmax) and, in bf16, within one bf16 ulp of the plain output's largest
+magnitude (both round nearly equal fp32 values to bf16 once).
 """
 
 import numpy as np
@@ -236,3 +239,67 @@ def test_cuda_sparse_tmfg_at_full_k_is_the_dense_build(cuda):
         assert torch.equal(getattr(dense, f), getattr(sparse, f)), f
     e = dense.edges.long()
     assert torch.equal(w, S[e[:, 0], e[:, 1]]) and c.pair_misses == 0
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at the largest magnitude of x (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(float(x.float().abs().max()))) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Tq,Tk,H,KV,hd,causal,window", [
+    (1, 16, 16, 2, 2, 8, True, 0),         # the JAX tests' shapes
+    (2, 40, 40, 4, 2, 16, True, 0),
+    (1, 33, 33, 8, 1, 16, False, 0),
+    (2, 64, 64, 4, 4, 32, False, 0),
+    (1, 48, 48, 4, 2, 16, True, 4),
+    (1, 48, 48, 4, 2, 16, True, 16),
+    (1, 48, 48, 4, 2, 16, True, 64),
+    (1, 200, 200, 8, 2, 64, True, 0),      # the zoo's head dims, ragged T
+    (2, 333, 333, 8, 8, 64, True, 100),
+    (1, 1000, 1000, 12, 1, 128, True, 0),
+    (1, 130, 130, 4, 2, 128, False, 0),
+    (1, 300, 300, 8, 4, 256, True, 64),
+    (1, 257, 257, 4, 4, 256, True, 0),
+    (1, 70, 150, 4, 2, 24, False, 0),      # Tq != Tk, hd = 24
+])
+def test_cuda_flash_attention_matches_plain(cuda, B, Tq, Tk, H, KV, hd,
+                                            causal, window, dtype):
+    rng = _rng(Tq * 7 + hd)
+    dt = getattr(torch, dtype)
+    q = torch.from_numpy(rng.normal(size=(B, Tq, H, hd)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(B, Tk, KV, hd)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(B, Tk, KV, hd)).astype(np.float32))
+    q, k, v = (t.to(cuda, dt) for t in (q, k, v))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              backend="cuda")
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == q.shape
+    tol = 1e-5 if dtype == "float32" else _bf16_ulp(want)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_goes_through_the_kernel(cuda):
+    """DecoderModel.prefill on the card launches the flash kernel once per
+    layer and agrees with backend='torch' within 1e-4 (fp32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    cfg = get_config("gemma3-4b").reduced(n_layers=7)
+    model = build_model(cfg)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    toks = torch.from_numpy(_rng(1).integers(0, cfg.vocab, (2, 40))).to(cuda)
+    ops.reset_launch_counts()
+    lc, caches, pos = model.prefill(params, toks, max_len=64)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    lt, _, _ = model.prefill(params, toks, max_len=64, backend="torch")
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    assert float((lc - lt).abs().max()) <= 1e-4
+    assert pos == 40 and len(caches) == cfg.n_layers

@@ -1,0 +1,122 @@
+"""The port's plain flash attention against the JAX package's.
+
+``repro_torch.kernels.ref.flash_attention_ref`` (what ``ops.flash_attention``
+runs for a tensor on the CPU, and the CUDA kernel's oracle on the card)
+against ``flash_attention_pallas(..., interpret=True)``, its dense
+oracle ``flash_attention_ref`` and the model's XLA ``_flash``, on the
+shapes of ``tests/test_flash_attention.py``.  Inputs are seeded numpy
+arrays handed to both.
+
+Tolerances: 3e-5 absolute in fp32 (the JAX tests' own bound between the
+Pallas kernel and its oracle: the online softmax sums in another order);
+2e-2 in bf16 (the JAX tests' bf16 bound: one bf16 ulp of unit-sized
+outputs, the output being rounded to bf16 once in each).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import (  # noqa: E402
+    flash_attention_pallas, flash_attention_ref as jax_ref)
+from repro.models.attention import _flash  # noqa: E402
+from repro_torch.interop import tensor_from_numpy  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    check_shapes, flash_attention_cuda)
+
+
+def _qkv(seed, B, Tq, Tk, H, KV, hd, dtype=np.float32):
+    r = np.random.default_rng(seed)
+    return (r.normal(size=(B, Tq, H, hd)).astype(dtype),
+            r.normal(size=(B, Tk, KV, hd)).astype(dtype),
+            r.normal(size=(B, Tk, KV, hd)).astype(dtype))
+
+
+def _port(arrs, **kw):
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    return ref.flash_attention_ref(q, k, v, **kw).numpy()
+
+
+@pytest.mark.parametrize("B,T,H,KV,hd", [
+    (1, 16, 2, 2, 8),      # MHA
+    (2, 40, 4, 2, 16),     # GQA 2:1
+    (1, 33, 8, 1, 16),     # MQA, ragged T
+    (2, 64, 4, 4, 32),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_pallas_and_oracle(B, T, H, KV, hd, causal):
+    arrs = _qkv(B * 100 + T, B, T, T, H, KV, hd)
+    got = _port(arrs, causal=causal)
+    jq, jk, jv = (jnp.asarray(a) for a in arrs)
+    pal = flash_attention_pallas(jq, jk, jv, causal=causal, bq=16, bk=16,
+                                 interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pal), atol=3e-5)
+    np.testing.assert_allclose(got, np.asarray(jax_ref(jq, jk, jv,
+                                                       causal=causal)),
+                               atol=3e-5)
+
+
+@pytest.mark.parametrize("window", [4, 16, 64])
+def test_sliding_window(window):
+    arrs = _qkv(window, 1, 48, 48, 4, 2, 16)
+    got = _port(arrs, causal=True, window=window)
+    jq, jk, jv = (jnp.asarray(a) for a in arrs)
+    pal = flash_attention_pallas(jq, jk, jv, causal=True, window=window,
+                                 bq=16, bk=16, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pal), atol=3e-5)
+
+
+def test_bf16_inputs():
+    arrs = _qkv(7, 1, 32, 32, 2, 2, 16)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in arrs)
+    q, k, v = (tensor_from_numpy(a, "cpu") for a in (jq, jk, jv))
+    got = ref.flash_attention_ref(q, k, v, causal=True)
+    assert got.dtype == torch.bfloat16
+    pal = flash_attention_pallas(jq, jk, jv, causal=True, bq=16, bk=16,
+                                 interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(pal, np.float32), atol=2e-2)
+
+
+def test_matches_xla_formulation():
+    """The model's XLA ``_flash`` at window 8: the function that
+    ``attention_full`` replaces with ``ops.flash_attention``."""
+    arrs = _qkv(8, 2, 40, 40, 4, 2, 16)
+    jq, jk, jv = (jnp.asarray(a) for a in arrs)
+    xla = _flash(jq, jk, jv, causal=True, window=8, q_chunk=16, kv_chunk=16)
+    got = _port(arrs, causal=True, window=8)
+    B, T, H, hd = got.shape
+    np.testing.assert_allclose(got.reshape(B, T, H * hd), np.asarray(xla),
+                               atol=3e-5)
+
+
+def test_ops_dispatch_on_the_cpu():
+    """``auto`` and ``torch`` run the plain version for a CPU tensor;
+    ``cuda`` raises instead of falling back."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(9, 1, 20, 20, 4, 2, 8))
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=5)
+    for backend in ("auto", "torch"):
+        got = ops.flash_attention(q, k, v, causal=True, window=5,
+                                  backend=backend)
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(q, k, v, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, k, v)
+
+
+@pytest.mark.parametrize("shapes,match", [
+    (((1, 8, 4, 12), (1, 8, 2, 12)), "multiple of 8"),
+    (((1, 8, 4, 264), (1, 8, 2, 264)), "multiple of 8"),
+    (((1, 8, 4, 16), (1, 8, 3, 16)), "not a multiple"),
+    (((1, 8, 4, 16), (2, 8, 2, 16)), "do not fit"),
+])
+def test_kernel_refuses_shapes_it_does_not_take(shapes, match):
+    q = torch.zeros(shapes[0])
+    k = torch.zeros(shapes[1])
+    with pytest.raises(ValueError, match=match):
+        check_shapes(q, k, k, 0)

@@ -158,15 +158,16 @@ _C_ENTRY = re.compile(r'extern "C" int (\w+)\(([^)]*)\)', re.S)
 
 def test_every_kernel_has_a_matching_c_entry_point():
     """Each wrapper's ctypes signature matches its C entry point: the
-    pointer/int parameters in order, then the stream."""
+    pointer/int/float parameters in order, then the stream."""
     entries = {}
     for src in _build.sources():
         for name, params in _C_ENTRY.findall(src.read_text()):
-            kinds = ["p" if "*" in p else "i" for p in params.split(",")]
+            kinds = ["p" if "*" in p else "f" if "float" in p else "i"
+                     for p in params.split(",")]
             entries[name] = "".join(kinds)
     assert {p.name for p in _build.sources()} == {
         "pearson.cu", "minplus.cu", "masked_argmax.cu", "topk.cu",
-        "sparse_relax.cu"}
+        "sparse_relax.cu", "flash_attention.cu"}
     for kname, kern in ops.KERNELS.items():
         assert entries[kern.symbol] == kern.signature + "p", kname
 
@@ -185,6 +186,7 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     from repro_torch.kernels.pearson import pearson_cuda
     from repro_torch.kernels.sparse_apsp import sparse_relax_cuda
     from repro_torch.kernels.topk import topk_pearson_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     x = torch.zeros(4, 4)
     with pytest.raises(ValueError, match="CUDA device"):
         pearson_cuda(x)
@@ -197,11 +199,14 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     i = torch.zeros(5, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA device"):
         sparse_relax_cuda(x, i, i[:0], torch.zeros(0))
+    q = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention_cuda(q, q, q)
     with pytest.raises(TypeError, match="takes 6 arguments"):
         ops.KERNELS["pearson"].launch(1, 2, stream=0)
     assert ops.launch_counts() == {"pearson": 0, "minplus": 0,
                                    "masked_argmax": 0, "topk": 0,
-                                   "sparse_relax": 0}
+                                   "sparse_relax": 0, "flash_attention": 0}
 
 
 def test_topk_plan_fits_shared_memory():
