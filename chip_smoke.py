@@ -8,8 +8,11 @@ Usage, from the root of a checkout, on a machine with one NVIDIA GPU::
 
 Phases (any failure exits non-zero; no phase is skipped):
 
-1. Environment: the card's name and power limit, torch and CUDA
-   versions, and the build of every kernel from ``kernels/csrc/``.
+1. Environment: the card's name and power limit, its SM count and
+   maximum SM clock (the min-plus bound counts an add and a min per
+   (i, k, j) as two fp32 instructions at 128 lanes per SM per clock),
+   torch and CUDA versions, and the build of every kernel from
+   ``kernels/csrc/``.
 2. Kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the shapes the main paths give it (Pearson at (n, L); the
    hub Bellman-Ford round (h, n) x (n, n) and the hub composition
@@ -17,18 +20,29 @@ Phases (any failure exits non-zero; no phase is skipped):
    (n, n) HAC scan for masked argmax; top-K at (n, L, 64) and at a
    small n with k = n-1, bitwise a stable top-k of the Pearson kernel's
    rows; one sparse relaxation round and its fixed point from h sources
-   over 3n-6 edges, NaN entries included; flash attention at
-   granite-3-8b's prefill shape, gemma3-4b's local layer and an fp32 MQA
-   shape with ragged T), with times from CUDA events.
+   over 3n-6 edges, NaN entries included; flash attention in bf16, the
+   wgmma kernel, at granite-3-8b's prefill shape and gemma3-4b's local
+   layer, and in fp32, the CUDA-core kernel, at an MQA shape with ragged
+   T, the bf16 cases under ``bf16_gate``'s three gates and granite's
+   shape also in the serve path's form, q scaled in bf16 and scale 1;
+   SDPA beside each, the window as a boolean mask), with times from
+   CUDA events; the count of HGMMA and UTMALDG instructions in the SASS
+   of every instance of the wgmma kernel (``cuobjdump -sass``), none of
+   them 0.
 3. Serve path: granite-3-8b at full width and depth in bf16, its weights
    drawn on the card from a seeded ``torch.Generator``; a ``ServeEngine``
    with 4 slots serves 8 requests (prompts of 128, 512, 2048 and 4096
    tokens, two each, 16 new tokens each), counts reset just before and
-   read just after: one flash-attention launch per layer per prefill,
-   every request done with 16 tokens below the vocabulary, each first
-   token the argmax of its prefill's logits, all logits finite; then the
-   4096-token prompt's logits with ``backend="cuda"`` against
-   ``backend="torch"`` (cosine of the last position >= 0.999).
+   read just after: one launch of the bf16 (wgmma) flash kernel per
+   layer per prefill and no other kernel, every request done with 16
+   tokens below the vocabulary, each first token the argmax of its
+   prefill's logits, all logits finite; then the 4096-token prompt's
+   logits with ``backend="cuda"`` against ``backend="torch"`` (cosine of
+   the last position >= 0.999).  Then the fp32 prefill path: the same
+   model at full width in fp32, cut to 2 layers, prefills a 1024-token
+   prompt, counts reset just before and read just after: one fp32 flash
+   launch per layer and no other kernel, logits within 1e-3 of
+   ``backend="torch"``.
 4. Dense main path: ``cluster(X, k, config=PipelineConfig.opt())`` on
    the dataset (``make_ucr_like`` from a seed), once as the default
    back-to-back run, with every kernel's launch count reset just before
@@ -60,7 +74,9 @@ of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -81,6 +97,10 @@ SERVE_LENGTHS = (128, 512, 2048, 4096)
 SERVE_NEW = 16
 SERVE_SLOTS = 4
 SERVE_MAX_LEN = 4112
+# the fp32 prefill path: the serve model at full width, this many
+# layers, one prompt of this many tokens
+FP32_LAYERS = 2
+FP32_TOKENS = 1024
 
 PARITY_N = 2000
 
@@ -118,11 +138,52 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bf16_gate(got, want) -> tuple:
+    """The bf16 flash kernel's gates against the plain output; returns
+    (ok, numbers).  The kernel rounds one thing more than the plain
+    version, P to bf16 (2^-9 relative per probability), and both round
+    the output once, so: the largest error within one bf16 ulp of the
+    largest |want| (the card tests' gate); each element within one ulp of
+    its own magnitude plus 2^-5 of its (b, t, h) row's rms; and each row's
+    rms error within 2^-6 of the row's rms, so an error confined to the
+    late rows of small magnitude (a dropped K/V tile, a window edge off by
+    one) shows."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    err = float(d.max())
+    tol = min(2.0 ** (math.floor(math.log2(float(w.abs().max()))) - 7), 2e-2)
+    ulp = g.abs().maximum(w.abs()).clamp_min(2.0 ** -126).log2().floor() \
+        .sub(7).exp2()
+    rms = w.square().mean(-1, keepdim=True).sqrt()
+    elem = float((d / (ulp + 2.0 ** -5 * rms)).max())
+    row = float((d.square().mean(-1, keepdim=True).sqrt()
+                 / rms.clamp_min(1e-30)).max())
+    ok = err <= tol and elem <= 1.0 and row <= 2.0 ** -6
+    return ok, dict(max_abs_err=err, tol=tol, elem_ratio=elem,
+                    row_rel_rms_err=row, row_tol=2.0 ** -6)
+
+
 def causal_pairs(T: int, window: int) -> int:
     """Unmasked (query, key) pairs of one head of causal attention over T
     positions, within ``window`` keys of the query (0 = no window)."""
     return sum(min(t + 1, window) if window > 0 else t + 1
                for t in range(T))
+
+
+def sass_counts(lib: str, kernel: str, opcodes) -> dict:
+    """Count each opcode in the SASS of every instance of ``kernel`` in
+    the built library (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    counts = {}
+    for fn in out.stdout.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if kernel in name:
+            counts[name] = {op: fn.count(op) for op in opcodes}
+    return counts
 
 
 def same_nan(a, b) -> bool:
@@ -177,6 +238,18 @@ def main() -> None:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
     log(f"[env] {smi_line}")
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    check(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr.strip()}")
+    sm_mhz = float(clk.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # fp32 instructions other than FMA (add, min): one per lane per clock,
+    # 128 lanes per SM; the 67 TFLOP/s peak counts an FMA as two flops
+    fp32_issue_per_s = 128 * sms * sm_mhz * 1e6
+    log(f"[env] {sms} SMs, max SM clock {sm_mhz:.0f} MHz: "
+        f"{fp32_issue_per_s / 1e12:.2f} T fp32 instructions/s")
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
@@ -307,8 +380,11 @@ def main() -> None:
     check(bool(torch.isnan(npl).any()) and same_nan(nk, npl),
           "minplus kernel vs plain differ with NaN inputs")
     del An, Bn, nk, npl
-    b_ms, b_by = bound(4 * (h * n + n * n + h * n), 2 * h * n * n)
-    c_ms, c_by = bound(4 * (n * h + h * n + n * n), 2 * n * h * n)
+    # an add and a min per (i, k, j), each an fp32 instruction
+    b_ms, b_by = bound(4 * (h * n + n * n + h * n), 2 * h * n * n,
+                       fp32_issue_per_s)
+    c_ms, c_by = bound(4 * (n * h + h * n + n * n), 2 * n * h * n,
+                       fp32_issue_per_s)
     entries["minplus"] = dict(
         name="minplus", route="cuda",
         source="src/repro_torch/kernels/csrc/minplus.cu",
@@ -395,7 +471,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # flash attention: granite-3-8b's per-sequence prefill (the serve
-    # path's shape), gemma3-4b's local layer, and MQA in fp32 with ragged T
+    # path's shape) and gemma3-4b's local layer in bf16 (the wgmma kernel),
+    # and MQA in fp32 with ragged T (the CUDA-core kernel)
     flash_cases = [
         ("granite-3-8b causal", (1, 4096, 32, 8, 128), 0, torch.bfloat16),
         ("gemma3-4b local", (1, 4096, 8, 4, 256), 1024, torch.bfloat16),
@@ -409,48 +486,82 @@ def main() -> None:
         got = flash_attention_cuda(fq, fk, fv, causal=True, window=win)
         want = ref.flash_attention_ref(fq, fk, fv, causal=True, window=win)
         sync()
-        err = float((got.float() - want.float()).abs().max())
+        gates = {}
         if dt == torch.float32:
-            tol = 1e-5
-        else:   # one bf16 ulp at the plain output's largest magnitude
-            top = float(want.float().abs().max())
-            tol = min(float(2.0 ** (np.floor(np.log2(top)) - 7)), 2e-2)
-        check(got.dtype == dt and got.shape == fq.shape and err <= tol,
-              f"flash kernel vs plain at {label}: max abs err {err} > {tol}")
+            err, tol = float((got - want).abs().max()), 1e-5
+            ok = err <= tol
+        else:
+            ok, gates = bf16_gate(got, want)
+            err, tol = gates["max_abs_err"], gates["tol"]
+        check(got.dtype == dt and got.shape == fq.shape and ok,
+              f"flash kernel vs plain at {label}: max abs err {err} "
+              f"(tol {tol}), {gates}")
         del got, want
+        if dt == torch.bfloat16 and win == 0:
+            # the serve path's form: q scaled in bf16 first, scale = 1
+            qs = fq * torch.tensor(hd ** -0.5, dtype=dt, device=dev)
+            got = flash_attention_cuda(qs, fk, fv, causal=True, scale=1.0)
+            want = ref.flash_attention_ref(qs, fk, fv, causal=True,
+                                           scale=1.0)
+            ok, gates["prescaled"] = bf16_gate(got, want)
+            check(ok, f"flash kernel vs plain at {label}, q pre-scaled, "
+                      f"scale 1: {gates['prescaled']}")
+            del got, want, qs
         pairs = B * H * causal_pairs(T, win)
         elem = fq.element_size()
         b_ms, b_by = bound(elem * (2 * fq.numel() + 2 * fk.numel()),
                            4 * hd * pairs,
                            BF16_TENSOR_OPS_PER_S if dt == torch.bfloat16
                            else FP32_OPS_PER_S)
-        lib_ms = None
-        if win == 0:    # one PyTorch call computes causal GQA attention
-            qt, kt_, vt = (x.transpose(1, 2) for x in (fq, fk, fv))
+        # one PyTorch call computes the same function: SDPA, causal, or
+        # with the window as a boolean mask built outside the timed call
+        qt, kt_, vt = (x.transpose(1, 2) for x in (fq, fk, fv))
+        if win == 0:
             lib_ms = cuda_ms(lambda: torch.nn.functional.
                              scaled_dot_product_attention(
                                  qt, kt_, vt, is_causal=True,
                                  enable_gqa=True), 10)
+        else:
+            ti = torch.arange(T, device=dev)
+            live = (ti[:, None] >= ti[None, :]) & \
+                (ti[:, None] - ti[None, :] < win)
+            lib_ms = cuda_ms(lambda: torch.nn.functional.
+                             scaled_dot_product_attention(
+                                 qt, kt_, vt, attn_mask=live,
+                                 enable_gqa=True), 10)
+            del live
         fcases.append(dict(
             case=label, shape=[B, T, H, KV, hd], window=win,
             dtype=str(dt).replace("torch.", ""), max_abs_err=err, tol=tol,
+            gates=gates,
             ms=cuda_ms(lambda: flash_attention_cuda(
-                fq, fk, fv, causal=True, window=win), 5),
+                fq, fk, fv, causal=True, window=win), 20),
             plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
                 fq, fk, fv, causal=True, window=win), 2),
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
         log(f"[kernel] flash_attention ok at {label}: {fcases[-1]}")
-        del fq, fk, fv
+        del fq, fk, fv, qt, kt_, vt
         torch.cuda.empty_cache()
-    head = fcases[0]
-    entries["flash_attention"] = dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:87",
-        shape=head["shape"], max_abs_err=head["max_abs_err"], ms=head["ms"],
-        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-        bound_by=head["bound_by"], library_ms=head["library_ms"],
-        cases=fcases)
+
+    # the bf16 kernel's SASS holds tensor-core products and TMA loads
+    sass = sass_counts(_build.BUILD_INFO["path"], "flash_wgmma_kernel",
+                       ("HGMMA", "UTMALDG"))
+    log(f"[sass] flash_wgmma_kernel instances: {sass}")
+    check(len(sass) > 0 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                                for c in sass.values()),
+          f"flash_wgmma_kernel SASS lacks HGMMA or UTMALDG: {sass}")
+    for kname, cases in (("flash_attention_wgmma", fcases[:2]),
+                         ("flash_attention", fcases[2:])):
+        head = cases[0]
+        entries[kname] = dict(
+            name=kname, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{kname}.cu",
+            replaces="src/repro/kernels/flash_attention.py:87",
+            shape=head["shape"], max_abs_err=head["max_abs_err"],
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"], cases=cases)
+    entries["flash_attention_wgmma"]["sass"] = sass
     log(f"[time] kernels phase done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 3. the serve path ---------------------------------------------
@@ -524,10 +635,10 @@ def main() -> None:
     launches_s = ops.launch_counts()
     peak_s = torch.cuda.max_memory_allocated()
     model.prefill, model.decode_step = prefill_fn, decode_fn
-    check(launches_s["flash_attention"] == cfg_lm.n_layers * len(reqs),
-          f"serve: flash launches {launches_s} != "
+    check(launches_s["flash_attention_wgmma"] == cfg_lm.n_layers * len(reqs),
+          f"serve: bf16 flash launches {launches_s} != "
           f"{cfg_lm.n_layers} x {len(reqs)}")
-    check(sum(launches_s.values()) == launches_s["flash_attention"],
+    check(sum(launches_s.values()) == launches_s["flash_attention_wgmma"],
           f"serve: other kernels ran {launches_s}")
     check(all(r_.done and len(r_.output) == SERVE_NEW
               and all(0 <= t_ < cfg_lm.vocab for t_ in r_.output)
@@ -573,6 +684,39 @@ def main() -> None:
     del lc, lt, long_prompt, engine, reqs, params, model
     torch.cuda.empty_cache()
     log(f"[time] serve phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 3b. the fp32 prefill path -------------------------------------
+    # the same model at full width in fp32, depth cut to FP32_LAYERS: one
+    # prefill of an FP32_TOKENS prompt through the CUDA-core flash kernel,
+    # against backend="torch"
+    cfg_32 = dataclasses.replace(cfg_lm, n_layers=FP32_LAYERS,
+                                 dtype="float32")
+    model = build_model(cfg_32)
+    params = model.init(lm_gen)
+    toks32 = torch.as_tensor(prompts[lengths.index(2048)][:FP32_TOKENS],
+                             device=dev)[None]
+    sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    l32, _, _ = model.prefill(params, toks32, max_len=toks32.shape[1])
+    sync()
+    fp32_s = time.perf_counter() - t0
+    launches_32 = ops.launch_counts()
+    check(launches_32["flash_attention"] == FP32_LAYERS
+          and sum(launches_32.values()) == FP32_LAYERS,
+          f"fp32 prefill: launches {launches_32} != {FP32_LAYERS} fp32 "
+          f"flash launches")
+    lt32, _, _ = model.prefill(params, toks32, max_len=toks32.shape[1],
+                               backend="torch")
+    d32 = float((l32 - lt32).abs().max())
+    check(bool(torch.isfinite(l32).all()) and d32 <= 1e-3,
+          f"fp32 prefill: cuda vs torch logits differ by {d32} > 1e-3")
+    fp32_path = dict(arch=SERVE_ARCH, dtype="float32", n_layers=FP32_LAYERS,
+                     tokens=int(toks32.shape[1]), prefill_s=fp32_s,
+                     launches=launches_32, max_abs_dlogit=d32)
+    log(f"[fp32] {json.dumps(fp32_path)}")
+    del l32, lt32, params, model
+    torch.cuda.empty_cache()
 
     def check_linkage(Z, nn, kk, labels, what):
         check(labels.shape == (nn,), f"{what}: labels shape {labels.shape}")
@@ -788,13 +932,15 @@ def main() -> None:
 
     dense_kernels = ("pearson", "minplus", "masked_argmax")
     for e in entries.values():
-        e["launches"] = (launches_s if e["name"] == "flash_attention" else
-                         launches if e["name"] in dense_kernels
+        e["launches"] = (launches_s if e["name"] == "flash_attention_wgmma"
+                         else launches_32 if e["name"] == "flash_attention"
+                         else launches if e["name"] in dense_kernels
                          else launches_a)[e["name"]]
     main["seconds_in_all"] = time.perf_counter() - t_start
     log(f"[main] {json.dumps(main)}")
     log(f"[approx] {json.dumps(approx)}")
     log(f"[serve] {json.dumps(serve)}")
+    log(f"[fp32] {json.dumps(fp32_path)}")
     log(smi_line)
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {

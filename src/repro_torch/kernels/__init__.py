@@ -7,8 +7,9 @@
   * topk.py      -- streaming top-K Pearson (csrc/topk.cu)
   * sparse_apsp.py -- CSR graph and one multi-source relaxation round
                     (csrc/sparse_relax.cu)
-  * flash_attention.py -- causal / sliding-window GQA prefill attention
-                    (csrc/flash_attention.cu)
+  * flash_attention.py -- causal / sliding-window GQA prefill attention:
+                    bf16 on the tensor cores (csrc/flash_attention_wgmma.cu),
+                    fp32 on the CUDA cores (csrc/flash_attention.cu)
 
 Each kernel is built from ``csrc/`` with nvcc at first use
 (``_build.py``) and has a plain version in ``ref.py``; ``ops.py``

@@ -1,5 +1,7 @@
-// Flash attention for Hopper: causal or sliding-window GQA prefill attention
-// with an online softmax.
+// Flash attention in fp32 for Hopper: causal or sliding-window GQA prefill
+// attention with an online softmax, on the CUDA cores.  The bf16 route is
+// csrc/flash_attention_wgmma.cu (the tensor cores); this kernel takes fp32
+// only, which the port keeps off the tensor cores (no TF32).
 //
 // Replaces: src/repro/kernels/flash_attention.py:flash_attention_pallas, the
 // Pallas TPU kernel that walks (bq, bk) score tiles with the running max,
@@ -10,24 +12,23 @@
 //   o[b, t, h] = sum_s softmax_s(scale * q[b, t, h] . k[b, s, h // G]) v[b, s, h // G]
 //   over the keys s < Tk with (causal: s <= t) and (window > 0: t - s < window)
 //
-// Semantics kept from the Pallas kernel: q is scaled after its cast to fp32
-// (q * scale, not q / sqrt(hd)); masked scores are the finite NEG = -1e30,
+// Semantics kept from the Pallas kernel: q is multiplied by scale as it is
+// loaded (the caller passes 1 / sqrt(hd), or 1 for a q it has scaled
+// itself); masked scores are the finite NEG = -1e30,
 // never -inf, so exp(NEG - NEG) = 1 where a row has seen no live key yet
 // and the first live key's correction exp(NEG - m) = 0 wipes that sum
-// exactly; the output is acc / max(l, 1e-30), written in the input type.
+// exactly; the output is acc / max(l, 1e-30).
 //
 // What bounds it on the card: the work is 4 hd flops per unmasked (q, k)
 // pair (QK^T and PV); at the granite-3-8b prefill shape (T = 4096, 32 heads,
 // hd = 128) that is 137 GFLOP against 42 MB of q, k, v and o, far above
-// the H100's 295 flop per byte, so it is bound by operations.  This first
-// version does them as fp32 FMAs on the CUDA cores (67 TFLOP/s peak, not the
-// 989 TFLOP/s of the bf16 tensor cores): a later version moves QK^T and PV
-// to wgmma.
+// the H100's 295 flop per byte, so it is bound by operations.  In fp32 they
+// are FMAs on the CUDA cores (67 TFLOP/s peak): 2.05 ms at that shape.
 //
 // Design: one block of 256 threads per (batch * head, 64-query tile); the
 // heaviest causal tiles (the last ones) are scheduled first.  The q tile
-// (scaled, fp32) stays in shared memory; each 64-key tile of K, then of V,
-// is converted to fp32 into one shared buffer (K and V take turns, which
+// (scaled) stays in shared memory; each 64-key tile of K, then of V,
+// is loaded into one shared buffer (K and V take turns, which
 // keeps 2 blocks per SM at hd = 128).  Thread (ty, tx) of the 16 x 16 grid
 // owns query rows ty + 16 i and key columns tx + 16 j (i, j < 4) of the
 // score tile, read as float4 along hd from rows padded to hd + 4 floats so
@@ -40,7 +41,6 @@
 // (k_lo <= q_lo + 63), lo by the window bound (k_lo + 63 > q_lo - window),
 // the same relevance test as the Pallas kernel.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,32 +56,13 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&a);
-  raw.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
 // rows [t0, t0 + 64) of one head of a (B, T, nh, hd) tensor into dst
-// (row stride hd + 4) as fp32 times mul; rows at or past T are zero
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+// (row stride hd + 4) times mul; rows at or past T are zero
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int64_t row0, int t0, int T_,
                                           int nh, int hd, float mul) {
   const int groups = hd >> 2;
@@ -115,10 +96,10 @@ __device__ __forceinline__ float group_sum(float x) {
 }
 
 // NG: float4 column groups of the output per thread, ceil(hd / 64)
-template <typename T, int NG>
+template <int NG>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int H, int KV,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int H, int KV,
              int Tq, int Tk, int hd, int causal, int window, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -272,63 +253,49 @@ size_t smem_bytes(int hd) {
   return sizeof(float) * ((size_t)(kBQ + kBK) * (hd + 4) + kBQ * kPStride);
 }
 
-template <typename T, int NG>
+template <int NG>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Tq, int Tk, int H, int KV, int hd, int causal, int window,
            float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, NG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<NG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (Tq + kBQ - 1) / kBQ);
-  flash_kernel<T, NG><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, H, KV, Tq, Tk, hd, causal,
-      window, scale);
+  flash_kernel<NG><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, H, KV, Tq,
+      Tk, hd, causal, window, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int Tq, int Tk, int H, int KV, int hd, int causal, int window,
-             float scale, cudaStream_t stream) {
-  switch ((hd + 63) / 64) {
-    case 1:
-      return launch<T, 1>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
-                          scale, stream);
-    case 2:
-      return launch<T, 2>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
-                          scale, stream);
-    case 3:
-      return launch<T, 3>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
-                          scale, stream);
-    case 4:
-      return launch<T, 4>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
-                          scale, stream);
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q (B, Tq, H, hd), k and v (B, Tk, KV,
-// hd) and o (B, Tq, H, hd), contiguous and 16-byte aligned; hd a multiple
-// of 8 up to 256; H a multiple of KV; B * H and the query tiles within the
-// grid's limits (checked by the wrapper).
+// q (B, Tq, H, hd), k and v (B, Tk, KV, hd) and o (B, Tq, H, hd), fp32,
+// contiguous and 16-byte aligned; hd a multiple of 8 up to 256; H a
+// multiple of KV; B * H and the query tiles within the grid's limits
+// (checked by the wrapper).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int Tq,
                                      int Tk, int H, int KV, int hd, int causal,
-                                     int window, float scale, int dtype,
-                                     void* stream) {
+                                     int window, float scale, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
       hd <= 0 || hd > 256 || hd % 8 != 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
-                           scale, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal,
-                                   window, scale, s);
+  switch ((hd + 63) / 64) {
+    case 1:
+      return launch<1>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
+                       scale, s);
+    case 2:
+      return launch<2>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
+                       scale, s);
+    case 3:
+      return launch<3>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
+                       scale, s);
+    case 4:
+      return launch<4>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
+                       scale, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

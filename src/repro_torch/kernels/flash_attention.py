@@ -1,39 +1,59 @@
-"""Flash attention on the card: the wrapper of ``csrc/flash_attention.cu``.
+"""Flash attention on the card: the wrappers of two CUDA kernels.
 
 Replaces ``repro.kernels.flash_attention.flash_attention_pallas``, the
 twin of ``repro.models.attention._flash``.  On the main path it is the
 prefill attention of every decoder layer (``models/attention.py:
-attention_full`` through ``ops.flash_attention``); see the source note
-in ``csrc/flash_attention.cu`` for the bound and the design.  The plain
-version is ``ref.flash_attention_ref``.
+attention_full`` through ``ops.flash_attention``).  The plain version is
+``ref.flash_attention_ref``.
 
-GQA reads KV head ``h // G`` through the (B, T, KV, hd) strides of k
-and v: no copy and no repeat over the group.  q is scaled after its
-cast to fp32, as the Pallas kernel does (the model's XLA path scales q
-in the input type first; ROADMAP Queue 3 records the bf16 gap).
+The route is chosen by dtype alone, with no fallback between them:
+
+  * bfloat16 -> ``csrc/flash_attention_wgmma.cu``: TMA-fed K/V tiles and
+    QK^T and PV on the bf16 tensor cores (``wgmma``);
+  * float32  -> ``csrc/flash_attention.cu``: fp32 FMAs on the CUDA cores
+    (the port keeps fp32 off the tensor cores: no TF32).
+
+Each has its own ``_build.Kernel`` and launch count; see each source
+note for its bound and design.  GQA reads KV head ``h // G`` through the
+(B, T, KV, hd) strides of k and v: no copy and no repeat over the group.
+The fp32 scores are multiplied by ``scale`` (default ``1 / sqrt(hd)``,
+the Pallas kernel's); ``attention_full`` passes a q already scaled in
+its own dtype with ``scale=1``, as the model's ``_flash`` scales it.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from . import _build
 from ._checks import require_cuda, require_int32_range, stream_of
 
-KERNEL = _build.Kernel("repro_flash_attention", "ppppiiiiiiiifi")
+# (q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window, scale, stream)
+KERNEL = _build.Kernel("repro_flash_attention", "ppppiiiiiiiif")
+KERNEL_WGMMA = _build.Kernel("repro_flash_attention_wgmma", "ppppiiiiiiiif")
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.float32: KERNEL, torch.bfloat16: KERNEL_WGMMA}
 MAX_HEAD_DIM = 256
-Q_TILE = 64          # query rows per block (kBQ in the source)
+Q_TILE = 64          # query rows per block of the fp32 kernel (kBQ)
 MAX_Q_TILES = 65535  # the grid's y limit
+
+
+def kernel_for(dtype: torch.dtype) -> _build.Kernel:
+    """The kernel that takes q, k, v of ``dtype``."""
+    try:
+        return ROUTES[dtype]
+    except KeyError:
+        raise TypeError(f"q must be float32 or bfloat16, got {dtype}") \
+            from None
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  window: int):
     """Raise unless q (B, Tq, H, hd), k and v (B, Tk, KV, hd) fit the
-    kernel; return (B, Tq, Tk, H, KV, hd)."""
+    kernels; return (B, Tq, Tk, H, KV, hd)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be 4-d, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -54,13 +74,13 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
+                         *, causal: bool = True, window: int = 0,
+                         scale: Optional[float] = None) -> torch.Tensor:
     """Attention of q (B, Tq, H, hd) over k, v (B, Tk, KV, hd), causal
-    and/or within a sliding window (0 = none), float32 or bfloat16;
-    returns (B, Tq, H, hd) in q's dtype."""
-    if q.dtype not in DTYPES:
-        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    and/or within a sliding window (0 = none), float32 or bfloat16, the
+    scores times ``scale`` (None: 1 / sqrt(hd)); returns (B, Tq, H, hd)
+    in q's dtype."""
+    kernel = kernel_for(q.dtype)
     for name, t in (("q", q), ("k", k), ("v", v)):
         require_cuda(name, t, q.dtype, 4)
         if t.data_ptr() % 16:
@@ -69,12 +89,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q, k, v lie on {q.device}, {k.device}, {v.device}")
     B, Tq, Tk, H, KV, hd = check_shapes(q, k, v, int(window))
     require_int32_range(batch_heads=B * H, Tq=Tq, Tk=Tk)
-    if -(-Tq // Q_TILE) > MAX_Q_TILES:
+    if kernel is KERNEL and -(-Tq // Q_TILE) > MAX_Q_TILES:
+        # the fp32 kernel's grid has a y axis of query tiles; the wgmma
+        # kernel's grid is one block per SM
         raise ValueError(f"Tq={Tq} needs more than {MAX_Q_TILES} query tiles")
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       B, Tq, Tk, H, KV, hd, int(bool(causal)), int(window),
-                      1.0 / math.sqrt(hd), DTYPES[q.dtype],
+                      1.0 / math.sqrt(hd) if scale is None else float(scale),
                       stream=stream_of(q))
     return o

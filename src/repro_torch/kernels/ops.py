@@ -14,7 +14,7 @@ version.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -32,6 +32,7 @@ KERNELS = {
     "topk": topk_mod.KERNEL,
     "sparse_relax": sparse_mod.KERNEL,
     "flash_attention": flash_mod.KERNEL,
+    "flash_attention_wgmma": flash_mod.KERNEL_WGMMA,
 }
 
 
@@ -91,14 +92,18 @@ def sparse_relax(D: torch.Tensor, graph, *, backend: str = "auto"):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None,
                     backend: str = "auto") -> torch.Tensor:
     """Attention of q (B, Tq, H, hd) over k, v (B, Tk, KV, hd), KV head
     h // (H // KV) for query head h, causal and/or within a sliding
-    window (0 = none); (B, Tq, H, hd) in q's dtype."""
+    window (0 = none), the fp32 scores times ``scale`` (None:
+    1 / sqrt(hd)); (B, Tq, H, hd) in q's dtype.  On the card bfloat16
+    goes to the wgmma kernel and float32 to the CUDA-core one."""
     if use_kernel(q, backend):
         return flash_mod.flash_attention_cuda(q, k, v, causal=causal,
-                                              window=window)
-    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+                                              window=window, scale=scale)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -11,6 +11,7 @@ against its twin on the card.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -138,13 +139,14 @@ ATTN_NEG = -1e30
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True,
-                        window: int = 0) -> torch.Tensor:
+                        *, causal: bool = True, window: int = 0,
+                        scale: Optional[float] = None) -> torch.Tensor:
     """Dense attention of q (B, Tq, H, hd) over k, v (B, Tk, KV, hd) with
     the KV head of query head h at h // (H // KV): an fp32 softmax over
     the keys with (causal) s <= t and (window > 0) t - s < window, the
-    rest masked with the finite ``ATTN_NEG``.  Returns (B, Tq, H, hd) in
-    q's dtype.
+    rest masked with the finite ``ATTN_NEG``.  q is cast to fp32 and
+    then divided by sqrt(hd) (``scale=None``, the Pallas semantics) or
+    multiplied by ``scale``.  Returns (B, Tq, H, hd) in q's dtype.
 
     The twin of ``repro.kernels.flash_attention.flash_attention_ref``,
     the oracle of ``flash_attention_pallas``; the (B, KV, G, Tq, Tk)
@@ -152,7 +154,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Tq, H, hd = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    qh = q.reshape(B, Tq, KV, G, hd).float() / math.sqrt(hd)
+    qh = q.reshape(B, Tq, KV, G, hd).float()
+    qh = qh / math.sqrt(hd) if scale is None else qh * scale
     s = torch.einsum("bqKgh,bsKh->bKgqs", qh, k.float())
     qi = torch.arange(Tq, device=q.device)[:, None]
     ki = torch.arange(Tk, device=q.device)[None, :]

@@ -3,12 +3,12 @@
 The port of the dense paths of ``repro.models.attention``:
 
   * ``attention_full``   -- full-sequence (prefill) attention through
-    ``ops.flash_attention``: the hand-written kernel
-    (``kernels/csrc/flash_attention.cu``) for tensors on the card, the
+    ``ops.flash_attention``: the hand-written kernels
+    (``kernels/csrc/flash_attention_wgmma.cu`` in bf16,
+    ``flash_attention.cu`` in fp32) for tensors on the card, the
     plain ``ref.flash_attention_ref`` for tensors on the CPU.  It takes
-    the place of the reference's XLA ``_flash``; the one difference is
-    where q is scaled (after the fp32 cast, as the Pallas kernel does;
-    ROADMAP Queue 3).
+    the place of the reference's XLA ``_flash`` and scales q where that
+    does: in q's dtype, before the fp32 products.
   * ``attention_decode`` -- one-token query against a (ring-buffer) KV
     cache with per-slot positions, in plain PyTorch, as the reference
     computes it outside any Pallas kernel.
@@ -67,8 +67,13 @@ def attention_full(p, x: torch.Tensor, positions: torch.Tensor, *, cfg,
     returns (out (B, T, d), (k, v)) with k, v (B, T, KV, hd) for the
     cache."""
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = ops.flash_attention(q, k, v, causal=True, window=window,
-                              backend=backend)
+    # q scaled in its own dtype before the kernel's fp32 products, as the
+    # reference's _flash scales it: the scale is rounded to that dtype (a
+    # host float), and the product of two bf16 values is exact in fp32, so
+    # q * scale rounds once, as in JAX
+    scale = float(torch.tensor(1.0 / math.sqrt(cfg.head_dim), dtype=q.dtype))
+    out = ops.flash_attention(q * scale, k, v, causal=True, window=window,
+                              scale=1.0, backend=backend)
     B, T = x.shape[0], x.shape[1]
     return out.reshape(B, T, -1).to(x.dtype) @ p["wo"], (k, v)
 

@@ -14,8 +14,9 @@ equal to a stable top-k of the Pearson kernel's own rows, and within
 1e-6 of the plain top-K (a PyTorch matmul rounds otherwise) for L up to
 200, within L * 2**-24 for the long series; flash attention within 1e-5
 of the plain version in fp32 (another summation order of the online
-softmax) and, in bf16, within one bf16 ulp of the plain output's largest
-magnitude (both round nearly equal fp32 values to bf16 once).
+softmax) and, in bf16 (the wgmma kernel), within one bf16 ulp of the
+plain output's largest magnitude (both round nearly equal fp32 values to
+bf16 once; the kernel also rounds P to bf16 before the PV product).
 """
 
 import numpy as np
@@ -241,6 +242,10 @@ def test_cuda_sparse_tmfg_at_full_k_is_the_dense_build(cuda):
     assert torch.equal(w, S[e[:, 0], e[:, 1]]) and c.pair_misses == 0
 
 
+_FLASH_ROUTE = {"float32": "flash_attention",
+                "bfloat16": "flash_attention_wgmma"}
+
+
 def _bf16_ulp(x):
     """One bf16 ulp at the largest magnitude of x (8 significant bits)."""
     return 2.0 ** (np.floor(np.log2(float(x.float().abs().max()))) - 7)
@@ -275,13 +280,111 @@ def test_cuda_flash_attention_matches_plain(cuda, B, Tq, Tk, H, KV, hd,
     ops.reset_launch_counts()
     got = ops.flash_attention(q, k, v, causal=causal, window=window,
                               backend="cuda")
-    assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.launch_counts()[_FLASH_ROUTE[dtype]] == 1
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == q.shape
     tol = 1e-5 if dtype == "float32" else _bf16_ulp(want)
     err = float((got.float() - want.float()).abs().max())
     assert err <= tol, (err, tol)
+
+
+def _bf16_qkv(cuda, seed, B, Tq, Tk, H, KV, hd):
+    rng = _rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                 .to(cuda, torch.bfloat16)
+                 for s in ((B, Tq, H, hd), (B, Tk, KV, hd), (B, Tk, KV, hd)))
+
+
+def _check_wgmma(q, k, v, causal, window, scale):
+    """One launch of the wgmma kernel; every output finite, and the rows
+    with a live key (all but the rows t >= Tk + window - 1 of a window)
+    within one bf16 ulp of the plain version."""
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              scale=scale, backend="cuda")
+    counts = ops.launch_counts()
+    assert counts["flash_attention_wgmma"] == 1
+    assert counts["flash_attention"] == 0
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bool(torch.isfinite(got.float()).all())
+    Tq, Tk = q.shape[1], k.shape[1]
+    if window:
+        live = torch.arange(Tq, device=q.device) < Tk - 1 + window
+        got, want = got[:, live], want[:, live]
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= _bf16_ulp(want), (err, _bf16_ulp(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Tq,Tk,H,KV,hd,causal,window,prescaled", [
+    (1, 131, 131, 8, 8, 64, True, 0, False),     # G = 1, ragged T
+    (2, 200, 317, 8, 2, 72, True, 0, False),     # Tq < Tk, G = 4, hd 72, B 2
+    (1, 300, 200, 8, 2, 64, True, 0, True),      # Tq > Tk
+    (1, 390, 250, 16, 2, 128, False, 0, False),  # non-causal, G = 8
+    (1, 300, 300, 8, 1, 128, True, 1, False),    # MQA, window 1
+    (1, 333, 333, 4, 4, 256, True, 64, True),    # window 64, hd 256
+    (1, 1500, 1500, 4, 1, 128, True, 1024, False),   # window 1024, MQA
+    (2, 257, 257, 8, 2, 256, True, 1024, True),
+    (1, 100, 300, 4, 2, 64, True, 64, False),    # Tq < Tk, windowed
+    (1, 200, 200, 4, 2, 128, False, 32, True),   # non-causal, windowed
+    (1, 77, 77, 2, 1, 8, True, 0, False),        # hd 8
+    (1, 260, 260, 4, 4, 136, True, 0, True),     # hd 136 (padded to 192)
+    (1, 4096, 4096, 4, 1, 128, True, 0, True),   # granite's T, causal
+    # more (batch * head, 128-query) items than the H100's 132 SMs, so
+    # each persistent block walks several with varied K/V tile counts
+    (2, 1337, 1337, 8, 2, 128, True, 0, False),      # 176 items, ragged T
+    (2, 1100, 1100, 8, 4, 64, True, 64, True),       # 144 items, window 64
+    # 160 items, with whole query tiles past Tk + window - 1: no K/V tile
+    (1, 1200, 300, 16, 4, 128, True, 100, False),
+    (1, 1200, 300, 16, 4, 72, False, 100, True),     # non-causal
+    (1, 900, 200, 20, 4, 256, True, 64, False),      # hd 256, BK 64
+])
+def test_cuda_flash_wgmma_matches_plain(cuda, B, Tq, Tk, H, KV, hd, causal,
+                                        window, prescaled):
+    """The bf16 wgmma kernel within one bf16 ulp of the plain version's
+    largest magnitude, in both scale forms: the Pallas one (the scores
+    times 1 / sqrt(hd)) and the model's (q scaled in bf16, scale = 1).
+    A row past Tk + window - 1 has no live key and its output is no
+    defined attention: it is only held finite."""
+    q, k, v = _bf16_qkv(cuda, Tq * 7 + Tk + hd, B, Tq, Tk, H, KV, hd)
+    scale = None
+    if prescaled:
+        q = q * torch.tensor(hd ** -0.5, dtype=torch.bfloat16, device=cuda)
+        scale = 1.0
+    _check_wgmma(q, k, v, causal, window, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 256])
+@pytest.mark.parametrize("tie", ["equal_keys", "zero_queries"])
+def test_cuda_flash_wgmma_exact_ties(cuda, hd, tie):
+    """Scores that tie exactly: every key the same (or every query zero),
+    so each row's softmax is uniform over its live keys."""
+    q, k, v = _bf16_qkv(cuda, hd, 2, 333, 333, 8, 2, hd)
+    if tie == "equal_keys":
+        k = k[:, :1].expand_as(k).contiguous()
+    else:
+        q = torch.zeros_like(q)
+    for causal, window in ((True, 0), (True, 100), (False, 0)):
+        _check_wgmma(q, k, v, causal, window, None)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_routes_by_dtype(cuda):
+    """bf16 launches the wgmma kernel once and the CUDA-core kernel never;
+    fp32 the other way round."""
+    q, k, v = _bf16_qkv(cuda, 5, 1, 64, 64, 4, 2, 64)
+    for dt, route in ((torch.bfloat16, "flash_attention_wgmma"),
+                      (torch.float32, "flash_attention")):
+        ops.reset_launch_counts()
+        ops.flash_attention(q.to(dt), k.to(dt), v.to(dt), backend="cuda")
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts == {**{n: 0 for n in counts}, route: 1}, counts
 
 
 @pytest.mark.cuda

@@ -25,6 +25,7 @@ from repro.kernels.flash_attention import (  # noqa: E402
 from repro.models.attention import _flash  # noqa: E402
 from repro_torch.interop import tensor_from_numpy  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     check_shapes, flash_attention_cuda)
 
@@ -120,3 +121,50 @@ def test_kernel_refuses_shapes_it_does_not_take(shapes, match):
     k = torch.zeros(shapes[1])
     with pytest.raises(ValueError, match=match):
         check_shapes(q, k, k, 0)
+
+
+def test_kernel_route_is_chosen_by_dtype():
+    """bfloat16 goes to the wgmma kernel and float32 to the CUDA-core one,
+    each with its own entry point and launch count; other dtypes are
+    refused before any device check."""
+    assert flash_mod.kernel_for(torch.bfloat16) is flash_mod.KERNEL_WGMMA
+    assert flash_mod.kernel_for(torch.float32) is flash_mod.KERNEL
+    assert ops.KERNELS["flash_attention_wgmma"] is flash_mod.KERNEL_WGMMA
+    assert ops.KERNELS["flash_attention"] is flash_mod.KERNEL
+    assert flash_mod.KERNEL.symbol != flash_mod.KERNEL_WGMMA.symbol
+    q = torch.zeros(1, 4, 2, 8, dtype=torch.float16)
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            flash_mod.kernel_for(dt)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_cuda(q, q, q)
+
+
+@pytest.mark.parametrize("shapes,window,match", [
+    (((1, 8, 4, 16), (1, 8, 2, 16)), -1, "window"),
+    (((8, 4, 16), (8, 2, 16)), 0, "4-d"),
+    (((1, 8, 4, 16), (1, 8, 0, 16)), 0, "not a multiple"),
+    (((1, 8, 4, 0), (1, 8, 2, 0)), 0, "multiple of 8"),
+])
+def test_kernel_refuses_windows_ranks_and_empty_heads(shapes, window, match):
+    q = torch.zeros(shapes[0])
+    k = torch.zeros(shapes[1])
+    with pytest.raises(ValueError, match=match):
+        check_shapes(q, k, k, window)
+
+
+def test_scale_keyword():
+    """``scale=None`` is the Pallas kernel's 1 / sqrt(hd) (the default
+    path unchanged, bitwise); a given scale multiplies the fp32 scores,
+    so q * c at scale 1 is q at scale c up to fp32 rounding."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(11, 1, 24, 24, 4, 2, 32))
+    base = ref.flash_attention_ref(q, k, v, causal=True)
+    assert torch.equal(ref.flash_attention_ref(q, k, v, causal=True,
+                                               scale=None), base)
+    assert torch.equal(ops.flash_attention(q, k, v, scale=None), base)
+    np.testing.assert_allclose(
+        ref.flash_attention_ref(q, k, v, scale=32 ** -0.5).numpy(),
+        base.numpy(), atol=1e-6)
+    np.testing.assert_allclose(
+        ops.flash_attention(q * 0.3, k, v, scale=1.0).numpy(),
+        ops.flash_attention(q, k, v, scale=0.3).numpy(), atol=1e-6)

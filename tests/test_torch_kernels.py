@@ -167,7 +167,8 @@ def test_every_kernel_has_a_matching_c_entry_point():
             entries[name] = "".join(kinds)
     assert {p.name for p in _build.sources()} == {
         "pearson.cu", "minplus.cu", "masked_argmax.cu", "topk.cu",
-        "sparse_relax.cu", "flash_attention.cu"}
+        "sparse_relax.cu", "flash_attention.cu",
+        "flash_attention_wgmma.cu"}
     for kname, kern in ops.KERNELS.items():
         assert entries[kern.symbol] == kern.signature + "p", kname
 
@@ -202,11 +203,15 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(ValueError, match="CUDA device"):
         flash_attention_cuda(q, q, q)
+    q = q.bfloat16()
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention_cuda(q, q, q)
     with pytest.raises(TypeError, match="takes 6 arguments"):
         ops.KERNELS["pearson"].launch(1, 2, stream=0)
     assert ops.launch_counts() == {"pearson": 0, "minplus": 0,
                                    "masked_argmax": 0, "topk": 0,
-                                   "sparse_relax": 0, "flash_attention": 0}
+                                   "sparse_relax": 0, "flash_attention": 0,
+                                   "flash_attention_wgmma": 0}
 
 
 def test_topk_plan_fits_shared_memory():

@@ -7,12 +7,13 @@ CPU, where ``ops.flash_attention`` runs the plain version.
 
 Tolerances: logits within 1e-4 absolute and greedy tokens equal (fp32:
 the two differ by matmul and online-softmax summation order only);
-layer outputs within 1e-5.  The bf16 case is held within 2e-2 absolute
-(the JAX package's own bf16 bound; 9.3e-3 measured) on logits of
-magnitude about 0.7: there the reference's XLA ``_flash``
-rounds q * scale to bf16 before its fp32 cast and the port, as the
-Pallas kernel, scales after it, and the two frameworks round bf16
-matmuls and elementwise ops at other places (ROADMAP Queue 3).
+layer outputs within 1e-5.  In bf16, ``attention_full`` scales q in
+bf16 before the fp32 products as the reference's ``_flash`` does and
+matches it within 1e-6; the bf16 logits (magnitude about 0.7) are held
+within 1.9e-2, twice the 9.26e-3 measured, which comes from the two
+frameworks rounding bf16 elementwise ops at other places; at hd = 32,
+where the scale is not a bf16 number, the placement shows in the logits
+(6.84e-3 against 7.81e-3 with the Pallas placement).
 """
 
 import numpy as np
@@ -29,6 +30,7 @@ from repro.models import layers as jlayers  # noqa: E402
 from repro.models.registry import build_model as jax_build  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.interop import params_from_jax, tensor_from_numpy  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
@@ -162,14 +164,16 @@ def test_cache_fill_and_decode_with_per_slot_positions(capacity):
 _MODELS = {}
 
 
-def _models(arch, n_layers=None, dtype=None):
-    key = (arch, n_layers, dtype)
+def _models(arch, n_layers=None, dtype=None, head_dim=None):
+    key = (arch, n_layers, dtype, head_dim)
     if key not in _MODELS:
         over = {}
         if n_layers:
             over["n_layers"] = n_layers
         if dtype:
             over["dtype"] = dtype
+        if head_dim:
+            over["head_dim"] = head_dim
         jcfg = jax_get_config(arch).reduced(**over)
         cfg = get_config(arch).reduced(**over)
         jm = jax_build(jcfg)
@@ -234,7 +238,39 @@ def test_prefill_and_greedy_decode(arch, n_layers, T):
         pos += 1
 
 
-def test_bf16_forward_within_the_scale_placement_gap():
+@pytest.mark.parametrize("window", [0, 8])
+def test_bf16_attention_full_scales_q_as_the_reference(window):
+    """bf16 ``attention_full`` scales q in bf16 before the fp32 products,
+    as the reference's ``_flash`` does, and matches it (measured 0 and
+    6e-8); with the Pallas placement (q scaled after its fp32 cast) the
+    two differ by 1.6e-2.  hd = 32: 1 / sqrt(hd) is not a power of two
+    (at the reduced default hd = 16 the two placements agree)."""
+    cfg = jax_get_config("granite-3-8b").reduced(dtype="bfloat16",
+                                                 head_dim=32)
+    p = jattn.attn_init(jax.random.PRNGKey(3), cfg, jnp.bfloat16)
+    tp = {k: _t(v) for k, v in p.items()}
+    x = jnp.asarray(_rng(3).normal(size=(2, 40, cfg.d_model)),
+                    jnp.bfloat16)
+    pos = np.tile(np.arange(40, dtype=np.int32), (2, 1))
+    want, _ = jattn.attention_full(p, x, jnp.asarray(pos), cfg=cfg,
+                                   window=window, q_chunk=16, kv_chunk=16)
+    want = np.asarray(want, np.float32)
+    got, _ = attn.attention_full(tp, _t(x), _t(pos), cfg=cfg, window=window)
+    assert got.dtype == torch.bfloat16
+    gap = np.abs(_np(got) - want).max()
+    q, k, v = attn._project_qkv(tp, _t(x), cfg, _t(pos))
+    pallas = ops.flash_attention(q, k, v, causal=True, window=window)
+    pallas_gap = np.abs(_np(pallas.reshape(2, 40, -1) @ tp["wo"]) - want).max()
+    assert gap <= 1e-6 and pallas_gap >= 1e-3, (gap, pallas_gap)
+
+
+def test_bf16_forward_within_the_bf16_rounding_gap():
+    """The bf16 logits (magnitude about 0.7) within 1.9e-2 of the JAX
+    model's: 9.26e-3 measured, twice that is the bound.  Attention is not
+    the source (``attention_full`` matches the reference's bitwise at this
+    hd = 16); the two frameworks round bf16 elementwise ops at other
+    places (SiLU's logistic alone differs by one bf16 ulp on unit
+    inputs)."""
     cfg, jm, jp, tm, tp = _models("granite-3-8b", None, "bfloat16")
     assert tp["embed"].dtype == torch.bfloat16
     toks = _rng(6).integers(0, cfg.vocab, (1, 40), dtype=np.int32)
@@ -242,7 +278,30 @@ def test_bf16_forward_within_the_scale_placement_gap():
                             for_grad=False)
     got, _, _ = tm.forward(tp, toks)
     gap = np.abs(_np(got) - np.asarray(want)).max()
-    assert gap <= 2e-2, gap
+    assert gap <= 1.9e-2, gap
+
+
+def test_bf16_forward_at_hd32_matches_the_reference_placement(monkeypatch):
+    """At hd = 32, where 1 / sqrt(hd) is not a bf16 number, the bf16
+    logits come closer to the JAX model's with q scaled as its _flash
+    scales it (6.84e-3 measured) than with the Pallas kernel's scale
+    after the fp32 cast (7.81e-3), and below the 9.3e-3 of the reduced
+    model's gap before this placement."""
+    cfg, jm, jp, tm, tp = _models("granite-3-8b", None, "bfloat16", 32)
+    toks = _rng(6).integers(0, cfg.vocab, (1, 40), dtype=np.int32)
+    want = np.asarray(jm.forward(jp, jnp.asarray(toks), remat=False,
+                                 for_grad=False)[0], np.float32)
+    gap = np.abs(_np(tm.forward(tp, toks)[0]) - want).max()
+
+    def pallas_placement(p, x, positions, *, cfg, window, backend="auto"):
+        q, k, v = attn._project_qkv(p, x, cfg, positions)
+        out = ops.flash_attention(q, k, v, causal=True, window=window,
+                                  backend=backend)
+        return out.reshape(*x.shape[:2], -1) @ p["wo"], (k, v)
+
+    monkeypatch.setattr(attn, "attention_full", pallas_placement)
+    pallas_gap = np.abs(_np(tm.forward(tp, toks)[0]) - want).max()
+    assert gap < pallas_gap and gap < 9.3e-3, (gap, pallas_gap)
 
 
 def test_unported_families_raise():
