@@ -16,7 +16,12 @@ Phases (any failure exits non-zero; no phase is skipped):
 2. Kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the shapes the main paths give it (Pearson at (n, L); the
    hub Bellman-Ford round (h, n) x (n, n) and the hub composition
-   (n, h) x (h, n) for min-plus, and min-plus with NaN inputs; the
+   (n, h) x (h, n) for min-plus, min-plus with NaN and -inf inputs, at
+   an odd n (rows not 16-byte aligned: the kernel's 4-byte copy path)
+   and at split-k shapes whose k is and is not a multiple of the
+   32-deep panel, with the count of FMNMX, FADD, LDS.128, all LDS, LDL
+   and STL in the SASS of both instances of the min-plus kernel, no
+   spill and FMNMX and LDS.128 in each; the
    (n, n) HAC scan for masked argmax; top-K at (n, L, 64) and at a
    small n with k = n-1, bitwise a stable top-k of the Pearson kernel's
    rows; one sparse relaxation round and its fixed point from h sources
@@ -380,6 +385,30 @@ def main() -> None:
     check(bool(torch.isnan(npl).any()) and same_nan(nk, npl),
           "minplus kernel vs plain differ with NaN inputs")
     del An, Bn, nk, npl
+    # the hub round's form at k a multiple of the 32-deep panel and not,
+    # split over k (fewer tiles than SMs), the composition's form at an
+    # odd n (rows not 16-byte aligned: 4-byte copies and scalar stores),
+    # -inf entries (-inf + inf = NaN) and negative ones in the split's
+    # atomic fold
+    mp_cases = []
+    for mm, kk, nn in ((h, 4096, 4096), (h, 4099, 4099), (2000, h, 2003)):
+        Ae, Be = dist(mm, kk), dist(kk, nn)
+        Ae.view(-1)[::97] = float("-inf")
+        Ae.view(-1)[3::101] = -1.25
+        A0, B0 = Ae.clone(), Be.clone()
+        ok = same_nan(minplus_cuda(Ae, Be), ref.minplus_ref(Ae, Be))
+        check(ok and torch.equal(Ae, A0) and torch.equal(Be, B0),
+              f"minplus kernel vs plain differ at ({mm}, {kk}) x "
+              f"({kk}, {nn}), or an operand changed")
+        mp_cases.append([mm, kk, nn])
+        del Ae, Be, A0, B0
+    mp_sass = sass_counts(_build.BUILD_INFO["path"], "minplus_kernel",
+                          ("FMNMX", "FADD", "LDS.128", "LDS", "LDL", "STL"))
+    log(f"[sass] minplus_kernel instances: {mp_sass}")
+    check(len(mp_sass) == 2 and all(
+        c["FMNMX"] > 0 and c["LDS.128"] > 0 and c["LDL"] == 0
+        and c["STL"] == 0 for c in mp_sass.values()),
+        f"minplus_kernel SASS: a spill, or no FMNMX or LDS.128: {mp_sass}")
     # an add and a min per (i, k, j), each an fp32 instruction
     b_ms, b_by = bound(4 * (h * n + n * n + h * n), 2 * h * n * n,
                        fp32_issue_per_s)
@@ -392,7 +421,8 @@ def main() -> None:
         shape=[h, n, n], max_abs_err=0.0, ms=round_ms, plain_ms=round_plain,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         compose=dict(shape=[n, h, n], ms=comp_ms, plain_ms=comp_plain,
-                     bound_ms=c_ms, bound_by=c_by, max_abs_err=0.0))
+                     bound_ms=c_ms, bound_by=c_by, max_abs_err=0.0),
+        bitwise_cases=mp_cases, sass=mp_sass)
     log(f"[kernel] minplus ok (bitwise, NaN included): {entries['minplus']}")
 
     # masked argmax: the HAC scan; values on a 1/1000 grid give many ties

@@ -79,8 +79,14 @@ def test_cuda_pearson_matches_plain(cuda, n, L):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (17, 33, 9), (130, 7, 127),
-                                   (140, 300, 300), (300, 140, 300)])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 1, 1), (17, 33, 9), (130, 7, 127), (140, 300, 300), (300, 140, 300),
+    # the hub round's form (140 rows of a 144-row tile) split over k, k
+    # not a multiple of the 32-deep panel; the composition's form at an
+    # odd n (4-byte copies, scalar stores); m = 1 and k = 1; one row past
+    # a tile; k an exact multiple of the panel
+    (140, 4099, 4099), (2000, 140, 2003), (130, 64, 131), (1, 1, 300),
+    (1, 300, 1), (145, 64, 260), (140, 4096, 4096)])
 def test_cuda_minplus_bitwise(cuda, m, k, n):
     rng = _rng(m + k + n)
     A = torch.from_numpy(_dist(rng, (m, k), 0.3)).to(cuda)
@@ -93,15 +99,22 @@ def test_cuda_minplus_bitwise(cuda, m, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(17, 33, 9), (140, 300, 300)])
+@pytest.mark.parametrize("m,k,n", [(17, 33, 9), (140, 300, 300),
+                                   (140, 2048, 2051)])
 def test_cuda_minplus_propagates_nan_as_plain(cuda, m, k, n):
+    """NaN operands, and -inf ones that meet +inf (NaN too) or give -inf,
+    at the plain version's places; (140, 2048, 2051) folds split-k
+    partial tiles."""
     rng = _rng(7 * m + k)
-    A = torch.from_numpy(_with_nan(rng, _dist(rng, (m, k), 0.3), 2))
+    A = _with_nan(rng, _dist(rng, (m, k), 0.3), 2)
+    A.reshape(-1)[rng.choice(A.size, 3, replace=False)] = -np.inf
+    A = torch.from_numpy(A)
     B = torch.from_numpy(_with_nan(rng, _dist(rng, (k, n), 0.3), 2))
     got = ops.minplus(A.to(cuda), B.to(cuda), backend="cuda")
     want = ref.minplus_ref(A.to(cuda), B.to(cuda))
     torch.cuda.synchronize()
-    assert bool(torch.isnan(want).any()) and _same(got, want)
+    assert bool(torch.isnan(want).any()) and bool(torch.isneginf(want).any())
+    assert _same(got, want)
 
 
 def _check_topk(dev, n, L, k, tol):

@@ -78,7 +78,10 @@ def _dist(rng, shape, inf_frac):
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 8, 8), (17, 33, 9), (1, 50, 1),
-                                   (64, 64, 64), (130, 7, 127)])
+                                   (64, 64, 64), (130, 7, 127),
+                                   # the CUDA kernel's tile edges: 140 rows
+                                   # over a short k, k = 140, odd n
+                                   (140, 40, 33), (33, 140, 31)])
 @pytest.mark.parametrize("inf_frac", [0.0, 0.3])
 def test_minplus_bitwise(m, k, n, inf_frac):
     rng = _rng(m * 1000 + k * 10 + n)
@@ -110,6 +113,24 @@ def test_minplus_propagates_nan_as_pallas():
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
     np.testing.assert_array_equal(got, want)     # NaN compares equal here
     assert np.isnan(got[3]).all() and np.isnan(got[:, 2]).all()
+
+
+def test_minplus_neg_inf_meets_inf_as_pallas():
+    """-inf + inf is NaN: where a -inf of A meets a +inf of B the plain
+    version (the card tests' oracle) has NaN at the Pallas kernel's and
+    the JAX oracle's places; elsewhere a -inf gives -inf."""
+    rng = _rng(11)
+    A, B = _dist(rng, (140, 36), 0.3), _dist(rng, (36, 35), 0.3)
+    A[5, :] = 1.0
+    A[5, 3] = -np.inf
+    B[3, :4], B[3, 4:] = np.inf, 2.0
+    got = ref.minplus_ref(torch.from_numpy(A), torch.from_numpy(B)).numpy()
+    pallas = np.asarray(minplus_pallas(jnp.asarray(A), jnp.asarray(B), bm=16,
+                                       bk=8, bn=16, interpret=True))
+    want = np.asarray(jref.minplus_ref(jnp.asarray(A), jnp.asarray(B)))
+    assert np.isnan(got[5, :4]).all() and np.isneginf(got[5, 4:]).all()
+    np.testing.assert_array_equal(got, pallas)   # NaN compares equal here
+    np.testing.assert_array_equal(got, want)
 
 
 def test_minplus_rejects_mismatched_shapes():
