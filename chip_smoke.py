@@ -25,7 +25,10 @@ Phases (any failure exits non-zero; no phase is skipped):
    (n, n) HAC scan for masked argmax; top-K at (n, L, 64) and at a
    small n with k = n-1, bitwise a stable top-k of the Pearson kernel's
    rows; one sparse relaxation round and its fixed point from h sources
-   over 3n-6 edges, NaN entries included; flash attention in bf16, the
+   over two graphs of 3n-6 edges, a path plus random chords and a random
+   Apollonian network (a TMFG's degree shape, the hubs by strength), NaN
+   entries included, the round timed on each; no LDL or STL in the SASS
+   of the top-K and relaxation kernels; flash attention in bf16, the
    wgmma kernel, at granite-3-8b's prefill shape and gemma3-4b's local
    layer, and in fp32, the CUDA-core kernel, at an MQA shape with ragged
    T, the bf16 cases under ``bf16_gate``'s three gates and granite's
@@ -219,6 +222,7 @@ def main() -> None:
     from repro_torch.core import PipelineConfig, adjusted_rand_index, cluster
     from repro_torch.core import tmfg as tmfg_mod
     from repro_torch.core.apsp import hub_count
+    from repro_torch.data.graphs import apollonian_edges
     from repro_torch.data.timeseries import make_dataset, make_ucr_like
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import sparse_apsp as sp
@@ -274,6 +278,25 @@ def main() -> None:
         start.record()
         for _ in range(reps):
             fn()
+        end.record()
+        sync()
+        return start.elapsed_time(end) / reps
+
+    def graph_ms(fn, reps: int) -> float:
+        """cuda_ms for a call shorter than the host's time per call: reps
+        calls captured in one CUDA graph, the replay timed."""
+        fn()
+        sync()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         sync()
         return start.elapsed_time(end) / reps
@@ -451,8 +474,12 @@ def main() -> None:
     log(f"[kernel] masked_argmax ok (bitwise): {entries['masked_argmax']}")
     torch.cuda.empty_cache()
 
-    # sparse relaxation: h sources over a connected graph of 3n-6 edges (a
-    # path plus random chords), one round and the fixed point, NaN included
+    # sparse relaxation: h sources over two connected graphs of 3n-6 edges,
+    # a path plus random chords (near-uniform degrees, random sources) and
+    # a random Apollonian network (a TMFG's degree shape, hubs chosen by
+    # strength as hub_factor_sparse chooses them); on each, one round with
+    # NaN entries and the fixed point, bitwise, and the round timed on the
+    # sources-minor layout (the transposes outside the timed window)
     E = 3 * n - 6
     r = np.random.default_rng(args.seed)
     pairs = {(i, i + 1) for i in range(n - 1)}
@@ -460,43 +487,87 @@ def main() -> None:
         a, b = (int(v) for v in r.integers(0, n, 2))
         if a != b:
             pairs.add((min(a, b), max(a, b)))
-    edges = torch.tensor(sorted(pairs), dtype=torch.int32, device=dev)
-    wts = torch.rand(E, generator=gen, device=dev) * 1.9 + 0.1
-    g = sp.csr_from_edges(n, edges, wts)
-    m = int(g.cols.shape[0])
-    src = torch.randperm(n, generator=gen, device=dev)[:h]
-    fk, fp = {}, {}
-    Dk = sp.sparse_apsp_sources(g, src, backend="cuda", stats=fk)
-    Dp = sp.sparse_apsp_sources(g, src, backend="torch", stats=fp)
-    check(bool(torch.equal(Dk, Dp)) and fk == fp and bool(
-        torch.isfinite(Dk).all()),
-        f"sparse_relax fixed point differs ({fk} vs {fp} rounds)")
-    D1 = torch.full((h, n), float("inf"), device=dev)
-    D1[torch.arange(h, device=dev), src] = 0.0
-    for _ in range(3):
-        D1 = ops.sparse_relax(D1, g, backend="torch")[0]
-    D1.view(-1)[torch.randint(0, h * n, (h,), generator=gen,
-                              device=dev)] = float("nan")
-    ok, ck = ops.sparse_relax(D1, g, backend="cuda")
-    op, cp = ops.sparse_relax(D1, g, backend="torch")
-    check(same_nan(ok, op) and bool(torch.isnan(op).any())
-          and int(ck.item()) == int(bool(cp.item())),
-          "sparse_relax kernel vs plain differ on one round with NaN")
-    del D1, ok, op
+    relax = {}
+    for gname, edges_np in (("path_chords", np.array(sorted(pairs))),
+                            ("tmfg_like", apollonian_edges(n, args.seed))):
+        edges = torch.tensor(edges_np, dtype=torch.int32, device=dev)
+        wts = torch.rand(E, generator=gen, device=dev) * 1.9 + 0.1
+        g = sp.csr_from_edges(n, edges, wts)
+        m = int(g.cols.shape[0])
+        if gname == "path_chords":
+            src = torch.randperm(n, generator=gen, device=dev)[:h]
+        else:
+            src = torch.sort(sp.hub_strength(g), descending=True,
+                             stable=True)[1][:h]
+        fk, fp = {}, {}
+        Dk = sp.sparse_apsp_sources(g, src, backend="cuda", stats=fk)
+        Dp = sp.sparse_apsp_sources(g, src, backend="torch", stats=fp)
+        check(bool(torch.equal(Dk, Dp)) and fk == fp and bool(
+            torch.isfinite(Dk).all()),
+            f"sparse_relax fixed point differs on {gname} ({fk} vs {fp} "
+            f"rounds)")
+        D1 = torch.full((h, n), float("inf"), device=dev)
+        D1[torch.arange(h, device=dev), src] = 0.0
+        for _ in range(3):
+            D1 = ops.sparse_relax(D1, g, backend="torch")[0]
+        D1.view(-1)[torch.randint(0, h * n, (h,), generator=gen,
+                                  device=dev)] = float("nan")
+        ok, ck = ops.sparse_relax(D1, g, backend="cuda")
+        op, cp = ops.sparse_relax(D1, g, backend="torch")
+        check(same_nan(ok, op) and bool(torch.isnan(op).any())
+              and int(ck.item()) == int(bool(cp.item())),
+              f"sparse_relax kernel vs plain differ on one round with NaN "
+              f"({gname})")
+        del D1, ok, op
+        plan = sp.relax_plan(g.indptr)
+        Dt = sp.to_sources_minor(Dk)
+        sync()
+        t0 = time.perf_counter()
+        sp.sparse_apsp_sources(g, src, backend="cuda")
+        sync()
+        fix_ms = (time.perf_counter() - t0) * 1e3
+        relax[gname] = dict(
+            shape=[h, n, m],
+            max_degree=int((g.indptr[1:] - g.indptr[:-1]).max()),
+            split_rows=plan.n_slots, fixed_point_rounds=fk["bf_rounds"],
+            fixed_point_ms=fix_ms,
+            ms=graph_ms(lambda: sp.sparse_relax_t_cuda(
+                Dt, h, g.indptr, g.cols, g.vals, plan), 20),
+            plain_ms=cuda_ms(lambda: ref.sparse_relax_ref(
+                Dk, g.indptr, g.cols, g.vals), 5))
+        log(f"[kernel] sparse_relax on {gname}: {relax[gname]}")
+        del Dk, Dp, Dt, g, edges, wts
+    # h x n distances read and written once, the CSR read once
     b_ms, b_by = bound(4 * 2 * h * n + 4 * (n + 1) + 8 * m, 2 * h * m)
+    pc, tl = relax["path_chords"], relax["tmfg_like"]
     entries["sparse_relax"] = dict(
         name="sparse_relax", route="cuda",
         source="src/repro_torch/kernels/csrc/sparse_relax.cu",
         replaces="src/repro/kernels/sparse_apsp.py:114",
-        shape=[h, n, m], max_abs_err=0.0, fixed_point_rounds=fk["bf_rounds"],
-        ms=cuda_ms(lambda: sp.sparse_relax_cuda(
-            Dk, g.indptr, g.cols, g.vals), 20),
-        plain_ms=cuda_ms(lambda: ref.sparse_relax_ref(
-            Dk, g.indptr, g.cols, g.vals), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    del Dk, Dp, g, edges, wts
-    log(f"[kernel] sparse_relax ok (bitwise, NaN included): "
+        shape=pc["shape"], max_abs_err=0.0,
+        fixed_point_rounds=pc["fixed_point_rounds"],
+        fixed_point_ms=pc["fixed_point_ms"], ms=pc["ms"],
+        plain_ms=pc["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, shape_tmfg_like=tl["shape"],
+        ms_tmfg_like=tl["ms"], fixed_point_ms_tmfg_like=tl["fixed_point_ms"],
+        fixed_point_rounds_tmfg_like=tl["fixed_point_rounds"],
+        max_degree_tmfg_like=tl["max_degree"], graphs=relax)
+    log(f"[kernel] sparse_relax ok (bitwise, NaN included, both graphs): "
         f"{entries['sparse_relax']}")
+    # the two approx kernels' SASS: no spill
+    ax_sass = sass_counts(_build.BUILD_INFO["path"], "topk_kernel",
+                          ("FFMA", "LDS.128", "LDL", "STL"))
+    ax_sass.update(sass_counts(_build.BUILD_INFO["path"],
+                               "sparse_relax_kernel", ("LDL", "STL")))
+    log(f"[sass] topk_kernel and sparse_relax_kernel: {ax_sass}")
+    check(any("topk" in k_ for k_ in ax_sass)
+          and any("relax" in k_ for k_ in ax_sass)
+          and all(c["LDL"] == 0 and c["STL"] == 0 for c in ax_sass.values()),
+          f"topk or sparse_relax kernel SASS: missing, or a spill: {ax_sass}")
+    entries["topk"]["sass"] = {k_: v_ for k_, v_ in ax_sass.items()
+                               if "topk" in k_}
+    entries["sparse_relax"]["sass"] = {k_: v_ for k_, v_ in ax_sass.items()
+                                       if "relax" in k_}
     del X
     torch.cuda.empty_cache()
 

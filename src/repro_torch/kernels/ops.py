@@ -80,14 +80,35 @@ def topk(X: torch.Tensor, k: int, *, backend: str = "auto"):
 
 def sparse_relax(D: torch.Tensor, graph, *, backend: str = "auto"):
     """One relaxation round over the CSR ``graph`` (a
-    ``sparse_apsp.CSRGraph``): (min(D, candidates), changed), where
-    ``changed`` is a one-element device tensor, nonzero iff some entry
-    decreased."""
+    ``sparse_apsp.CSRGraph``) on D (s, n): (min(D, candidates), changed),
+    where ``changed`` is a one-element device tensor, nonzero iff some
+    entry decreased.  The kernel runs on the sources-minor layout; D is
+    transposed to it and back."""
     if use_kernel(D, backend):
         return sparse_mod.sparse_relax_cuda(
             D.contiguous(), graph.indptr, graph.cols, graph.vals)
     out = ref.sparse_relax_ref(D, graph.indptr, graph.cols, graph.vals)
     return out, (out < D).any().view(1)
+
+
+def sparse_relax_t(Dt: torch.Tensor, s: int, graph, *, plan=None,
+                   out: Optional[torch.Tensor] = None,
+                   backend: str = "auto"):
+    """One relaxation round on the sources-minor layout Dt (n, sp) of s
+    sources (``sparse_apsp.to_sources_minor``): (out (n, sp), changed).
+    The kernel takes the graph's work items ``plan``
+    (``sparse_apsp.relax_plan``, built here when None), writes into
+    ``out`` when given and never writes the padding; the plain version
+    relaxes Dt's transpose, padding rows and all, into a new tensor."""
+    if use_kernel(Dt, backend):
+        if plan is None:
+            plan = sparse_mod.relax_plan(graph.indptr)
+        return sparse_mod.sparse_relax_t_cuda(
+            Dt.contiguous(), s, graph.indptr, graph.cols, graph.vals, plan,
+            out=out)
+    out = ref.sparse_relax_ref(Dt.T, graph.indptr, graph.cols, graph.vals)
+    out = out.T.contiguous()
+    return out, (out < Dt).any().view(1)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

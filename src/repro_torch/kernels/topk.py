@@ -2,52 +2,154 @@
 
 Replaces ``repro.kernels.topk.topk_pearson_pallas``.  Like the Pearson
 wrapper, it computes the row statistics (mean and inverse norm) in
-PyTorch and the kernel standardises each tile as it loads it, with
-``csrc/pearson.cu``'s arithmetic, so every value is bitwise the entry of
-``pearson_cuda(X)`` and the (n, n) matrix never exists.  See the source
-note in ``csrc/topk.cu`` for the bound and the design.
+PyTorch; the entry point standardises X once into a padded l-major copy
+with ``csrc/pearson.cu``'s arithmetic, so every value is bitwise the
+entry of ``pearson_cuda(X)`` and the (n, n) matrix never exists.  See
+the source note in ``csrc/topk.cu`` for the bound and the design.
+
+:func:`plan` fixes the launch (where the candidate lists live, the grid
+and its stream-K split of the (panel, tile) sequence, the shared
+memory) with the kernel's own formulas; :func:`merge_pieces_ref` and
+:func:`topk_split_ref` are the plain twins of the split and its merge,
+held against the plain top-K on the CPU.
 """
 
 from __future__ import annotations
+
+from typing import List, NamedTuple, Optional
 
 import torch
 
 from . import _build
 from ._checks import require_cuda, require_int32_range, stream_of
 from .pearson import row_stats
+from .ref import standardize_rows
 
-KERNEL = _build.Kernel("repro_topk", "ppppppiiiiiii")
+KERNEL = _build.Kernel("repro_topk", "pppppppppppiiiiiii")
 
-# dynamic shared memory one block may use on Hopper (227 KB)
+# shared memory of one SM on Hopper (228 KB), and what one block may use
+SM_SMEM = 233472
 MAX_SMEM = 232448
-_TILE = 64                       # columns per tile (kBN in topk.cu)
-_CHUNK = 128                     # series elements per chunk, at most
-_SCRATCH_ROWS = 8                # rows per block with buffers in device memory
+BLOCKS_PER_SM = 2
+BLOCK_RESERVED = 1024            # shared memory the card keeps per block
+ROWS = 64                        # rows per panel (kR in topk.cu)
+COLS = 128                       # columns per tile (kC)
+STEP = 16                        # series elements per step (kBK)
+STAGES = 3                       # steps in the copy ring (kStages)
+WARPS = 8                        # warps per block (kWarps)
+SHARED_STAGE = 64                # staging pairs per row, lists in shared
+SHARED_K = 64                    # the largest k with lists in shared
+SHARED_MAX_N = 1 << 25           # columns fit the merge keys' 25 bits
+GLOBAL_STAGE = 1024              # staging pairs per row, lists in memory
+H100_SMS = 132
 
 
-def _next_pow2(x: int) -> int:
-    return 1 << max(0, (x - 1).bit_length())
+def smem_bytes(shared_lists: bool, sc: int, k: int) -> int:
+    """Dynamic shared memory of one block (topk.cu's smem_bytes): the copy
+    ring and the rows' counts and thresholds, then the staging and the
+    lists (lists in shared) or each warp's sort buffer."""
+    base = 4 * (STAGES * STEP * (ROWS + COLS) + 3 * ROWS)
+    if shared_lists:
+        return base + 8 * (ROWS * sc + ROWS * k)
+    return base + 8 * WARPS * GLOBAL_STAGE
 
 
-def plan(n: int, L: int, k: int):
-    """(rows per block, buffer capacity, chunk length, shared bytes,
-    whether the buffers go to device memory) for the kernel.
+class TopKPlan(NamedTuple):
+    Lp: int              # L rounded up to a multiple of STEP
+    Np: int              # n rounded up to a multiple of COLS
+    panels: int          # ROWS-row panels
+    col_tiles: int       # COLS-column tiles per panel
+    grid: int            # blocks
+    sc: int              # staging pairs per row
+    shared_lists: bool   # lists in shared memory (else in vals/idx)
+    smem: int            # dynamic shared memory per block
 
-    The series is streamed in chunks of at most 128 elements, so shared
-    memory does not depend on L.  The most rows per block whose candidate
-    buffers fit in shared memory, each of min(2k, n-1) + 64 slots rounded
-    up to a power of two, else k + 64; where not even 4 rows fit (k above
-    about 4000), 8 rows per block with the first capacity in device
-    memory."""
-    Lc = min((L + 3) // 4 * 4, _CHUNK)
-    caps = (_next_pow2(min(2 * k, n - 1) + _TILE), _next_pow2(k + _TILE))
-    for rows in (64, 32, 16, 8, 4):
-        for cap in caps:
-            smem = 4 * (rows * Lc + Lc * _TILE + 2 * rows * cap + 3 * rows)
-            if smem <= MAX_SMEM:
-                return rows, cap, Lc, smem, False
-    rows = _SCRATCH_ROWS
-    return rows, caps[0], Lc, 4 * (rows * Lc + Lc * _TILE + 3 * rows), True
+    @property
+    def tiles(self) -> int:
+        return self.panels * self.col_tiles
+
+
+def plan(n: int, L: int, k: int, sms: int = H100_SMS) -> TopKPlan:
+    """The kernel's launch for X (n, L) and k.
+
+    Two blocks fit on an SM in either case.  For k up to 64 the lists
+    sit in shared memory beside the staging and are merged in a warp's
+    registers; the grid is two blocks per SM, each an equal run of the
+    panel-major tile sequence (stream-K), and the pieces are merged by a
+    second kernel.  Otherwise the lists live in the output itself and
+    each block walks whole panels."""
+    Lp = -(-L // STEP) * STEP
+    Np = -(-n // COLS) * COLS
+    panels = -(-n // ROWS)
+    col_tiles = Np // COLS
+    slots = BLOCKS_PER_SM * sms
+    if k <= SHARED_K and n <= SHARED_MAX_N:
+        return TopKPlan(Lp, Np, panels, col_tiles,
+                        min(slots, panels * col_tiles), SHARED_STAGE, True,
+                        smem_bytes(True, SHARED_STAGE, k))
+    return TopKPlan(Lp, Np, panels, col_tiles, min(slots, panels),
+                    GLOBAL_STAGE, False, smem_bytes(False, GLOBAL_STAGE, k))
+
+
+def stream_k_pieces(panels: int, col_tiles: int, grid: int):
+    """The (block, panel, first tile, end tile) pieces of the stream-K
+    split: block b walks tiles [b T / G, (b + 1) T / G) of the panel-major
+    sequence of T = panels * col_tiles tiles, one piece per panel it
+    touches."""
+    T = panels * col_tiles
+    out = []
+    for b in range(grid):
+        t, t1 = b * T // grid, (b + 1) * T // grid
+        while t < t1:
+            p = t // col_tiles
+            e = min(t1, (p + 1) * col_tiles)
+            out.append((b, p, t - p * col_tiles, e - p * col_tiles))
+            t = e
+    return out
+
+
+def merge_pieces_ref(values: List[torch.Tensor], indices: List[torch.Tensor],
+                     k: int):
+    """The plain twin of topk.cu's merge kernel: the first k of the pieces'
+    lists of each row under (value desc, NaN first, index asc).  The
+    pieces hold increasing, disjoint column ranges and each is in that
+    order already, so a stable descending sort of their concatenation is
+    the rank merge."""
+    v = torch.cat(values, dim=1)
+    i = torch.cat(indices, dim=1)
+    sv, order = torch.sort(v, dim=1, descending=True, stable=True)
+    return sv[:, :k].contiguous(), torch.gather(i, 1, order[:, :k]).int()
+
+
+def topk_split_ref(X: torch.Tensor, k: int, *, rows: int = ROWS,
+                   cols: int = COLS, grid: Optional[int] = None):
+    """The plain twin of the split kernel: the rows' values
+    (``clip(Z @ Z.T)``, the diagonal at -inf), each (block, panel) piece's
+    stable top-k of its columns, and each row's merge of its pieces.  It
+    equals ``ref.topk_pearson_ref`` for any tile shape and grid."""
+    n = X.shape[0]
+    if not 1 <= k <= n - 1:
+        raise ValueError(f"need 1 <= k <= n-1, got k={k} for n={n}")
+    Z = standardize_rows(X)
+    S = torch.clamp(Z @ Z.T, -1.0, 1.0)
+    S.fill_diagonal_(float("-inf"))
+    panels, col_tiles = -(-n // rows), -(-n // cols)
+    if grid is None:
+        grid = min(BLOCKS_PER_SM * H100_SMS, panels * col_tiles)
+    parts = {}
+    for _, p, c0, c1 in stream_k_pieces(panels, col_tiles, grid):
+        r0, j0, j1 = p * rows, c0 * cols, min(c1 * cols, n)
+        v, i = torch.sort(S[r0:r0 + rows, j0:j1], dim=1, descending=True,
+                          stable=True)
+        kk = min(k, j1 - j0)
+        parts.setdefault(p, []).append((v[:, :kk], (i[:, :kk] + j0).int()))
+    vals, idxs = [], []
+    for p in range(panels):
+        v, i = merge_pieces_ref([a for a, _ in parts[p]],
+                                [b for _, b in parts[p]], k)
+        vals.append(v)
+        idxs.append(i)
+    return torch.cat(vals), torch.cat(idxs)
 
 
 def topk_pearson_cuda(X: torch.Tensor, k: int, eps: float = 1e-12):
@@ -59,18 +161,33 @@ def topk_pearson_cuda(X: torch.Tensor, k: int, eps: float = 1e-12):
     if not 1 <= k <= n - 1:
         raise ValueError(f"need 1 <= k <= n-1, got k={k} for n={n}")
     require_int32_range(n=n, L=L, nL=n * L, nk=n * k)
-    rows, cap, Lc, smem, in_memory = plan(n, L, k)
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    pl = plan(n, L, k, sms)
     mu, rs = row_stats(X, eps)
-    vals = torch.empty((n, k), dtype=torch.float32, device=X.device)
-    idx = torch.empty((n, k), dtype=torch.int32, device=X.device)
-    scratch = None
-    if in_memory:
-        blocks = (n + rows - 1) // rows
-        scratch = torch.empty(blocks * 2 * rows * cap, dtype=torch.float32,
-                              device=X.device)
-    with torch.cuda.device(X.device):
+    dev = X.device
+    vals = torch.empty((n, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((n, k), dtype=torch.int32, device=dev)
+    zt = torch.empty((pl.Lp, pl.Np), dtype=torch.float32, device=dev)
+    if pl.shared_lists:
+        pieces = (pl.grid + pl.panels) * ROWS
+        buf_v = torch.empty(pieces * k, dtype=torch.float32, device=dev)
+        buf_i = torch.empty(pieces * k, dtype=torch.int32, device=dev)
+        buf_c = torch.empty(pieces, dtype=torch.int32, device=dev)
+        tmp_v = tmp_i = None
+    else:
+        staged = pl.grid * ROWS * pl.sc
+        buf_v = torch.empty(staged, dtype=torch.float32, device=dev)
+        buf_i = torch.empty(staged, dtype=torch.int32, device=dev)
+        buf_c = None
+        tmp_v = torch.empty(pl.grid * WARPS * k, dtype=torch.float32,
+                            device=dev)
+        tmp_i = torch.empty(pl.grid * WARPS * k, dtype=torch.int32,
+                            device=dev)
+    ptr = [0 if t is None else t.data_ptr()
+           for t in (buf_v, buf_i, buf_c, tmp_v, tmp_i)]
+    with torch.cuda.device(dev):
         KERNEL.launch(X.data_ptr(), mu.data_ptr(), rs.data_ptr(),
-                      vals.data_ptr(), idx.data_ptr(),
-                      0 if scratch is None else scratch.data_ptr(),
-                      n, L, k, rows, cap, Lc, smem, stream=stream_of(X))
+                      vals.data_ptr(), idx.data_ptr(), zt.data_ptr(), *ptr,
+                      n, L, k, pl.grid, pl.sc, int(pl.shared_lists), pl.smem,
+                      stream=stream_of(X))
     return vals, idx

@@ -45,6 +45,7 @@ from repro_torch.approx import sparse_tmfg as tsparse  # noqa: E402
 from repro_torch.core import fused_approx as tfa  # noqa: E402
 from repro_torch.core import tmfg as ttmfg  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import topk as topk_mod  # noqa: E402
 
 
 def _t(a):
@@ -74,6 +75,53 @@ def test_topk_ref_matches_jnp_and_pallas(n, L, k):
     # panels only bound memory: every panel height gives the same table
     v2, i2 = ref.topk_pearson_ref(torch.from_numpy(X), k, bm=7)
     assert torch.equal(v2, v) and torch.equal(i2, i)
+
+
+@pytest.mark.parametrize("n,L,k,rows,cols,grid,nan", [
+    (40, 20, 10, 8, 8, 7, False),     # pieces cross panel boundaries
+    (40, 20, 10, 8, 8, 7, True),      # a NaN series: NaN rows and columns
+    (64, 46, 63, 16, 8, 13, False),   # k = n - 1, pieces shorter than k
+    (33, 12, 5, 8, 16, 3, True),      # n not a multiple of either tile
+    (60, 20, 9, 4, 8, 4, False),      # runs of several whole panels
+    (2, 3, 1, 64, 128, 1, False),     # n = 2, one piece
+])
+def test_topk_split_ref_matches_plain_and_jnp(n, L, k, rows, cols, grid,
+                                              nan):
+    """The plain twin of the top-K kernel's column split (stream-K runs cut
+    into pieces, each a stable top-k of its columns, merged per row by
+    rank) equals the
+    plain top-K bitwise and JAX's topk_pearson_jnp (indices exact, values
+    within 1e-6), with exact ties from duplicated rows across piece
+    boundaries and NaN ranked first."""
+    rng = np.random.default_rng(n + k + grid)
+    X = rng.normal(size=(n, L)).astype(np.float32)
+    X[1::7] = X[0]                       # duplicated rows: exact ties
+    if nan:
+        X[n // 2, 1] = np.nan
+    Xt = torch.from_numpy(X)
+    v, i = ref.topk_pearson_ref(Xt, k)
+    sv, si = topk_mod.topk_split_ref(Xt, k, rows=rows, cols=cols, grid=grid)
+    pieces = topk_mod.stream_k_pieces(-(-n // rows), -(-n // cols), grid)
+    assert len(pieces) >= min(grid, 2)
+    assert sum(c1 - c0 for _, _, c0, c1 in pieces) == \
+        -(-n // rows) * -(-n // cols)
+    assert torch.equal(si, i) and torch.equal(torch.isnan(sv), torch.isnan(v))
+    assert torch.equal(torch.nan_to_num(sv), torch.nan_to_num(v))
+    jv, ji = jtopk.topk_pearson_jnp(jnp.asarray(X), k)
+    np.testing.assert_array_equal(si.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(sv.numpy(), np.asarray(jv), rtol=0, atol=1e-6)
+
+
+def test_merge_pieces_ref_orders_ties_and_nan():
+    """The merge keeps (value desc, NaN first, index asc) across pieces."""
+    nan = float("nan")
+    a_v = torch.tensor([[nan, 0.5, 0.5, -1.0]])
+    a_i = torch.tensor([[3, 0, 2, 1]], dtype=torch.int32)
+    b_v = torch.tensor([[nan, 0.5, 0.25]])
+    b_i = torch.tensor([[4, 5, 6]], dtype=torch.int32)
+    v, i = topk_mod.merge_pieces_ref([a_v, b_v], [a_i, b_i], 5)
+    assert i.tolist() == [[3, 4, 0, 2, 5]]
+    assert torch.isnan(v[0, :2]).all() and v[0, 2:].tolist() == [0.5] * 3
 
 
 def test_topk_dispatch_on_cpu_and_shape_checks():

@@ -10,7 +10,8 @@ Tolerances: Pearson within 1e-5 absolute of the plain version (the
 kernel multiplies by the inverse norm where the plain version divides by
 the norm, and sums in another order); min-plus, masked argmax and the
 sparse relaxation bitwise, NaN entries at the same places; top-K bitwise
-equal to a stable top-k of the Pearson kernel's own rows, and within
+equal to a stable top-k of the Pearson kernel's own rows (NaN first, at
+the same places), and within
 1e-6 of the plain top-K (a PyTorch matmul rounds otherwise) for L up to
 200, within L * 2**-24 for the long series; flash attention within 1e-5
 of the plain version in fp32 (another summation order of the online
@@ -117,10 +118,12 @@ def test_cuda_minplus_propagates_nan_as_plain(cuda, m, k, n):
     assert _same(got, want)
 
 
-def _check_topk(dev, n, L, k, tol):
+def _check_topk(dev, n, L, k, tol, nan=False):
     rng = _rng(n + L + k)
     X = rng.normal(size=(n, L)).astype(np.float32)
     X[1::7] = X[0]                  # duplicate rows: exact value ties
+    if nan:
+        X[n // 3, 2] = np.nan       # a NaN series: a NaN row and column
     X = torch.from_numpy(X).to(dev)
     before = ops.KERNELS["topk"].launches
     v, i = ops.topk(X, k, backend="cuda")
@@ -129,9 +132,9 @@ def _check_topk(dev, n, L, k, tol):
     P = pearson_cuda(X)
     P.fill_diagonal_(float("-inf"))
     sv, si = torch.sort(P, dim=1, descending=True, stable=True)
-    assert torch.equal(v, sv[:, :k]) and torch.equal(i, si[:, :k].int())
+    assert _same(v, sv[:, :k]) and torch.equal(i, si[:, :k].int())
     pv, _ = ref.topk_pearson_ref(X, k)
-    assert float((v - pv).abs().max()) <= tol
+    assert float((v - pv).nan_to_num().abs().max()) <= tol
 
 
 @pytest.mark.cuda
@@ -140,6 +143,26 @@ def _check_topk(dev, n, L, k, tol):
                                    (1000, 200, 999), (5000, 46, 4999)])
 def test_cuda_topk_is_a_stable_topk_of_the_pearson_kernel(cuda, n, L, k):
     _check_topk(cuda, n, L, k, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,k,nan", [
+    (3001, 46, 64, False),   # 1128 tiles over 264 blocks: 4-7 pieces a panel
+    (3001, 46, 64, True),    # ... with a NaN series
+    (2909, 33, 64, False),   # the largest k with the lists in shared memory
+    (2909, 33, 65, False),   # the smallest k with them in device memory
+    (77, 30, 76, False),     # k = n - 1, two panels, lists in device memory
+    (1333, 46, 1332, True),  # k = n - 1, lists in device memory, NaN
+    (9001, 46, 64, False),   # 6 pieces per panel at most, ragged last panel
+    (16950, 12, 64, False),  # more panels (265) than blocks (264)
+    (17000, 20, 64, True),   # ... with a NaN series
+])
+def test_cuda_topk_split_merge_is_a_stable_topk(cuda, n, L, k, nan):
+    """The column split (stream-K runs cut into pieces, merged per row by
+    a second kernel) at n not a multiple of either tile, k = n - 1 and
+    both list placements, with duplicated rows whose exact ties straddle
+    the pieces' boundaries, and NaN ranked first."""
+    _check_topk(cuda, n, L, k, 1e-6, nan=nan)
 
 
 @pytest.mark.cuda
@@ -173,6 +196,47 @@ def test_cuda_sparse_relax_bitwise_nan_included(cuda, s, n, m):
     torch.cuda.synchronize()
     assert _same(got, want)
     assert int(ch.item()) == int(bool((want < D).any()))
+
+
+def _apollonian_csr(rng, n, dev):
+    from repro_torch.data.graphs import apollonian_edges
+    e = apollonian_edges(n, seed=int(rng.integers(1 << 30)))
+    w = rng.uniform(0.1, 2.0, e.shape[0]).astype(np.float32)
+    return sp.csr_from_edges(n, torch.from_numpy(e).to(dev),
+                             torch.from_numpy(w).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 33, 140])
+@pytest.mark.parametrize("n", [300, 5000])
+def test_cuda_sparse_relax_apollonian_bitwise(cuda, s, n):
+    """A TMFG's degree shape (rows of several work items, folded by the
+    last to arrive) and sources not a multiple of 32: one round bitwise
+    the plain version's, NaN included, twice over (the fold's counters
+    reset), and the fixed point from the hubs by strength, with one
+    launch per round."""
+    rng = _rng(s + n)
+    g = _apollonian_csr(rng, n, cuda)
+    s = min(s, n)
+    plan = sp.relax_plan(g.indptr)
+    assert plan.n_slots > 0
+    D = _with_nan(rng, _dist(rng, (s, n), 0.5), max(1, s * n // 50))
+    D = torch.from_numpy(D).to(cuda)
+    want = ref.sparse_relax_ref(D, g.indptr, g.cols, g.vals)
+    for _ in range(2):
+        got, ch = sp.sparse_relax_cuda(D, g.indptr, g.cols, g.vals, plan)
+        torch.cuda.synchronize()
+        assert _same(got, want)
+        assert int(ch.item()) == int(bool((want < D).any()))
+    assert not bool(plan.counters.any())
+    hubs = torch.sort(sp.hub_strength(g), descending=True,
+                      stable=True)[1][:s]
+    sc, st = {}, {}
+    before = ops.KERNELS["sparse_relax"].launches
+    Dk = sp.sparse_apsp_sources(g, hubs, backend="cuda", stats=sc)
+    launches = ops.KERNELS["sparse_relax"].launches - before
+    Dp = sp.sparse_apsp_sources(g, hubs, backend="torch", stats=st)
+    assert torch.equal(Dk, Dp) and sc == st and launches == sc["bf_rounds"]
 
 
 @pytest.mark.cuda

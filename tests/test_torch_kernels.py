@@ -236,19 +236,44 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
 
 
 def test_topk_plan_fits_shared_memory():
-    """The top-K kernel's launch plan: the most rows per block whose
-    candidate buffers fit in 227 KB, series chunks of at most 128
-    elements whatever L, and buffers in device memory where no rows fit."""
+    """The top-K kernel's launch plan: two blocks per SM in every case
+    (each block within 227 KB and both within the SM's 228 KB); the
+    candidate lists in shared memory beside 64 staging pairs per row for
+    k up to 64 (two per lane of the warp that merges them) and n up to
+    2**25, in device memory only beyond; at the Crop shape one whole
+    wave of 264 blocks, each an equal run of the (panel, tile)
+    sequence."""
     from repro_torch.kernels import topk
-    assert topk.plan(19412, 46, 64) == (
-        64, 256, 48, 4 * (64 * 48 + 48 * 64 + 2 * 64 * 256 + 3 * 64), False)
-    for n, L, k in ((2000, 46, 1), (2000, 46, 1999), (1000, 200, 999),
+    crop = topk.plan(19412, 46, 64)
+    assert crop == (48, 19456, 304, 152, 264, 64, True, 103168)
+    assert crop.smem == topk.smem_bytes(True, 64, 64) == 4 * (
+        3 * 16 * (64 + 128) + 3 * 64) + 8 * (64 * 64 + 64 * 64)
+    per_block = topk.SM_SMEM // 2 - topk.BLOCK_RESERVED
+    for n, L, k in ((2, 3, 1), (65, 46, 64), (2000, 46, 1), (2000, 46, 64),
+                    (2000, 46, 65), (2000, 46, 1999), (1000, 200, 999),
                     (5000, 3, 4000), (1370, 2709, 64), (2400, 1024, 64),
-                    (2400, 100000, 2399)):
-        rows, cap, Lc, smem, in_memory = topk.plan(n, L, k)
-        assert smem <= topk.MAX_SMEM and cap >= k + 64 and rows >= 4
-        assert cap & (cap - 1) == 0 and Lc % 4 == 0 and 4 <= Lc <= 128
-        assert not in_memory
-    rows, cap, Lc, smem, in_memory = topk.plan(19412, 46, 19411)
-    assert in_memory and rows == 8 and cap == 32768 and Lc == 48
-    assert smem == 4 * (8 * 48 + 48 * 64 + 3 * 8)
+                    (2400, 100000, 2399), (19412, 46, 19411)):
+        pl = topk.plan(n, L, k)
+        assert pl.smem <= topk.MAX_SMEM and pl.smem <= per_block
+        assert pl.Lp % 16 == 0 and pl.Lp - 16 < L <= pl.Lp
+        assert pl.Np % 128 == 0 and pl.Np - 128 < n <= pl.Np
+        assert pl.panels * 64 >= n and pl.col_tiles * 128 == pl.Np
+        # each row keeps k listed pairs and stages at least a half tile
+        assert pl.sc >= 64 and pl.sc & (pl.sc - 1) == 0
+        assert topk.smem_bytes(True, 64, min(k, 64)) <= per_block
+        assert pl.shared_lists == (k <= 64)
+        if pl.shared_lists:
+            assert pl.sc == 64 and pl.grid == min(264, pl.tiles)
+        else:
+            assert pl.sc == 1024 and pl.grid == min(264, pl.panels)
+            assert pl.smem == topk.smem_bytes(False, 1024, k)
+    # the shared lists' merge keys hold a column in 25 bits
+    assert topk.plan(1 << 25, 2, 64).shared_lists
+    assert not topk.plan((1 << 25) + 1, 2, 64).shared_lists
+    # whole waves: 264 runs of 175 or 176 tiles, two or three panels each
+    runs, pieces = {}, {}
+    for b, p, c0, c1 in topk.stream_k_pieces(304, 152, 264):
+        runs[b] = runs.get(b, 0) + c1 - c0
+        pieces[b] = pieces.get(b, 0) + 1
+    assert len(runs) == 264 and set(runs.values()) == {175, 176}
+    assert set(pieces.values()) == {2, 3} and sum(runs.values()) == crop.tiles
