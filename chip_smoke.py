@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; no phase is skipped):
    torch and CUDA versions, and the build of every kernel from
    ``kernels/csrc/``.
 2. Kernels: each CUDA kernel against its plain PyTorch version on the
-   card, at the shapes the main paths give it (Pearson at (n, L); the
+   card, at the shapes the main paths give it (Pearson at (n, L), and at
+   a ragged n (n % 4 != 0) bitwise symmetric; the
    hub Bellman-Ford round (h, n) x (n, n) and the hub composition
    (n, h) x (h, n) for min-plus, min-plus with NaN and -inf inputs, at
    an odd n (rows not 16-byte aligned: the kernel's 4-byte copy path)
@@ -28,10 +29,12 @@ Phases (any failure exits non-zero; no phase is skipped):
    over two graphs of 3n-6 edges, a path plus random chords and a random
    Apollonian network (a TMFG's degree shape, the hubs by strength), NaN
    entries included, the round timed on each; no LDL or STL in the SASS
-   of the top-K and relaxation kernels; flash attention in bf16, the
-   wgmma kernel, at granite-3-8b's prefill shape and gemma3-4b's local
-   layer, and in fp32, the CUDA-core kernel, at an MQA shape with ragged
-   T, the bf16 cases under ``bf16_gate``'s three gates and granite's
+   of the Pearson, top-K, relaxation and fp32 flash kernels; flash
+   attention in bf16, the wgmma kernel, at granite-3-8b's prefill shape
+   and gemma3-4b's local layer, and in fp32, the CUDA-core kernel, at an
+   MQA shape with ragged T and at the fp32 prefill path's shape
+   (granite-3-8b, 1024 tokens), the bf16 cases under ``bf16_gate``'s
+   three gates and granite's
    shape also in the serve path's form, q scaled in bf16 and scale 1;
    SDPA beside each, the window as a boolean mask), with times from
    CUDA events; the count of HGMMA and UTMALDG instructions in the SASS
@@ -319,13 +322,23 @@ def main() -> None:
     check(err <= 1e-5, f"pearson kernel vs plain: max abs err {err} > 1e-5")
     check(bool(torch.equal(S_k, S_k.T)), "pearson kernel output not symmetric")
     del S_p
+    # the ragged instance (n % 4 != 0: rows not 16-byte aligned, tiles
+    # owning 120 rows)
+    n_r = n if n % 4 else n - 1
+    S_r = pearson_cuda(X[:n_r].contiguous())
+    err_r = float((S_r - ref.pearson_ref(X[:n_r])).abs().max())
+    check(n_r % 4 != 0 and err_r <= 1e-5 and bool(torch.equal(S_r, S_r.T)),
+          f"pearson kernel at ragged n={n_r}: max abs err {err_r}, or not "
+          f"bitwise symmetric")
+    del S_r
     # the output is symmetric: n (n + 1) / 2 dot products of length L
     b_ms, b_by = bound(4 * (n * L + 2 * n + n * n), n * (n + 1) * L)
     entries["pearson"] = dict(
         name="pearson", route="cuda",
         source="src/repro_torch/kernels/csrc/pearson.cu",
         replaces="src/repro/kernels/pearson.py:35",
-        shape=[n, L], max_abs_err=err,
+        shape=[n, L], max_abs_err=err, ragged_n=n_r,
+        max_abs_err_ragged=err_r,
         ms=cuda_ms(lambda: pearson_cuda(X), 10),
         plain_ms=cuda_ms(lambda: ref.pearson_ref(X), 10),
         bound_ms=b_ms, bound_by=b_by,
@@ -554,20 +567,24 @@ def main() -> None:
         max_degree_tmfg_like=tl["max_degree"], graphs=relax)
     log(f"[kernel] sparse_relax ok (bitwise, NaN included, both graphs): "
         f"{entries['sparse_relax']}")
-    # the two approx kernels' SASS: no spill
-    ax_sass = sass_counts(_build.BUILD_INFO["path"], "topk_kernel",
-                          ("FFMA", "LDS.128", "LDL", "STL"))
-    ax_sass.update(sass_counts(_build.BUILD_INFO["path"],
-                               "sparse_relax_kernel", ("LDL", "STL")))
-    log(f"[sass] topk_kernel and sparse_relax_kernel: {ax_sass}")
-    check(any("topk" in k_ for k_ in ax_sass)
-          and any("relax" in k_ for k_ in ax_sass)
+    # the SASS of the Pearson, top-K, relaxation and fp32 flash kernels:
+    # no spill (the fp32 flash kernel is checked here, its times below)
+    ax_sass = {}
+    for kern in ("pearson_kernel", "topk_kernel", "sparse_relax_kernel",
+                 "flash_kernel"):
+        ax_sass.update(sass_counts(_build.BUILD_INFO["path"], kern,
+                                   ("FFMA", "LDS.128", "LDL", "STL")))
+    log(f"[sass] pearson, topk, sparse_relax and fp32 flash kernels: "
+        f"{ax_sass}")
+    check(all(any(k_ in name_ for name_ in ax_sass) for k_ in
+              ("pearson_kernel", "topk", "relax", "flash_kernel"))
           and all(c["LDL"] == 0 and c["STL"] == 0 for c in ax_sass.values()),
-          f"topk or sparse_relax kernel SASS: missing, or a spill: {ax_sass}")
-    entries["topk"]["sass"] = {k_: v_ for k_, v_ in ax_sass.items()
-                               if "topk" in k_}
-    entries["sparse_relax"]["sass"] = {k_: v_ for k_, v_ in ax_sass.items()
-                                       if "relax" in k_}
+          f"pearson, topk, sparse_relax or fp32 flash kernel SASS: missing, "
+          f"or a spill: {ax_sass}")
+    for kname, key in (("pearson", "pearson_kernel"), ("topk", "topk"),
+                       ("sparse_relax", "relax")):
+        entries[kname]["sass"] = {k_: v_ for k_, v_ in ax_sass.items()
+                                  if key in k_}
     del X
     torch.cuda.empty_cache()
 
@@ -578,6 +595,8 @@ def main() -> None:
         ("granite-3-8b causal", (1, 4096, 32, 8, 128), 0, torch.bfloat16),
         ("gemma3-4b local", (1, 4096, 8, 4, 256), 1024, torch.bfloat16),
         ("MQA ragged", (1, 1000, 48, 1, 128), 0, torch.float32),
+        ("granite-3-8b fp32 prefill", (1, FP32_TOKENS, 32, 8, 128), 0,
+         torch.float32),
     ]
     fcases = []
     for label, (B, T, H, KV, hd), win, dt in flash_cases:
@@ -663,6 +682,8 @@ def main() -> None:
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], cases=cases)
     entries["flash_attention_wgmma"]["sass"] = sass
+    entries["flash_attention"]["sass"] = {k_: v_ for k_, v_ in ax_sass.items()
+                                          if "flash_kernel" in k_}
     log(f"[time] kernels phase done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 3. the serve path ---------------------------------------------

@@ -106,6 +106,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "standardize.cuh"
+
 #ifndef TOPK_PROBE
 #define TOPK_PROBE 0
 #endif
@@ -288,28 +290,6 @@ struct Params {
   int sc;                   // staging pairs per row
   int shared_lists;
 };
-
-// Z = (X - mu) * rs, transposed into Zt (Lp, Np) with zeros past n and L:
-// one 32 x 32 tile per block of 32 x 8 threads.
-__global__ void __launch_bounds__(256)
-standardize_kernel(const float* __restrict__ X, const float* __restrict__ mu,
-                   const float* __restrict__ rs, float* __restrict__ zt,
-                   int n, int L, int Lp, int Np) {
-  __shared__ float tile[32][33];
-  const int j0 = blockIdx.x * 32, l0 = blockIdx.y * 32;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  for (int rr = ty; rr < 32; rr += 8) {
-    const int j = j0 + rr, l = l0 + tx;
-    float z = 0.0f;
-    if (j < n && l < L) z = (X[(int64_t)j * L + l] - mu[j]) * rs[j];
-    tile[rr][tx] = z;
-  }
-  __syncthreads();
-  for (int rr = ty; rr < 32; rr += 8) {
-    const int l = l0 + rr;
-    if (l < Lp) zt[(int64_t)l * Np + j0 + tx] = tile[tx][rr];
-  }
-}
 
 __global__ void __launch_bounds__(kThreads, 2)
 topk_kernel(const Params p) {
@@ -825,9 +805,8 @@ extern "C" int repro_topk(const void* X, const void* mu, const void* rs,
     return (int)cudaErrorInvalidValue;
   if (smem != smem_bytes(shared_lists, sc, k)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  standardize_kernel<<<dim3(Np / 32, (Lp + 31) / 32), dim3(32, 8), 0, st>>>(
-      (const float*)X, (const float*)mu, (const float*)rs, (float*)zt, n, L,
-      Lp, Np);
+  launch_standardize((const float*)X, (const float*)mu, (const float*)rs,
+                     (float*)zt, n, L, Lp, Np, st);
   cudaError_t err = cudaFuncSetAttribute(
       topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

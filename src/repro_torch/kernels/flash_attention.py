@@ -14,7 +14,12 @@ The route is chosen by dtype alone, with no fallback between them:
     (the port keeps fp32 off the tensor cores: no TF32).
 
 Each has its own ``_build.Kernel`` and launch count; see each source
-note for its bound and design.  GQA reads KV head ``h // G`` through the
+note for its bound and design.  :func:`plan` repeats the fp32 kernel's
+tiling (rows per block, heads of a GQA group per block, positions per
+block, the copy ring, shared memory), :func:`blocks` its launch order
+and :func:`key_tiles` its tile-relevance test; :func:`flash_plan_ref` is
+the plain twin that walks that schedule, held against the Pallas kernel
+on the CPU.  GQA reads KV head ``h // G`` through the
 (B, T, KV, hd) strides of k and v: no copy and no repeat over the group.
 The fp32 scores are multiplied by ``scale`` (default ``1 / sqrt(hd)``,
 the Pallas kernel's); ``attention_full`` passes a q already scaled in
@@ -24,7 +29,7 @@ its own dtype with ``scale=1``, as the model's ``_flash`` scales it.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,8 +42,136 @@ KERNEL_WGMMA = _build.Kernel("repro_flash_attention_wgmma", "ppppiiiiiiiif")
 
 ROUTES = {torch.float32: KERNEL, torch.bfloat16: KERNEL_WGMMA}
 MAX_HEAD_DIM = 256
-Q_TILE = 64          # query rows per block of the fp32 kernel (kBQ)
 MAX_Q_TILES = 65535  # the grid's y limit
+# the fp32 kernel's tiling (flash_attention.cu)
+WARPS = 8            # warps per block (kWarps)
+KEYS = 64            # keys per tile (kBK)
+MAX_SMEM = 232448    # shared memory one block may use on Hopper
+NEG = -1e30          # the masked score (kNeg)
+
+
+class FlashPlan(NamedTuple):
+    ng: int          # float4 output column groups per lane
+    rows: int        # query rows per block: heads x positions
+    positions: int   # positions per block
+    heads: int       # heads of one GQA group per block
+    keys: int        # keys per tile
+    stages: int      # K/V tiles' halves in the copy ring (1: one buffer)
+    grid: Tuple[int, int]
+    smem: int        # dynamic shared memory per block
+
+
+def plan(B: int, Tq: int, H: int, KV: int, hd: int) -> FlashPlan:
+    """The fp32 kernel's launch, with ``flash_attention.cu``'s formulas.
+    Up to hd 128: 4 query rows per lane in 8 warps (128 a block), two
+    heads of a group over 64 positions where the group size is even, else
+    one head over 128; 64-key tiles in a 3-slot K/V ring.  Above hd 128
+    (``flash_kernel_wide``): 64 rows of one head, 4 rows per thread of a
+    16 x 16 grid, K and V taking turns in one 64-key buffer."""
+    if hd <= 128:
+        ng = 1 if hd <= 32 else 2 if hd <= 64 else 4
+        rows, stages, p_stride = 4 * 4 * WARPS, 3, KEYS + 8
+        positions = rows // 2 if (H // KV) % 2 == 0 else rows
+    else:
+        ng = -(-hd // 64)
+        rows, stages, p_stride = 64, 1, KEYS + 4
+        positions = rows
+    heads = rows // positions
+    smem = 4 * ((rows + stages * KEYS) * (hd + 4) + rows * p_stride)
+    return FlashPlan(ng, rows, positions, heads, KEYS, stages,
+                     (B * H // heads, -(-Tq // positions)), smem)
+
+
+def key_tiles(q_lo: int, positions: int, Tk: int, causal: bool,
+              window: int, keys: int) -> Tuple[int, int]:
+    """[lo, hi): the key tiles a block of positions [q_lo, q_lo +
+    positions) walks, by the Pallas kernel's relevance test."""
+    hi = -(-Tk // keys)
+    if causal:
+        hi = min(hi, (q_lo + positions - 1) // keys + 1)
+    lo = max(0, (q_lo - window + 1) // keys) if window > 0 else 0
+    return lo, hi
+
+
+def blocks(B: int, Tq: int, H: int, KV: int, positions: int,
+           heads: int) -> List[Tuple[int, int, int]]:
+    """The (batch, first head, first position) of every block, in launch
+    order: the last positions (the heaviest causal tiles) first, then
+    batch, KV head and head pair within each."""
+    G = H // KV
+    out = []
+    for by in range(-(-Tq // positions)):
+        q_lo = (-(-Tq // positions) - 1 - by) * positions
+        for bx in range(B * H // heads):
+            hc, bk = bx % (G // heads), bx // (G // heads)
+            out.append((bk // KV, (bk % KV) * G + hc * heads, q_lo))
+    return out
+
+
+def flash_plan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: int = 0,
+                   scale: Optional[float] = None,
+                   positions: Optional[int] = None,
+                   heads: Optional[int] = None,
+                   keys: Optional[int] = None) -> torch.Tensor:
+    """The plain twin of the fp32 kernel's schedule: every block of
+    ``blocks`` gathers its heads x positions rows (q times ``scale`` in
+    fp32, rows past Tq zero), walks its key tiles [lo, hi) with K and V
+    zero past Tk, masks with the finite NEG, and keeps the running max,
+    denominator and accumulator of the online softmax; the output is
+    acc / max(l, 1e-30).  ``positions``, ``heads`` and ``keys`` default
+    to the kernel's plan and may be set smaller to walk many tiles at a
+    small shape."""
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    pl = plan(B, Tq, H, KV, hd)
+    positions = positions or pl.positions
+    heads = heads or pl.heads
+    keys = keys or pl.keys
+    G = H // KV
+    if G % heads:
+        raise ValueError(f"{heads} heads per block do not divide G={G}")
+    mul = torch.tensor(1.0 / math.sqrt(hd) if scale is None else scale,
+                       dtype=torch.float32)
+    nk = -(-Tk // keys)
+    Tqp = -(-Tq // positions) * positions
+    qs = torch.zeros((B, Tqp, H, hd), dtype=torch.float32, device=q.device)
+    qs[:, :Tq] = q.float() * mul
+    kp = torch.zeros((B, nk * keys, KV, hd), dtype=torch.float32,
+                     device=q.device)
+    vp = torch.zeros_like(kp)
+    kp[:, :Tk], vp[:, :Tk] = k.float(), v.float()
+    out = torch.empty((B, Tq, H, hd), dtype=torch.float32, device=q.device)
+    for b, h0, q_lo in blocks(B, Tq, H, KV, positions, heads):
+        kvh = h0 // G
+        qi = torch.arange(q_lo, q_lo + positions, device=q.device)
+        rows = qs[b, q_lo:q_lo + positions, h0:h0 + heads]   # (P, Gb, hd)
+        rows = rows.transpose(0, 1).reshape(heads * positions, hd)
+        qi = qi.repeat(heads)
+        m = torch.full((rows.shape[0], 1), NEG, device=q.device)
+        l = torch.zeros((rows.shape[0], 1), device=q.device)
+        acc = torch.zeros((rows.shape[0], hd), device=q.device)
+        lo, hi = key_tiles(q_lo, positions, Tk, causal, window, keys)
+        for kt in range(lo, hi):
+            ki = torch.arange(kt * keys, (kt + 1) * keys, device=q.device)
+            s = rows @ kp[b, kt * keys:(kt + 1) * keys, kvh].T
+            live = ki[None, :] < Tk
+            if causal:
+                live = live & (qi[:, None] >= ki[None, :])
+            if window > 0:
+                live = live & (qi[:, None] - ki[None, :] < window)
+            s = torch.where(live, s, torch.tensor(NEG))
+            m_new = torch.maximum(m, s.amax(1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(1, keepdim=True)
+            acc = acc * corr + p @ vp[b, kt * keys:(kt + 1) * keys, kvh]
+            m = m_new
+        o = (acc / l.clamp_min(1e-30)).reshape(heads, positions, hd)
+        n_pos = min(positions, Tq - q_lo)
+        out[b, q_lo:q_lo + n_pos, h0:h0 + heads] = \
+            o.transpose(0, 1)[:n_pos]
+    return out.to(q.dtype)
 
 
 def kernel_for(dtype: torch.dtype) -> _build.Kernel:
@@ -89,7 +222,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q, k, v lie on {q.device}, {k.device}, {v.device}")
     B, Tq, Tk, H, KV, hd = check_shapes(q, k, v, int(window))
     require_int32_range(batch_heads=B * H, Tq=Tq, Tk=Tk)
-    if kernel is KERNEL and -(-Tq // Q_TILE) > MAX_Q_TILES:
+    if kernel is KERNEL and plan(B, Tq, H, KV, hd).grid[1] > MAX_Q_TILES:
         # the fp32 kernel's grid has a y axis of query tiles; the wgmma
         # kernel's grid is one block per SM
         raise ValueError(f"Tq={Tq} needs more than {MAX_Q_TILES} query tiles")

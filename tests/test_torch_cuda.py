@@ -80,6 +80,64 @@ def test_cuda_pearson_matches_plain(cuda, n, L):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,L", [
+    (131, 46),     # n % 4 == 3: 4-byte stores, one row past a tile
+    (257, 17),     # two tiles and one row, L below one 16-deep step
+    (258, 64),     # n % 4 == 2, L a multiple of the step
+    (1001, 46),    # 36 tiles on fewer blocks than the grid's 264
+    (5003, 33),    # 820 tiles: several per block of the persistent grid
+])
+def test_cuda_pearson_ragged_symmetric_and_topk_at_full_k(cuda, n, L):
+    """Ragged n through both store paths: bitwise symmetric, within 1e-5
+    of the plain version, and every value bitwise the top-K kernel's at
+    k = n - 1 (the two kernels share Z and the FMA sequence)."""
+    X = _rng(n + L).normal(size=(n, L)).astype(np.float32)
+    X[1::9] = X[0]                  # duplicate rows: exact ties and +-1
+    X = torch.from_numpy(X).to(cuda)
+    got = pearson_cuda(X)
+    v, i = ops.topk(X, n - 1, backend="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, got.T)
+    assert float((got - ref.pearson_ref(X)).abs().max()) <= 1e-5
+    P = got.clone()
+    P.fill_diagonal_(float("-inf"))
+    sv, si = torch.sort(P, dim=1, descending=True, stable=True)
+    assert torch.equal(v, sv[:, :n - 1])
+    assert torch.equal(i, si[:, :n - 1].int())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [300, 301])
+def test_cuda_pearson_refuses_scratch_of_another_shape(cuda, n):
+    """The entry point takes the scratch's (Lp, Np) with it and refuses
+    any other than its own tiling's, counting no launch; the plan's own
+    shape launches."""
+    from repro_torch.kernels import pearson
+    L = 46
+    X = torch.from_numpy(_rng(n).normal(size=(n, L)).astype(np.float32)) \
+        .to(cuda)
+    pl = pearson.plan(n, L)
+    mu, rs = pearson.row_stats(X)
+    out = torch.empty((n, n), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    before = pearson.KERNEL.launches
+    for Lp, Np in ((pl.Lp, pl.Np - 32), (pl.Lp, pl.Np + 32),
+                   (pl.Lp - 16, pl.Np), (pl.Lp + 16, pl.Np)):
+        zt = torch.empty((max(Lp, 1), Np), device=cuda)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            pearson.KERNEL.launch(X.data_ptr(), mu.data_ptr(), rs.data_ptr(),
+                                  zt.data_ptr(), out.data_ptr(), n, L, Lp, Np,
+                                  stream=stream)
+    assert pearson.KERNEL.launches == before
+    zt = torch.empty((pl.Lp, pl.Np), device=cuda)
+    pearson.KERNEL.launch(X.data_ptr(), mu.data_ptr(), rs.data_ptr(),
+                          zt.data_ptr(), out.data_ptr(), n, L, pl.Lp, pl.Np,
+                          stream=stream)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pearson_cuda(X))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [
     (1, 1, 1), (17, 33, 9), (130, 7, 127), (140, 300, 300), (300, 140, 300),
     # the hub round's form (140 rows of a 144-row tile) split over k, k
@@ -364,6 +422,38 @@ def test_cuda_flash_attention_matches_plain(cuda, B, Tq, Tk, H, KV, hd,
     tol = 1e-5 if dtype == "float32" else _bf16_ulp(want)
     err = float((got.float() - want.float()).abs().max())
     assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Tq,Tk,H,KV,hd,causal,window", [
+    (1, 1024, 1024, 32, 8, 128, True, 0),   # granite-3-8b's fp32 prefill
+    (1, 1000, 1000, 48, 1, 128, True, 0),   # G = 48 (MQA), ragged T
+    (2, 333, 333, 96, 2, 64, True, 0),      # G = 48 at hd 64
+    (1, 500, 500, 48, 1, 256, True, 64),    # G = 48 at hd 256, window
+    (1, 300, 300, 6, 2, 72, True, 0),       # G = 3: one head per block
+    (1, 200, 450, 8, 2, 128, False, 100),   # Tq < Tk, non-causal window
+])
+def test_cuda_flash_fp32_at_prefill_shapes(cuda, B, Tq, Tk, H, KV, hd, causal,
+                                          window):
+    """The fp32 kernel at the fp32 prefill path's shape and at GQA group
+    sizes that take two heads per block (G even) or one (G odd): one
+    launch, within 1e-5 of the plain version, every output finite."""
+    rng = _rng(Tq + H + hd)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(cuda) for s in ((B, Tq, H, hd), (B, Tk, KV, hd),
+                                   (B, Tk, KV, hd)))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              backend="cuda")
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    if window:
+        # rows past Tk + window - 1 have no live key: held finite only
+        live = torch.arange(Tq, device=cuda) < Tk - 1 + window
+        got, want = got[:, live], want[:, live]
+    assert float((got - want).abs().max()) <= 1e-5
 
 
 def _bf16_qkv(cuda, seed, B, Tq, Tk, H, KV, hd):

@@ -168,3 +168,79 @@ def test_scale_keyword():
     np.testing.assert_allclose(
         ops.flash_attention(q * 0.3, k, v, scale=1.0).numpy(),
         ops.flash_attention(q, k, v, scale=0.3).numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("B,Tq,H,KV,hd", [
+    (1, 1000, 48, 1, 128), (1, 1024, 32, 8, 128), (1, 4096, 8, 4, 256),
+    (2, 333, 6, 2, 72), (1, 16, 2, 2, 8), (3, 1, 4, 4, 24)])
+def test_fp32_plan_fits_and_covers_every_row_once(B, Tq, H, KV, hd):
+    """The fp32 kernel's plan fits one block's shared memory, takes two
+    heads of a group where G is even (one where it is odd), and its
+    blocks cover every (batch, position, head) exactly once, the last
+    positions first."""
+    pl = flash_mod.plan(B, Tq, H, KV, hd)
+    assert pl.smem <= flash_mod.MAX_SMEM
+    assert pl.rows == pl.heads * pl.positions == (128 if hd <= 128 else 64)
+    assert pl.heads == (2 if pl.rows == 128 and (H // KV) % 2 == 0 else 1)
+    assert pl.keys == 64
+    blocks = flash_mod.blocks(B, Tq, H, KV, pl.positions, pl.heads)
+    assert len(blocks) == pl.grid[0] * pl.grid[1]
+    seen = np.zeros((B, Tq, H), np.int64)
+    for b, h0, q_lo in blocks:
+        assert h0 // (H // KV) == (h0 + pl.heads - 1) // (H // KV)
+        seen[b, q_lo:q_lo + pl.positions, h0:h0 + pl.heads] += 1
+    assert (seen == 1).all()
+    firsts = [q_lo for _, _, q_lo in blocks]
+    assert firsts == sorted(firsts, reverse=True)
+
+
+@pytest.mark.parametrize("Tq,Tk,causal,window", [
+    (200, 200, True, 0), (200, 200, True, 50), (300, 100, True, 30),
+    (100, 300, False, 0), (130, 130, False, 64)])
+def test_fp32_key_tiles_hold_every_live_pair(Tq, Tk, causal, window):
+    """The relevance test skips only key tiles with no live (q, k) pair
+    for any position of the block."""
+    for positions, keys in ((64, 64), (128, 64), (16, 32)):
+        for q_lo in range(0, Tq, positions):
+            lo, hi = flash_mod.key_tiles(q_lo, positions, Tk, causal, window,
+                                         keys)
+            for t in range(q_lo, min(q_lo + positions, Tq)):
+                for s in range(Tk):
+                    live = (not causal or s <= t) and (
+                        window == 0 or t - s < window)
+                    if live:
+                        assert lo <= s // keys < hi, (q_lo, t, s, lo, hi)
+
+
+@pytest.mark.parametrize("B,T,H,KV,hd", [
+    (1, 16, 2, 2, 8), (2, 40, 4, 2, 16), (1, 33, 8, 1, 16),
+    (2, 64, 4, 4, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tiles", [None, (8, 16), (4, 8)])
+def test_fp32_plan_ref_matches_pallas(B, T, H, KV, hd, causal, tiles):
+    """The plain twin of the fp32 kernel's schedule (its plan, or tiles of
+    (positions, keys) small enough to walk many) within 1e-5 of the
+    Pallas kernel on the JAX tests' shapes, and of the plain version."""
+    arrs = _qkv(B * 100 + T, B, T, T, H, KV, hd)
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    kw = {} if tiles is None else dict(positions=tiles[0], keys=tiles[1])
+    got = flash_mod.flash_plan_ref(q, k, v, causal=causal, **kw).numpy()
+    jq, jk, jv = (jnp.asarray(a) for a in arrs)
+    pal = flash_attention_pallas(jq, jk, jv, causal=causal, bq=16, bk=16,
+                                 interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pal), atol=1e-5)
+    np.testing.assert_allclose(got, _port(arrs, causal=causal), atol=1e-5)
+
+
+@pytest.mark.parametrize("window", [4, 16, 64])
+def test_fp32_plan_ref_sliding_window(window):
+    arrs = _qkv(window, 1, 48, 48, 4, 2, 16)
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    jq, jk, jv = (jnp.asarray(a) for a in arrs)
+    pal = flash_attention_pallas(jq, jk, jv, causal=True, window=window,
+                                 bq=16, bk=16, interpret=True)
+    for kw in ({}, dict(positions=8, keys=16), dict(positions=4, heads=1,
+                                                     keys=8)):
+        got = flash_mod.flash_plan_ref(q, k, v, causal=True, window=window,
+                                       **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(pal), atol=1e-5)

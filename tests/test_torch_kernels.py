@@ -56,6 +56,80 @@ def test_standardize_rows_matches_ref():
         np.asarray(jref.standardize_rows(jnp.asarray(X))), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("n", [1, 2, 127, 128, 129, 300])
+def test_pearson_plan_covers_every_pair_once(n):
+    """The kernel's upper-triangle tiles, each writing its owned row
+    segments and (off the diagonal) its owned column segments as rows of
+    the transposed copy, cover every (i, j) of the output exactly once;
+    every segment lies in the tile's computed window and starts and ends
+    on a 32-byte sector boundary of out's memory (but at column 0 and n).
+    On the launch grid and on grids of fewer blocks, each of which then
+    walks several tiles by counters (at own = 8, n = 300 has three
+    super-tiles of 16 x 16 tiles a side, ragged)."""
+    from repro_torch.kernels import pearson
+    for own in (None, 12, 8):
+        pl = pearson.plan(n, 46, own=own)
+        assert pl.own % 4 == 0
+        assert pl.computed == pl.own + (4 if n % 4 == 0 else 8)
+        assert (pl.nb - 1) * pl.own < n <= pl.nb * pl.own
+        assert pl.Np % 32 == 0 and pl.Np >= (pl.nb - 1) * pl.own + pl.computed
+        assert pl.tiles == pl.nb * (pl.nb + 1) // 2
+        assert pl.grid == min(2 * 132, pl.tiles)
+        if own is None:
+            assert pl.computed == 128
+        order = pearson.tile_order(pl.nb)
+        for grid in sorted({pl.grid, 1, min(5, pl.tiles)}):
+            count = np.zeros((n, n), np.int64)
+            walked = []
+            for b in range(grid):
+                tiles = pearson.block_tiles(pl.nb, grid, b)
+                assert tiles == order[b::grid]
+                walked += tiles
+                for bi, bj in tiles:
+                    assert bi <= bj
+                    copies = [(bi, bj)] + ([(bj, bi)] if bi != bj else [])
+                    for tr, tc in copies:
+                        r0, c0 = tr * pl.own, tc * pl.own
+                        for g in range(r0, min(r0 + pl.own, n)):
+                            c, e = pearson.row_segment(n, pl.own, g, tc)
+                            assert 0 <= c - c0 and e - c0 <= pl.computed
+                            assert c == 0 or (g * n + c) % 8 == 0
+                            assert e == n or (g * n + e) % 8 == 0
+                            count[g, c:e] += 1
+            assert len(set(walked)) == len(walked) == pl.tiles
+            assert (count == 1).all()
+
+
+def test_pearson_plan_at_crop():
+    """Crop (19412, 46): tiles computing 128 x 128 and owning 124 (rows
+    are 16-byte aligned), 157 a side, 12,403 of the 24,649 computed, on
+    one wave of two blocks per SM; a ragged n owns 120."""
+    from repro_torch.kernels import pearson
+    assert pearson.plan(19412, 46) == (48, 19488, 124, 128, 157, 12403, 264)
+    assert pearson.plan(2400, 1024) == (1024, 2496, 124, 128, 20, 210, 210)
+    assert pearson.plan(2911, 46)[2:5] == (120, 128, 25)
+
+
+@pytest.mark.parametrize("n,L,own,grid", [
+    (8, 16, None, None), (45, 70, 8, None), (33, 46, 8, 2),
+    (64, 128, 12, 3), (300, 46, None, None), (129, 17, 24, 4),
+    (131, 46, 12, 7)])
+def test_pearson_tiles_ref_symmetric_and_matches_pallas(n, L, own, grid):
+    """The twin of the kernel's schedule is exactly symmetric and within
+    1e-6 of the Pallas kernel and of the plain Pearson."""
+    from repro_torch.kernels import pearson
+    X = _rng(n * L + (own or 0)).normal(size=(n, L)).astype(np.float32)
+    X[1::5] = X[0]                       # exact +-1 entries off the diagonal
+    got = pearson.pearson_tiles_ref(torch.from_numpy(X), own=own, grid=grid)
+    assert torch.equal(got, got.T)
+    pallas = np.asarray(pearson_pallas(jnp.asarray(X), bm=16, bn=16, bl=32,
+                                       interpret=True))
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(),
+                               ref.pearson_ref(torch.from_numpy(X)).numpy(),
+                               rtol=0, atol=1e-6)
+
+
 def test_pearson_dispatch_on_cpu():
     X = torch.from_numpy(_rng(2).normal(size=(12, 30)).astype(np.float32))
     assert torch.equal(ops.pearson(X), ref.pearson_ref(X))
@@ -227,7 +301,7 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     q = q.bfloat16()
     with pytest.raises(ValueError, match="CUDA device"):
         flash_attention_cuda(q, q, q)
-    with pytest.raises(TypeError, match="takes 6 arguments"):
+    with pytest.raises(TypeError, match="takes 9 arguments"):
         ops.KERNELS["pearson"].launch(1, 2, stream=0)
     assert ops.launch_counts() == {"pearson": 0, "minplus": 0,
                                    "masked_argmax": 0, "topk": 0,
