@@ -57,23 +57,34 @@ Phases (any failure exits non-zero; no phase is skipped):
 4. Dense main path: ``cluster(X, k, config=PipelineConfig.opt())`` on
    the dataset (``make_ucr_like`` from a seed), once as the default
    back-to-back run, with every kernel's launch count reset just before
-   and read just after, then ``fused=False`` for per-stage seconds at
-   CBF size (with its own default run, unless the dataset is CBF); the
-   two linkages must be bitwise equal.
+   and read just after, then ``fused=False`` for per-stage seconds and
+   the lazy TMFG's microseconds per pop (at CBF size, with its own
+   default run, where a repeat at the dataset's size would take the
+   script past 600 s); the two linkages must be bitwise equal, and every
+   TMFG build makes at most ceil(pops / T) + 3 host syncs (T the lazy
+   steps per CUDA-graph replay, ``STEPS_PER_SYNC``).
 5. Approx path: ``cluster(X, k, config=PipelineConfig.approx(sim_k=64))``
    fused, counts reset just before and read just after: one top-K
    launch, one sparse-relaxation launch per Bellman-Ford round, masked
    argmax in the per-cluster HAC, no slot overflow, peak device memory
    below one (n, n) float32 matrix, k labels, a monotone finite
    linkage, ARI against the generator and the dense labels; then
-   ``fused=False`` for per-stage seconds and counts, and whether its
-   linkage equals the fused one (at CBF size, with its own fused run,
-   where a repeat at the dataset's size would take the script past
-   600 s).
+   ``fused=False`` for per-stage seconds, counts and microseconds per
+   pop, and whether its linkage equals the fused one (at CBF size, with
+   its own fused run, where a repeat at the dataset's size would take
+   the script past 600 s); the same host-sync cap as phase 4.
 6. Parity at n = 2000: the ``cuda`` and ``torch`` backends give a
    bitwise-equal linkage on one S (OPT, HEAP with its exact squarings,
    and approx), agreeing labels (ARI >= 0.99) from one X, and at
    sim_k = n-1 the sparse TMFG from X is bitwise the dense OPT TMFG.
+7. TMFG loops at n = 2000: the captured lazy loop bitwise the same step
+   run eagerly (``lazy_build(..., graph=False)``) for the dense source
+   with the top-64 table, without it, and the table-first source from
+   Z, each within the host-sync cap; CORR and PAR-10 through
+   ``cluster()`` on the ``cuda`` backend bitwise the ``torch`` backend
+   (the masked-argmax kernel in every CORR step and ORIG round against
+   ``masked_argmax_ref``), counts reset just before and read just after
+   each ``cuda`` run.
 
 The line before the last is the JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.  The script needs the
@@ -115,16 +126,15 @@ FP32_TOKENS = 1024
 
 PARITY_N = 2000
 
-# the dense path's fused=False repeat runs at this size: a Crop-size
-# repeat takes as long as the dense run itself
-REPEAT_DATASET = "CBF"
-
-# The approx fused=False repeat runs at the main dataset's size unless the
+# The fused=False repeats run at the main dataset's size unless the
 # script would then pass half its 1200 s limit: the projection adds 1.1x
-# the fused approx run (the staged run's share measured at Crop) and
-# PARITY_S for the n=2000 phase (128 s on the slowest machine seen); past
-# the budget the repeat runs at REPEAT_DATASET size, with its own fused run
+# the path's fused run (the staged run's share measured at Crop), for the
+# dense repeat APPROX_PER_DENSE times the dense run for the approx phase
+# still to come, and PARITY_S for the n=2000 phases; past the budget the
+# repeat runs at REPEAT_DATASET size, with its own fused run
+REPEAT_DATASET = "CBF"
 STAGED_BUDGET_S = 600.0
+APPROX_PER_DENSE = 3.0
 PARITY_S = 150.0
 
 
@@ -840,6 +850,15 @@ def main() -> None:
     del l32, lt32, params, model
     torch.cuda.empty_cache()
 
+    def check_syncs(tm, what):
+        """Fail if the TMFG made more than ceil(pops / T) + 3 host syncs;
+        the TMFG stage's microseconds per pop where it was timed."""
+        pops_, syncs_ = int(tm["tmfg_pops"]), int(tm["tmfg_host_syncs"])
+        cap = math.ceil(pops_ / tmfg_mod.STEPS_PER_SYNC) + 3
+        check(syncs_ <= cap, f"{what}: {syncs_} tmfg host syncs > "
+              f"ceil({pops_} / {tmfg_mod.STEPS_PER_SYNC}) + 3 = {cap}")
+        return 1e6 * tm["tmfg"] / max(pops_, 1) if "tmfg" in tm else None
+
     def check_linkage(Z, nn, kk, labels, what):
         check(labels.shape == (nn,), f"{what}: labels shape {labels.shape}")
         check(Z.shape == (nn - 1, 4) and Z.dtype == np.float32,
@@ -871,15 +890,22 @@ def main() -> None:
     ari = adjusted_rand_index(y, res.labels)
     dense_labels = res.labels
     t = res.timings
+    check_syncs(t, "dense")
     log(f"[main] {name} n={n} L={L}: total {total:.3f} s, pops "
         f"{int(t['tmfg_pops'])}, tmfg host syncs {int(t['tmfg_host_syncs'])}, "
         f"hub Bellman-Ford rounds {int(t['apsp_rounds'])}, launches "
         f"{launches}, peak memory {peak} B, ARI vs generator labels {ari:.4f}")
 
-    # the staged repeat, at REPEAT_DATASET size (its own default run first
-    # when that is another dataset)
-    rep = REPEAT_DATASET
-    if rep == args.dataset:
+    # the staged repeat, at the dataset's size unless the projection passes
+    # the budget, then at REPEAT_DATASET size (with its own default run)
+    rep = name
+    projected = (time.perf_counter() - t_start
+                 + (1.1 + APPROX_PER_DENSE) * total + PARITY_S)
+    if projected > STAGED_BUDGET_S:
+        rep = REPEAT_DATASET
+        log(f"[main] projected finish {projected:.1f} s > {STAGED_BUDGET_S}"
+            f" s: the fused=False repeat runs at {rep} size")
+    if rep == name:
         Xr, Zr, lr = X_np, Z, res.labels
     else:
         _, Xr, _, kr = make_ucr_like(rep, seed=args.seed)
@@ -893,11 +919,15 @@ def main() -> None:
     check(np.array_equal(res2.labels, lr), "fused=False labels differ")
     stages = {s_: res2.timings[s_] for s_ in
               ("similarity", "tmfg", "apsp", "dbht", "hac", "total")}
+    us_pop = check_syncs(res2.timings, "dense staged")
     log(f"[main] per-stage seconds (fused=False, {rep} n={Xr.shape[0]}): "
-        f"{json.dumps(stages)}")
+        f"{json.dumps(stages)}; tmfg {us_pop:.2f} us per pop over "
+        f"{int(res2.timings['tmfg_pops'])} pops, "
+        f"{int(res2.timings['tmfg_host_syncs'])} host syncs")
     main = dict(dataset=name, n=n, L=L, k=k, total_s=total,
                 stages_dataset=rep, stages_n=int(Xr.shape[0]),
-                stages_s=stages, pops=int(t["tmfg_pops"]),
+                stages_s=stages, tmfg_us_per_pop=us_pop,
+                pops=int(t["tmfg_pops"]),
                 tmfg_host_syncs=int(t["tmfg_host_syncs"]),
                 bf_rounds=int(t["apsp_rounds"]), launches=launches,
                 peak_bytes=peak, ari=ari)
@@ -917,6 +947,7 @@ def main() -> None:
     launches_a = ops.launch_counts()
     peak_a = torch.cuda.max_memory_allocated()
     ta = ra.timings
+    check_syncs(ta, "approx")
     # a slot-grid overflow reruns staged, whose timings carry the stages
     check("tmfg" not in ta and ra.dbht.hubs is not None,
           "approx: the fused run overflowed its slot caps and reran staged")
@@ -960,6 +991,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     rs = cluster(Xs, k=ks, config=cfg_a, fused=False, collect_timings=True)
     ts = rs.timings
+    us_pop_a = check_syncs(ts, "approx staged")
     same_link = bool(np.array_equal(rs.linkage, Za))
     same_merges = bool(np.array_equal(rs.linkage[:, [0, 1, 3]],
                                       Za[:, [0, 1, 3]]))
@@ -977,7 +1009,9 @@ def main() -> None:
     stages_a = {s_: ts[s_] for s_ in
                 ("similarity", "tmfg", "apsp", "dbht", "hac", "total")}
     log(f"[approx] per-stage seconds (fused=False, {rep_a} n={Xs.shape[0]}):"
-        f" {json.dumps(stages_a)}; "
+        f" {json.dumps(stages_a)}; tmfg {us_pop_a:.2f} us per pop over "
+        f"{int(ts['tmfg_pops'])} pops, {int(ts['tmfg_host_syncs'])} host "
+        f"syncs; "
         f"linkage equal to the fused run: {same_link} (merges equal: "
         f"{same_merges}, max height difference {height_diff}, rows that "
         f"differ {rows_differ}, sorted heights equal {same_heights}, rows "
@@ -985,7 +1019,8 @@ def main() -> None:
         f"directions that differ {dir_diff}")
     approx = dict(dataset=name, n=n, L=L, k=k, sim_k=K, total_s=total_a,
                   stages_dataset=rep_a, stages_n=int(Xs.shape[0]),
-                  stages_s=stages_a, pops=int(ta["tmfg_pops"]),
+                  stages_s=stages_a, tmfg_us_per_pop=us_pop_a,
+                  pops=int(ta["tmfg_pops"]),
                   tmfg_host_syncs=int(ta["tmfg_host_syncs"]),
                   bf_rounds=int(ta["apsp_rounds"]),
                   staged_pops=int(ts["tmfg_pops"]),
@@ -1051,6 +1086,74 @@ def main() -> None:
         f"{adjusted_rand_index(yp, lc):.4f}; sim_k=n-1 sparse TMFG bitwise "
         f"the dense OPT TMFG ({int(dense_tm.pops)} pops, "
         f"{cnt.fallbacks} fallbacks, {cnt.pair_misses} misses)")
+
+    log(f"[time] parity phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 7. the TMFG device loops at n = 2000 ---------------------------
+    # the captured lazy loop (T steps a CUDA-graph replay) against the same
+    # step run eagerly, for each value source
+    Sq = tmfg_mod.prepare_similarity(Sc)
+    table_q, Zq = knn.topk_pearson_and_z(Xpd, K, backend="cuda")
+    sources = {
+        "dense, top-64 table": lambda: tmfg_mod._Device(
+            Sq, tmfg_mod.candidate_table(Sq, 64)),
+        "dense, full scans": lambda: tmfg_mod._Device(Sq, None),
+        "table-first from Z": lambda: sparse_tmfg._TableSource(
+            table_q.values, table_q.indices, Zq, True)}
+    loops = {}
+    for what, source in sources.items():
+        sync()
+        t0 = time.perf_counter()
+        got, syncs_g, w_g, c_g = tmfg_mod.lazy_build(source())
+        sync()
+        t1 = time.perf_counter()
+        want, syncs_e, w_e, c_e = tmfg_mod.lazy_build(source(), graph=False)
+        sync()
+        t2 = time.perf_counter()
+        for f in want._fields:
+            check(bool(torch.equal(getattr(got, f), getattr(want, f))),
+                  f"{what}: the captured loop differs from eager steps in {f}")
+        check(bool(torch.equal(w_g, w_e)) and c_g == c_e,
+              f"{what}: captured and eager edge values or counters differ")
+        pq = int(got.pops)
+        check(syncs_g <= math.ceil(pq / tmfg_mod.STEPS_PER_SYNC) + 3,
+              f"{what}: {syncs_g} host syncs for {pq} pops")
+        loops[what] = dict(pops=pq, graph_s=t1 - t0, eager_s=t2 - t1,
+                           graph_syncs=syncs_g, eager_syncs=syncs_e,
+                           fallbacks=c_g.fallbacks,
+                           pair_misses=c_g.pair_misses)
+    log(f"[loops] n={PARITY_N}, T={tmfg_mod.STEPS_PER_SYNC}: captured loop "
+        f"bitwise the eager steps for every source: {json.dumps(loops)}")
+    del Sq, table_q, Zq
+    # CORR and PAR-10 end to end: the masked-argmax kernel in every CORR
+    # step and ORIG round against masked_argmax_ref, min-plus and HAC as
+    # on the other paths
+    builders = {}
+    for what, make in (("corr", PipelineConfig.corr),
+                       ("par-10", lambda **kw: PipelineConfig.par(10, **kw))):
+        ops.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        bc = cluster(S=Sp, config=make(backend="cuda"), k=8,
+                     collect_timings=True)
+        sync()
+        t1 = time.perf_counter()
+        launches_b = ops.launch_counts()
+        bt = cluster(S=Sp, config=make(backend="torch"), k=8)
+        check(np.array_equal(bc.linkage, bt.linkage)
+              and np.array_equal(bc.labels, bt.labels),
+              f"{what}: cuda and torch backends: linkage differs on one S")
+        check(launches_b["masked_argmax"] >= int(bc.timings["tmfg_pops"]),
+              f"{what}: masked_argmax launches {launches_b}")
+        check_linkage(bc.linkage, PARITY_N, 8, bc.labels, what)
+        builders[what] = dict(
+            cuda_s=t1 - t0, pops=int(bc.timings["tmfg_pops"]),
+            host_syncs=int(bc.timings["tmfg_host_syncs"]),
+            edge_sum=bc.edge_sum, launches=launches_b,
+            ari_vs_generator=adjusted_rand_index(yp, bc.labels))
+    log(f"[loops] corr and par-10 bitwise equal across backends on one S: "
+        f"{json.dumps(builders)}")
+    log(f"[time] loop phase done at {time.perf_counter() - t_start:.1f} s")
 
     dense_kernels = ("pearson", "minplus", "masked_argmax")
     for e in entries.values():

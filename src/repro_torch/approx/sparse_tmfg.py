@@ -1,8 +1,8 @@
 """Sparse-similarity TMFG: the lazy construction on a candidate table.
 
 The port of ``repro.approx.sparse_tmfg`` (DESIGN.md §13.3).  It is the
-port's one lazy loop (``core/tmfg.lazy_loop``) with a table-first value
-source in place of the dense S.  The three ways the dense construction
+port's one lazy device loop (``core/tmfg.lazy_build``) with a table-first
+value source in place of the dense S.  The three ways the dense construction
 touches S each get a table-first equivalent:
 
   * the best-uninserted lookup -- the first uninserted entry of the
@@ -29,11 +29,10 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from repro_torch.core.tmfg import (NEG, SparseCounters, _Source,  # noqa: F401
-                                   lazy_loop, panel_row_sums)
+                                   lazy_build, panel_row_sums)
 
 from .knn import TopKTable
 
@@ -106,11 +105,10 @@ def sparse_lazy_tmfg(topv: torch.Tensor, topi: torch.Tensor,
     else:
         src = src.to(torch.float32, copy=True)
         src.fill_diagonal_(NEG)
-    res, syncs, w_edges, counters = lazy_loop(
+    res, syncs, w, counters = lazy_build(
         _TableSource(topv, topi, src, from_x))
     if stats is not None:
         stats["host_syncs"] = syncs
-    w = torch.from_numpy(np.ascontiguousarray(w_edges)).to(topi.device)
     return res, w, counters
 
 

@@ -212,8 +212,6 @@ class PipelineConfig:
 # Knob values the reference runs and this slice of the port does not,
 # each with the ROADMAP.md Queue 1 item that ports it.
 _NOT_PORTED = (
-    ("method", "corr", "Queue 1 item 2 (CORR-TMFG construction)"),
-    ("method", "orig", "Queue 1 item 2 (ORIG-TMFG construction)"),
     ("apsp_method", "sparse", "Queue 1 item 8 (sparse APSP tail)"),
     ("filter", "mst", "Queue 1 item 10 (filters)"),
     ("filter", "pmfg", "Queue 1 item 10 (filters)"),

@@ -5,7 +5,8 @@ body of the reference's fused program (``_fused_one``) run eagerly,
 stage by stage —
 
   Pearson similarity (``ops.pearson``, the CUDA kernel on the card)
-  → lazy TMFG, with the top-K candidate table for OPT (``core/tmfg.py``)
+  → TMFG by ``cfg.method`` (``core/tmfg.py``): lazy, with the top-K
+    candidate table for OPT; CORR and ORIG through ``ops.masked_argmax``
   → TMFG edge lengths and APSP (``ops.minplus``, the CUDA kernel)
   → device DBHT: directions, flow, assignment, offsets (``core/dbht.py``)
   → one nested complete linkage (``ops.masked_argmax``, the CUDA kernel)
@@ -15,8 +16,8 @@ It runs on CUDA unless the caller passes ``device="cpu"``; with no card
 and no ``device="cpu"`` it raises.  ``fused`` keeps the reference's
 meaning as far as an eager program has one (DESIGN.md §12.2, §12.4): the
 default runs every stage back to back with no sync between them besides
-the ones the algorithm needs (one per lazy-TMFG pop, one per Bellman-Ford
-round) and one device->host copy at the end; ``fused=False`` synchronises
+the ones the algorithm needs (one per T captured lazy-TMFG steps, one per
+Bellman-Ford round) and one device->host copy at the end; ``fused=False`` synchronises
 after each stage and reports per-stage seconds.  Both give bitwise the
 same result.
 
@@ -47,7 +48,7 @@ from . import dbht as dbht_mod
 from . import fused_approx as fa_mod
 from . import hac as hac_mod
 from .config import VARIANTS, PipelineConfig, check_ported  # noqa: F401
-from .tmfg import (TMFGResult, _build_lazy, adjacency_from_weights,
+from .tmfg import (TMFGResult, _build, adjacency_from_weights,
                    prepare_similarity)
 
 
@@ -139,7 +140,8 @@ def cluster(X=None, *, S=None, k: Optional[int] = None,
         raise ValueError("need X or S")
     st.done("similarity")
 
-    tm, syncs = _build_lazy(prepare_similarity(S), cfg.topk)
+    tm, syncs = _build(prepare_similarity(S), cfg.method, cfg.prefix,
+                       cfg.topk, cfg.backend)
     st.done("tmfg")
 
     core, rounds = dbht_mod.dense_tail(S, tm, cfg, done=st.done)

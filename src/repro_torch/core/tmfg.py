@@ -1,44 +1,47 @@
-"""TMFG construction in PyTorch — the paper's HEAP-TMFG (lazy) method.
+"""TMFG construction in PyTorch: every builder of ``repro.core.tmfg``
+as a loop that lives on the device.
 
-The port of ``repro.core.tmfg`` for ``method="lazy"`` with or without the
-up-front top-K candidate table (the OPT and HEAP variants).  The CORR and
-ORIG constructions are ROADMAP Queue 1 item 2.
+Three methods, as in the reference (:func:`build_tmfg`):
 
-The reference runs the lazy loop as one ``lax.while_loop`` on the device.
-Its pop count depends on the data and every pop branches on a device
-value (is the popped face's cached vertex stale?), so an eager PyTorch
-loop has to bring something to the host on every pop.  The port splits
-the state accordingly:
+  * ``"lazy"`` -- the paper's HEAP-TMFG, with or without the up-front
+    top-K candidate table (the OPT and HEAP variants), over a value
+    source: dense S here (``_Device``), or the table-first source of the
+    sparse build (``repro_torch.approx.sparse_tmfg``);
+  * ``"corr"`` -- CORR-TMFG (Algorithm 1), n - 4 eager steps, each with
+    a full masked row argmax of S (``ops.masked_argmax``: the CUDA
+    kernel on the card);
+  * ``"orig"`` -- Yu & Shun's ORIG-TMFG with prefix P, rounds of (F, n)
+    face-row argmaxes (the same kernel, in row panels), a per-vertex
+    dedupe and up to P inserts.
 
-  * on the device: the values -- the (n, n) similarity S and the (n, K)
-    candidate table here (``_Device``), or the table-first source of the
-    sparse build (``repro_torch.approx.sparse_tmfg``), both driven by the
-    one loop :func:`lazy_loop` -- and the ``inserted`` mask that the
-    candidate lookups read;
-  * on the host (numpy): the O(n) bookkeeping — faces, edges, bubbles,
-    insertion order — and the per-face cached (gain, best vertex), so
-    the vectorized heap-pop (argmax over the face gains) and the stale
-    test run on the host without a transfer.
+The reference runs each as one ``lax.while_loop`` / ``fori_loop``.  The
+port keeps the whole construction state on the device as well (``_State``:
+faces, gains, cached best vertices, edges, bubbles, insertion order,
+counters) and writes every step without a branch on a device value: a
+lazy step pops with ``argmax(gains)``, computes both the stale refresh
+and the insert, and selects with ``torch.where``; a write that must not
+happen -- the insert's on a stale pop, every write once all n vertices
+are in -- goes to a trash slot, one extra row of faces, edges, bubbles
+and vertices, cut off at the end.  A step past the end is therefore an
+exact no-op.
 
-Each pop then makes exactly one device round trip: the popped face's
-corner indices go up in one copy from a pinned buffer, the device runs
-the candidate lookups and the face-gain gathers, and one copy brings back
-the new (best vertex, gain) of the touched faces and, on an insert, the
-three new edge weights (and the sparse source's fallback and miss
-counts).  Building at n vertices costs ``pops + 2`` host syncs (two for
-the initial clique), and no host-to-device copy waits for the stream;
-:func:`_build_lazy` returns the count.  The clique's row sums reduce
-(64, n) panels, so the dense and the sparse build sum every row with the
-same operands and the same reduction on every device.
+:func:`run_loop` drives the lazy step.  On a card it captures
+``STEPS_PER_SYNC`` (T) steps in one CUDA graph and replays it until the
+inserted count, read once per replay, reaches n; on the CPU it runs the
+same step eagerly and reads the count every T steps.  A build makes
+about ``ceil(pops / T) + 1`` host syncs (the returned count): the flag
+reads and one download of the edge values and counters.  CORR has a
+fixed step count and reads nothing until the end; ORIG reads the flag
+every ``ORIG_ROUNDS_PER_SYNC`` rounds.  A capture or replay that fails
+raises: there is no host fallback.
 
-Maxcorr (a row's best uninserted vertex) is never cached on the host:
-the reference only ever reads it for the corners of a face it has just
-refreshed, so the port recomputes those corners' lookups in the same
-round trip.  The arithmetic that decides the result is the reference's:
-the 3-term face gains are summed in its order ((s0 + s1) + s2), the edge
-sum adds one edge at a time in float32, ties break to the lowest index
-(``torch.argmax`` returns the first maximum; the candidate table comes
-from a stable descending sort, like ``lax.top_k``).
+The arithmetic that decides the result is the reference's: face gains
+summed in its order ((s0 + s1) + s2), ties to the lowest index
+(``torch.argmax`` returns the first maximum; the candidate table and
+ORIG's top-P come from stable descending sorts, like ``lax.top_k``), the
+clique from the (64, n) panels of :func:`panel_row_sums` and a stable
+sort, and the edge sum added one edge at a time in float32, on the host,
+from the downloaded per-edge values.
 """
 
 from __future__ import annotations
@@ -48,9 +51,17 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import not_ported
+from repro_torch.kernels import ops
 
 NEG = float("-inf")
+
+# T: lazy steps per captured CUDA graph (per flag read on the CPU); the
+# sweep over {16, 64, 256} is in PERF.md (tools/tmfg_loop_bench.py)
+STEPS_PER_SYNC = 64
+# ORIG rounds between two reads of the inserted count
+ORIG_ROUNDS_PER_SYNC = 4
+# elements per (rows, n) panel of ORIG's face-row sums (256 MiB of f32)
+ORIG_PANEL_ELEMS = 1 << 26
 
 # rows per chunk of the stable sort that builds the candidate table,
 # bounding its (rows, n) value and index buffers
@@ -114,8 +125,9 @@ def panel_row_sums(panel, n: int) -> torch.Tensor:
 
 
 class _Source:
-    """The device half of the lazy construction: the ``inserted`` mask the
-    lookups read, the pinned index upload and the counted download.
+    """The values a construction reads, and the ``inserted`` mask its
+    lookups read (a view of the state's (n + 1,) mask, whose last entry
+    is the trash slot).
 
     A value source (``_Device`` here, the table-first source in
     ``repro_torch.approx.sparse_tmfg``) adds:
@@ -126,41 +138,23 @@ class _Source:
                              fallback count or None);
       * ``values(r, c)``  -- (S[r, c], miss count or None).
 
-    The counts stay on the device and ride the step's one download.
+    Every method is a fixed sequence of device operations on device
+    index tensors: none reads a device value on the host, so a lazy
+    step can be captured in a CUDA graph.
     """
 
     def __init__(self, n: int, dev: torch.device):
         self.n = n
         self.device = dev
-        self.inserted = torch.zeros(n, dtype=torch.bool, device=dev)
-        pin = dev.type == "cuda"
-        self._host = torch.empty(4, dtype=torch.int64, pin_memory=pin)
-        self._dev = torch.empty(4, dtype=torch.int64, device=dev)
+        self.mask = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        self.inserted = self.mask[:n]
         self._faces = {len(p): self._const(p)
                        for p in (_CLIQUE_FACES, _INSERT_FACES, _STALE_FACES)}
         self.clique_edges = self._const(_CLIQUE_EDGES)
-        self.syncs = 0
 
     def _const(self, rows) -> torch.Tensor:
-        """A small index constant on the device; through pinned memory
-        on a card, so the copy does not wait for the stream."""
-        t = torch.tensor(rows, dtype=torch.int64)
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
-
-    def upload(self, verts) -> torch.Tensor:
-        """The vertex list on the device, through the pinned buffer.
-
-        Reusing the buffer is safe: every step ends in a device->host
-        copy that waits for the stream, this upload included."""
-        w = len(verts)
-        self._host.numpy()[:w] = verts
-        return self._dev[:w].copy_(self._host[:w], non_blocking=True)
-
-    def download(self, t: torch.Tensor) -> np.ndarray:
-        self.syncs += 1
-        return t.cpu().numpy()
+        """A small index constant on the device."""
+        return torch.tensor(rows, dtype=torch.int64).to(self.device)
 
     def first_uninserted(self, table: torch.Tensor, W: torch.Tensor):
         """(first uninserted entry of each row of W in ``table`` (n, K),
@@ -208,8 +202,7 @@ class _Device(_Source):
     def lookup(self, W: torch.Tensor):
         """Best uninserted vertex per row of W through the candidate table:
         the first uninserted entry, else the full-row scan.  Both are
-        computed and selected with ``torch.where`` (one device program,
-        no branch on a device value)."""
+        computed and selected with ``torch.where``."""
         full = self.lookup_full(W)
         if self.table is None:
             return full, None
@@ -231,143 +224,361 @@ class SparseCounters(NamedTuple):
     pair_misses: int
 
 
-def _f32_sum(acc: np.float32, vals) -> np.float32:
-    """Sequential float32 sum, one term at a time (the reference's order)."""
-    for v in vals:
-        acc = np.float32(acc + np.float32(v))
-    return acc
+class _State(NamedTuple):
+    """The construction state on the device, the reference's ``_State``.
+
+    Scalars are (1,) int64 tensors; every indexed field has one trash
+    row past its end (faces F, edges E, bubbles B, vertices n) that
+    takes the writes a step must not make.  Fields are updated in place,
+    so a captured graph reads and writes the same storage."""
+
+    inserted: torch.Tensor       # (n+1,) bool — the source's mask
+    n_inserted: torch.Tensor     # (1,)
+    gains: torch.Tensor          # (F+1,) f32 — cached gain per face slot
+    best_v: torch.Tensor         # (F+1,) — cached best vertex per face
+    faces: torch.Tensor          # (F+1, 3)
+    face_bubble: torch.Tensor    # (F+1,)
+    n_faces: torch.Tensor        # (1,)
+    edges: torch.Tensor          # (E+1, 2)
+    w_edges: torch.Tensor        # (E+1,) f32 — S value of each edge
+    n_edges: torch.Tensor        # (1,)
+    insert_order: torch.Tensor   # (n+1,)
+    bubble_verts: torch.Tensor   # (B+1, 4)
+    bubble_parent: torch.Tensor  # (B+1,)
+    bubble_tri: torch.Tensor     # (B+1, 3)
+    home_bubble: torch.Tensor    # (n+1,)
+    pops: torch.Tensor           # (1,)
+    fallbacks: torch.Tensor      # (1,) — lookups that needed a true row
+    misses: torch.Tensor         # (1,) — pair values outside the table
+    maxcorr: Optional[torch.Tensor] = None   # (n,) — CORR's cache
 
 
-def _counts(*ts):
-    """The step's device counts that exist, as doubles for the download."""
-    return [t.double().view(1) for t in ts if t is not None]
+def _init_state(d: _Source) -> _State:
+    """The reference's ``_init_state``, on the device: the clique of the
+    4 largest finite row sums, its 6 edges and 4 faces, and the faces'
+    (best vertex, gain) from the corners' seed lookups."""
+    n, dev = d.n, d.device
+    F, E, B = 2 * n - 4, 3 * n - 6, n - 3
+    top4 = torch.sort(d.row_sums(), descending=True, stable=True)[1][:4]
+    clique = torch.sort(top4)[0]
+    d.mask.index_fill_(0, clique, True)
+
+    def z(*shape, fill=0):
+        return torch.full(shape, fill, dtype=torch.int64, device=dev)
+
+    faces = z(F + 1, 3)
+    faces[:4] = clique[d._faces[4]]
+    ei = clique[d.clique_edges]                          # (6, 2) vertices
+    edges = z(E + 1, 2)
+    edges[:6] = ei
+    w_edges = torch.zeros(E + 1, dtype=torch.float32, device=dev)
+    ev, miss_e = d.values(ei[:, 0], ei[:, 1])
+    w_edges[:6] = ev
+    best, gain, miss = d.pairs(clique, d.seed_lookup(clique), 4)
+    gains = torch.full((F + 1,), NEG, dtype=torch.float32, device=dev)
+    gains[:4] = gain
+    best_v = z(F + 1)
+    best_v[:4] = best
+    insert_order = z(n + 1)
+    insert_order[:4] = clique
+    bubble_verts = z(B + 1, 4)
+    bubble_verts[0] = clique
+    misses = z(1)
+    for c in (miss, miss_e):
+        if c is not None:
+            misses += c
+    return _State(
+        inserted=d.mask, n_inserted=z(1, fill=4), gains=gains,
+        best_v=best_v, faces=faces, face_bubble=z(F + 1), n_faces=z(1, fill=4),
+        edges=edges, w_edges=w_edges, n_edges=z(1, fill=6),
+        insert_order=insert_order, bubble_verts=bubble_verts,
+        bubble_parent=z(B + 1, fill=-1), bubble_tri=z(B + 1, 3, fill=-1),
+        home_bubble=z(n + 1), pops=z(1), fallbacks=z(1), misses=misses)
 
 
-def lazy_loop(d: _Source):
-    """The lazy construction over any value source ``d``.
+def _insert_one(st: _State, f, v, face, ev, ok) -> None:
+    """The reference's ``_insert_one`` where ``ok`` (1,) holds: insert
+    vertex v (1,) into face slot f (1,) with corners ``face`` (3,) and
+    edge values ``ev`` (3,) = S[v, face].  Where it does not, every
+    write goes to the trash slots and the counts stay."""
+    n = st.inserted.shape[0] - 1
+    F = st.gains.shape[0] - 1
+    E = st.w_edges.shape[0] - 1
+    B = st.bubble_parent.shape[0] - 1
+    k = st.n_inserted
+    bub = k - 3            # bubble ids: 0 = root clique, then one per insert
+    vs = torch.where(ok, v, n)
+    fs = torch.where(ok, torch.cat([f, st.n_faces, st.n_faces + 1]), F)
+    es = torch.where(ok, torch.cat([st.n_edges, st.n_edges + 1,
+                                    st.n_edges + 2]), E)
+    bs = torch.where(ok, bub, B)
+    st.inserted.index_fill_(0, vs, True)
+    st.insert_order.index_copy_(0, torch.where(ok, k, n), v)
+    st.edges.index_copy_(0, es, torch.stack([v.expand(3), face], dim=1))
+    st.w_edges.index_copy_(0, es, ev)
+    st.bubble_verts.index_copy_(0, bs, torch.cat([v, face]).view(1, 4))
+    st.bubble_parent.index_copy_(0, bs, st.face_bubble.index_select(0, f))
+    st.bubble_tri.index_copy_(0, bs, face.view(1, 3))
+    st.home_bubble.index_copy_(0, vs, bub)
+    # face slot f is overwritten with (v,a,b); (v,b,c) and (v,a,c) appended
+    st.faces.index_copy_(0, fs, torch.stack([
+        torch.cat([v, face[0:2]]), torch.cat([v, face[1:3]]),
+        torch.cat([v, face[0:1], face[2:3]])]))
+    st.face_bubble.index_copy_(0, fs, bub.expand(3))
+    st.n_inserted.add_(ok)
+    st.n_faces.add_(2 * ok)
+    st.n_edges.add_(3 * ok)
+
+
+def _add_counts(acc: torch.Tensor, *terms) -> None:
+    """acc += count where mask, for each (mask, count) whose count exists."""
+    for mask, count in terms:
+        if count is not None:
+            acc.add_(torch.where(mask, count, 0))
+
+
+def _pop(st: _State):
+    """The vectorized heap-pop: (face slot f, its cached vertex v, its
+    corners (3,)), all on the device."""
+    F = st.gains.shape[0] - 1
+    f = st.gains[:F].argmax().view(1)
+    return (f, st.best_v.index_select(0, f),
+            st.faces.index_select(0, f).view(3))
+
+
+def lazy_step(st: _State, d: _Source) -> None:
+    """One pop of the lazy construction (the reference's ``body``),
+    with no branch on a device value: both the stale refresh and the
+    insert are computed, each with the reference's lookups and pairs,
+    and ``torch.where`` keeps the one that applies.
+
+    The state holds no maxcorr cache: the reference reads it only for
+    the corners of a face whose lookups it has just refreshed, so each
+    branch recomputes those corners' lookups instead."""
+    n, F = d.n, st.gains.shape[0] - 1
+    f, v, face = _pop(st)
+    stale = st.inserted.index_select(0, v)
+    live = st.n_inserted < n
+    ins, ref = live & ~stale, live & stale
+    slots = torch.cat([f, st.n_faces, st.n_faces + 1])
+    ev, miss_e = d.values(v.expand(3), face)
+    _insert_one(st, f, v, face, ev, ins)
+    # stale: re-validate the face's corners (Alg. 2 else-branch); v is
+    # inserted, so the mask is the one the reference's refresh reads
+    mc, fb_r = d.lookup(face)
+    b_r, g_r, miss_r = d.pairs(face, mc, 1)
+    # insert: the 3 new faces' pairs from the 4 refreshed corners
+    W = torch.cat([v, face])
+    mc, fb_i = d.lookup(W)
+    b_i, g_i, miss_i = d.pairs(W, mc, 3)
+    tgt = torch.cat([torch.where(live, f, F), torch.where(ins, slots[1:], F)])
+    st.best_v.index_copy_(0, tgt, torch.where(ins, b_i, b_r))
+    st.gains.index_copy_(0, tgt, torch.where(ins, g_i, g_r))
+    st.pops.add_(live)
+    _add_counts(st.fallbacks, (ins, fb_i), (ref, fb_r))
+    _add_counts(st.misses, (ins, miss_i), (ins, miss_e), (ref, miss_r))
+
+
+def capture(step, T: int, dev: torch.device) -> torch.cuda.CUDAGraph:
+    """One eager ``step()`` on a side stream (a real step; it sets up the
+    libraries' per-stream state), then T steps captured in one CUDA
+    graph; replaying the graph runs the next T steps."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        step()
+        graph.capture_begin()
+        for _ in range(T):
+            step()
+        graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    return graph
+
+
+def run_loop(step, st: _State, n: int, T: Optional[int] = None, *,
+             graph: bool = True) -> int:
+    """Call ``step()`` until all n vertices are inserted; T steps (default
+    ``STEPS_PER_SYNC``) per read of the inserted count.  ``step`` must
+    be an exact no-op once the build is complete.
+
+    On a card, with ``graph``, the T steps are one replay of a captured
+    graph (:func:`capture`); otherwise the same step runs eagerly.
+    Returns the number of count reads (host syncs)."""
+    T = STEPS_PER_SYNC if T is None else T
+    if n <= 4:
+        return 0
+    dev = st.n_inserted.device
+    if graph and dev.type == "cuda":
+        step, T = capture(step, T, dev).replay, 1
+    syncs = 0
+    while True:
+        for _ in range(T):
+            step()
+        syncs += 1
+        if int(st.n_inserted) >= n:
+            return syncs
+
+
+def _f32_sum(vals: np.ndarray) -> np.float32:
+    """Sequential float32 sum from 0, one term at a time (the reference's
+    order: ``np.add.accumulate`` does not reassociate)."""
+    return np.add.accumulate(vals.astype(np.float32), dtype=np.float32)[-1]
+
+
+def _finish(st: _State, n: int):
+    """TMFGResult (the trash rows cut off, int32), the per-edge values
+    (3n-6,) f32 on the device, and (pops, fallbacks, misses) as host
+    ints, from one download of the edge values and counters."""
+    F, E, B = 2 * n - 4, 3 * n - 6, n - 3
+    w = st.w_edges[:E].clone()
+    got = torch.cat([w.double(), st.pops.double(), st.fallbacks.double(),
+                     st.misses.double()]).cpu().numpy()
+    pops, fallbacks, misses = (int(x) for x in got[E:])
+
+    def i32(t):
+        return t.to(torch.int32)
+
+    res = TMFGResult(
+        clique=i32(st.insert_order[:4]), edges=i32(st.edges[:E]),
+        faces=i32(st.faces[:F]), insert_order=i32(st.insert_order[:n]),
+        bubble_verts=i32(st.bubble_verts[:B]),
+        bubble_parent=i32(st.bubble_parent[:B]),
+        bubble_tri=i32(st.bubble_tri[:B]), home_bubble=i32(st.home_bubble[:n]),
+        edge_sum=torch.tensor(_f32_sum(got[:E]), dtype=torch.float32,
+                              device=w.device),
+        pops=i32(st.pops[0]))
+    return res, w, (pops, fallbacks, misses)
+
+
+def lazy_build(d: _Source, *, graph: bool = True):
+    """The lazy construction over any value source ``d``; ``graph=False``
+    steps eagerly on a card too (the captured loop's check).
 
     Returns (TMFGResult, host syncs, per-edge values (3n-6,) float32 in
     edge order, SparseCounters)."""
     n = d.n
-    dev = d.device
-    F, E, B = 2 * n - 4, 3 * n - 6, n - 3
-
-    # -- initial clique: the 4 largest finite row sums -----------------------
-    top4 = torch.sort(d.row_sums(), descending=True, stable=True)[1][:4]
-    clique = [int(x) for x in np.sort(d.download(top4))]
-    v1, v2, v3, v4 = clique
-
-    inserted = np.zeros(n, bool)
-    inserted[clique] = True
-    insert_order = np.zeros(n, np.int32)
-    insert_order[:4] = clique
-    edges = np.zeros((E, 2), np.int32)
-    init_edges = [(v1, v2), (v1, v3), (v1, v4), (v2, v3), (v2, v4), (v3, v4)]
-    edges[:6] = init_edges
-    w_edges = np.zeros(E, np.float32)
-    faces = np.zeros((F, 3), np.int32)
-    faces[:4] = [(v1, v2, v3), (v1, v2, v4), (v1, v3, v4), (v2, v3, v4)]
-    face_bubble = np.zeros(F, np.int32)
-    bubble_verts = np.zeros((B, 4), np.int32)
-    bubble_verts[0] = clique
-    bubble_parent = np.full(B, -1, np.int32)
-    bubble_tri = np.full((B, 3), -1, np.int32)
-    home_bubble = np.zeros(n, np.int32)
-    gains = np.full(F, NEG, np.float32)
-    best_v = np.zeros(F, np.int64)
-
-    W = d.upload(clique)
-    d.inserted.index_fill_(0, W, True)
-    best, gain, miss = d.pairs(W, d.seed_lookup(W), 4)
-    ei = W[d.clique_edges]                               # (6, 2) vertices
-    ev, miss_e = d.values(ei[:, 0], ei[:, 1])
-    got = d.download(torch.cat([best.double(), gain.double(), ev.double(),
-                                *_counts(miss, miss_e)]))
-    best_v[:4] = got[0:4]
-    gains[:4] = got[4:8]
-    w_edges[:6] = got[8:14]
-    edge_sum = _f32_sum(np.float32(0.0), got[8:14])
-    lookups, fallbacks, pair_lookups = 0, 0, 6 + 9 * 4
-    misses = int(got[14:].sum())
-
-    n_ins, n_faces, n_edges, pops = 4, 4, 6, 0
-    while n_ins < n:
-        f = int(np.argmax(gains))              # vectorized heap-pop
-        v = int(best_v[f])
-        a, b, c = (int(x) for x in faces[f])
-        if inserted[v]:
-            # stale: re-validate the face's corners (Alg. 2 else-branch)
-            W = d.upload([a, b, c])
-            mc, fb = d.lookup(W)
-            best, gain, miss = d.pairs(W, mc, 1)
-            got = d.download(torch.cat([best.double(), gain.double(),
-                                        *_counts(fb, miss)]))
-            best_v[f] = got[0]
-            gains[f] = got[1]
-            lookups += 3
-            pair_lookups += 9
-            extra = got[2:]
-        else:
-            W = d.upload([v, a, b, c])
-            d.inserted.index_fill_(0, W[:1], True)
-            # the 3 new faces' pairs from the 4 refreshed corners
-            mc, fb = d.lookup(W)
-            best, gain, miss = d.pairs(W, mc, 3)
-            ev, miss_e = d.values(W[:1].expand(3), W[1:])
-            got = d.download(torch.cat([best.double(), gain.double(),
-                                        ev.double(),
-                                        *_counts(fb, miss, miss_e)]))
-            inserted[v] = True
-            insert_order[n_ins] = v
-            n_ins += 1
-            edges[n_edges:n_edges + 3] = [(v, a), (v, b), (v, c)]
-            w_edges[n_edges:n_edges + 3] = got[6:9]
-            n_edges += 3
-            edge_sum = _f32_sum(edge_sum, got[6:9])
-            bub = n_ins - 4
-            bubble_verts[bub] = (v, a, b, c)
-            bubble_parent[bub] = face_bubble[f]
-            bubble_tri[bub] = (a, b, c)
-            home_bubble[v] = bub
-            slots = (f, n_faces, n_faces + 1)
-            faces[f] = (v, a, b)
-            faces[n_faces] = (v, b, c)
-            faces[n_faces + 1] = (v, a, c)
-            face_bubble[list(slots)] = bub
-            n_faces += 2
-            best_v[list(slots)] = got[0:3]
-            gains[list(slots)] = got[3:6]
-            lookups += 4
-            pair_lookups += 3 + 27
-            extra = got[9:]
-        if extra.size:
-            fallbacks += int(extra[0])
-            misses += int(extra[1:].sum())
-        pops += 1
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    res = TMFGResult(
-        clique=t(insert_order[:4]), edges=t(edges), faces=t(faces),
-        insert_order=t(insert_order), bubble_verts=t(bubble_verts),
-        bubble_parent=t(bubble_parent), bubble_tri=t(bubble_tri),
-        home_bubble=t(home_bubble),
-        edge_sum=torch.tensor(edge_sum, dtype=torch.float32, device=dev),
-        pops=torch.tensor(pops, dtype=torch.int32, device=dev))
-    counters = SparseCounters(lookups=lookups, fallbacks=fallbacks,
-                            pair_lookups=pair_lookups, pair_misses=misses)
-    return res, d.syncs, w_edges, counters
+    st = _init_state(d)
+    syncs = run_loop(lambda: lazy_step(st, d), st, n, graph=graph)
+    res, w, (pops, fallbacks, misses) = _finish(st, n)
+    ins = n - 4
+    counters = SparseCounters(
+        lookups=3 * (pops - ins) + 4 * ins, fallbacks=fallbacks,
+        pair_lookups=6 + 9 * 4 + 9 * (pops - ins) + (3 + 27) * ins,
+        pair_misses=misses)
+    return res, syncs + 1, w, counters
 
 
-def _build_lazy(S: torch.Tensor, topk: int) -> Tuple[TMFGResult, int]:
-    """The lazy construction on an (n, n) float32 S whose diagonal is -inf.
+def _all_face_pairs(S, maxcorr, faces, valid):
+    """Vectorized (best vertex, gain) for every face slot, from the
+    corners' cached ``maxcorr`` (the reference's ``_all_face_pairs``)."""
+    cands = maxcorr[faces]                                   # (F, 3)
+    M = S[faces[:, :, None], cands[:, None, :]]              # (F, 3, 3)
+    g = (M[:, 0] + M[:, 1]) + M[:, 2]
+    j = g.argmax(dim=1, keepdim=True)
+    return (cands.gather(1, j)[:, 0],
+            torch.where(valid, g.gather(1, j)[:, 0], NEG))
+
+
+def corr_step(st: _State, d: _Device, slot: torch.Tensor,
+              backend: str) -> None:
+    """One CORR step (the reference's ``_build_corr`` body): insert the
+    best cached pair, then refresh eagerly every face that cached the
+    inserted vertex, from fresh maxcorr rows of all their corners."""
+    n, F = d.n, slot.shape[0]
+    f, v, face = _pop(st)
+    affected = (st.best_v[:F] == v) & (slot < st.n_faces)
+    slots = torch.cat([f, st.n_faces, st.n_faces + 1])
+    ev, _ = d.values(v.expand(3), face)
+    _insert_one(st, f, v, face, ev, st.n_inserted < n)
+    affected.index_fill_(0, slots, True)
+    corners = torch.where(affected[:, None], st.faces[:F], n)
+    stale = torch.zeros(n + 1, dtype=torch.bool, device=d.device)
+    stale.index_fill_(0, corners.reshape(-1), True)
+    _, fresh = ops.masked_argmax(d.S, d.inserted, backend=backend)
+    st.maxcorr.copy_(torch.where(stale[:n], fresh.long(), st.maxcorr))
+    best, gain = _all_face_pairs(d.S, st.maxcorr, st.faces[:F],
+                                 slot < st.n_faces)
+    st.best_v[:F] = torch.where(affected, best, st.best_v[:F])
+    st.gains[:F] = torch.where(affected, gain, st.gains[:F])
+    st.pops.add_(1)
+
+
+def orig_round(st: _State, d: _Device, slot: torch.Tensor, prefix: int,
+               backend: str) -> None:
+    """One ORIG round (the reference's ``round_body``): the true best
+    vertex of every face, a dedupe by vertex (the max-gain face, lowest
+    face on ties), and up to ``prefix`` inserts of the best pairs.  A
+    round after the last insert is an exact no-op."""
+    n, F = d.n, slot.shape[0]
+    live = st.n_inserted < n
+    valid = slot < st.n_faces
+    per_g = torch.empty(F, dtype=torch.float32, device=d.device)
+    per_v = torch.empty(F, dtype=torch.int64, device=d.device)
+    rows = max(1, ORIG_PANEL_ELEMS // n)
+    for p0 in range(0, F, rows):
+        fc = st.faces[p0:min(p0 + rows, F)]
+        P = (d.S.index_select(0, fc[:, 0]) + d.S.index_select(0, fc[:, 1])) \
+            + d.S.index_select(0, fc[:, 2])
+        g, u = ops.masked_argmax(P, d.inserted, backend=backend)
+        per_g[p0:p0 + g.shape[0]] = g
+        per_v[p0:p0 + g.shape[0]] = u
+    # a face past n_faces reads as the reference's all-NEG row
+    per_v = torch.where(valid, per_v, 0)
+    per_g = torch.where(valid, per_g, NEG)
+    seg_max = torch.full((n + 1,), NEG, device=d.device).scatter_reduce_(
+        0, per_v, per_g, "amax", include_self=True)
+    is_top = valid & (per_g == seg_max[per_v]) & torch.isfinite(per_g)
+    seg_face = torch.full((n + 1,), F, dtype=torch.int64,
+                          device=d.device).scatter_reduce_(
+        0, torch.where(is_top, per_v, n), torch.where(is_top, slot, F),
+        "amin", include_self=True)
+    winner = is_top & (seg_face[per_v] == slot)
+    key = torch.where(winner, per_g, NEG)
+    top_f = torch.sort(key, descending=True, stable=True)[1][:prefix]
+    top_ok = torch.isfinite(key[top_f])
+    for k in range(prefix):
+        f = top_f[k:k + 1]
+        v = per_v.index_select(0, f)
+        face = st.faces.index_select(0, f).view(3)
+        ok = (top_ok[k:k + 1] & (st.n_inserted < n)
+              & ~st.inserted.index_select(0, v))
+        ev, _ = d.values(v.expand(3), face)
+        _insert_one(st, f, v, face, ev, ok)
+    st.pops.add_(live)
+
+
+def _build(S: torch.Tensor, method: str = "lazy", prefix: int = 10,
+           topk: int = 0, backend: str = "auto") -> Tuple[TMFGResult, int]:
+    """The construction on an (n, n) float32 S whose diagonal is -inf.
 
     Returns the result and the number of device->host syncs it made."""
     n = S.shape[0]
-    table = candidate_table(S, min(topk, n)) if topk and topk > 0 else None
-    res, syncs, _, _ = lazy_loop(_Device(S, table))
-    return res, syncs
+    if method == "lazy":
+        table = candidate_table(S, min(topk, n)) if topk and topk > 0 \
+            else None
+        res, syncs, _, _ = lazy_build(_Device(S, table))
+        return res, syncs
+    if method not in ("corr", "orig"):
+        raise ValueError(f"unknown method {method!r}")
+    d = _Device(S, None)
+    st = _init_state(d)
+    slot = torch.arange(2 * n - 4, device=S.device)
+    syncs = 0
+    if method == "corr":
+        _, fresh = ops.masked_argmax(S, d.inserted, backend=backend)
+        st = st._replace(maxcorr=fresh.long())
+        for _ in range(n - 4):
+            corr_step(st, d, slot, backend)
+    else:
+        # a round can never insert more vertices than there are faces:
+        # clamp so small graphs accept large paper prefixes (par-200)
+        p = min(prefix, 2 * n - 4)
+        # eager: a captured round would count its kernel launches once
+        syncs = run_loop(lambda: orig_round(st, d, slot, p, backend), st, n,
+                         ORIG_ROUNDS_PER_SYNC, graph=False)
+    res, _, _ = _finish(st, n)
+    return res, syncs + 1
 
 
 def prepare_similarity(S: torch.Tensor) -> torch.Tensor:
@@ -378,24 +589,21 @@ def prepare_similarity(S: torch.Tensor) -> torch.Tensor:
 
 
 def build_tmfg(S: torch.Tensor, *, method: str = "lazy", prefix: int = 10,
-               topk: int = 0) -> TMFGResult:
+               topk: int = 0, backend: str = "auto") -> TMFGResult:
     """Construct the TMFG of a similarity matrix.
 
     Args:
       S: (n, n) symmetric similarity tensor (diagonal ignored), on the
         device the construction runs on.
-      method: "lazy" (the paper's HEAP-TMFG).  "corr" and "orig" raise
-        NotImplementedError until ROADMAP Queue 1 item 2 ports them.
-      prefix: prefix size P for method="orig" (unused by "lazy").
-      topk: if > 0, build an (n, topk) candidate table up front and use
-        it for the lookups; 0 disables (full row scans).
+      method: "lazy" (the paper's HEAP-TMFG), "corr" (Algorithm 1,
+        eager) or "orig" (Yu & Shun's baseline).
+      prefix: prefix size P for method="orig".
+      topk: if > 0, the lazy lookups read an (n, topk) candidate table
+        built up front; 0 disables (full row scans).
+      backend: the masked-argmax dispatch of "corr" and "orig"
+        (``ops.masked_argmax``: "auto" | "cuda" | "torch").
     """
-    del prefix
-    if method != "lazy":
-        if method in ("corr", "orig"):
-            raise not_ported("method", method)
-        raise ValueError(f"unknown method {method!r}")
-    res, _ = _build_lazy(prepare_similarity(S), topk)
+    res, _ = _build(prepare_similarity(S), method, prefix, topk, backend)
     return res
 
 

@@ -22,6 +22,8 @@
     offsets carry it into the heights).
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -200,7 +202,8 @@ def test_sparse_tmfg_from_Z_matches(n, k):
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=0, atol=1e-6)
     assert tuple(tc) == tuple(int(x) for x in jc)
     assert tc.fallbacks > 0 and tc.pair_misses > 0
-    assert stats["host_syncs"] == int(tr.pops) + 2
+    T = ttmfg.STEPS_PER_SYNC
+    assert stats["host_syncs"] <= math.ceil(int(tr.pops) / T) + 3
 
 
 @pytest.mark.parametrize("n", [40, 80])

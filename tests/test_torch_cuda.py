@@ -573,3 +573,77 @@ def test_cuda_prefill_goes_through_the_kernel(cuda):
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers
     assert float((lc - lt).abs().max()) <= 1e-4
     assert pos == 40 and len(caches) == cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# the TMFG builders' device loops
+# ---------------------------------------------------------------------------
+
+def _tmfg_sources(cuda, kind):
+    """A lazy-loop value source of each kind at n = 300 on the card."""
+    from repro_torch.approx import knn, sparse_tmfg
+    from repro_torch.core import tmfg
+
+    X, _ = make_dataset(300, 46, 5, noise=0.6, seed=9)
+    Xd = torch.from_numpy(X).to(cuda)
+    if kind == "table-Z":
+        table, Z = knn.topk_pearson_and_z(Xd, 32, backend="cuda")
+        return sparse_tmfg._TableSource(table.values, table.indices, Z,
+                                        True)
+    S = tmfg.prepare_similarity(ops.pearson(Xd, backend="cuda"))
+    topk = 64 if kind == "dense-64" else 0
+    return tmfg._Device(S, tmfg.candidate_table(S, topk) if topk else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense-0", "dense-64", "table-Z"])
+def test_cuda_lazy_graph_equals_eager_steps(cuda, kind):
+    """The captured lazy loop (T steps per CUDA graph replay) is bitwise
+    the same step run eagerly on the card, within ceil(pops / T) + 3
+    host syncs."""
+    import math
+
+    from repro_torch.core import tmfg
+
+    got, syncs, w, c = tmfg.lazy_build(_tmfg_sources(cuda, kind))
+    want, _, w0, c0 = tmfg.lazy_build(_tmfg_sources(cuda, kind),
+                                      graph=False)
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(w, w0) and c == c0
+    assert syncs <= math.ceil(int(got.pops) / tmfg.STEPS_PER_SYNC) + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,prefix", [("corr", 10), ("orig", 10)])
+def test_cuda_corr_and_orig_through_the_kernel(cuda, method, prefix):
+    """CORR's per-step scan and ORIG's face rows through the masked
+    argmax kernel equal the plain version's build."""
+    from repro_torch.core import build_tmfg
+
+    X, _ = make_dataset(200, 46, 5, noise=0.6, seed=10)
+    S = ops.pearson(torch.from_numpy(X).to(cuda), backend="torch")
+    before = ops.KERNELS["masked_argmax"].launches
+    got = build_tmfg(S, method=method, prefix=prefix, backend="cuda")
+    launched = ops.KERNELS["masked_argmax"].launches - before
+    want = build_tmfg(S, method=method, prefix=prefix, backend="torch")
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert launched >= (197 if method == "corr" else int(got.pops))
+
+
+@pytest.mark.cuda
+def test_cuda_masked_argmax_on_all_neg_inf_rows(cuda):
+    """Rows whose unmasked entries are all -inf give the plain version's
+    index, the lowest column (CORR's scan once nothing is left)."""
+    rng = _rng(12)
+    n = 9
+    S = torch.from_numpy(rng.normal(size=(n, n)).astype(np.float32))
+    S.fill_diagonal_(float("-inf"))
+    for free in ([5], [], [0], [3, 7]):
+        mask = torch.ones(n, dtype=torch.bool)
+        mask[free] = False
+        S_d, m_d = S.to(cuda), mask.to(cuda)
+        vk, ik = ops.masked_argmax(S_d, m_d, backend="cuda")
+        vp, ip = ref.masked_argmax_ref(S_d, m_d)
+        assert torch.equal(vk, vp) and torch.equal(ik, ip)

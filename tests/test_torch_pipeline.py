@@ -14,6 +14,7 @@ package rules.
 """
 
 import ast
+import math
 from pathlib import Path
 
 import numpy as np
@@ -76,7 +77,9 @@ def test_fused_and_staged_are_the_same_run(data):
     assert set(b.timings) >= {"similarity", "tmfg", "apsp", "dbht", "hac",
                               "total", "tmfg_pops", "tmfg_host_syncs",
                               "apsp_rounds"}
-    assert b.timings["tmfg_host_syncs"] == b.timings["tmfg_pops"] + 2
+    T = tcore.tmfg.STEPS_PER_SYNC
+    assert b.timings["tmfg_host_syncs"] <= math.ceil(
+        b.timings["tmfg_pops"] / T) + 3
     assert "tmfg" not in a.timings and a.timings["total"] > 0
 
 
@@ -97,7 +100,6 @@ def test_similarity_from_timeseries_on_cpu(data):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("method", "corr", "Queue 1 item 2"), ("method", "orig", "Queue 1 item 2"),
     ("apsp_method", "sparse", "Queue 1 item 8"),
     ("dbht_impl", "host", "Queue 1 item 5"),
     ("filter", "mst", "Queue 1 item 10"), ("clean", "rmt", "Queue 1 item 10")])
