@@ -85,6 +85,32 @@ Phases (any failure exits non-zero; no phase is skipped):
    (the masked-argmax kernel in every CORR step and ORIG round against
    ``masked_argmax_ref``), counts reset just before and read just after
    each ``cuda`` run.
+8. Sparse tail and batch: (a) at full width, the staged sparse tail
+   (``apsp_method="sparse"``) on phase 4's Crop TMFG and a fresh S,
+   through ``cluster(S=..., reuse_tmfg=..., fused=False)``, counts reset
+   just before and read just after: one sparse-relaxation launch per
+   Bellman-Ford round, at least ceil(n / 512) min-plus launches, masked
+   argmax in the per-cluster HAC; the device memory the tail allocates
+   above S and the TMFG below one (n, n) float32 matrix (from n = 4096
+   up, as in phase 5); k labels and a monotone finite linkage; the
+   fused tail on the same TMFG and edge weights with the same labels
+   and the same merges (rows of equal height may sit in another order);
+   the ARI against phase 4's labels logged.  (b) at n = 2000 (at CBF's
+   n where the projected finish passes 600 s): fused against staged
+   from X; the host oracle (``dbht_impl="host"``) against the staged
+   sparse tail, labels bitwise and the same merges (rows of equal
+   height in two clusters may sit in another order, as in the
+   reference); ``approx(apsp_method="sparse")`` fused against staged,
+   the staged run's peak and the sparse tail's own logged; approx with
+   ``method="corr"`` fused against staged (the non-lazy repair); the
+   tree mode above hac_max = 64 as a full dendrogram; ``cluster_batch``
+   on 4 series sets, each entry bitwise ``cluster(X[b])`` on OPT, and
+   on the sparse config with ``limit=2`` (2 results; the other two
+   entries run as pads); on one S, the staged sparse tail, the host
+   oracle, the approx CORR run and the tree mode through the ``cuda``
+   backend bitwise the ``torch`` backend (the torch runs of a lazy-TMFG
+   config take the cuda run's TMFG: that builder launches no kernel).
+   The phase's seconds are logged.
 
 The line before the last is the JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.  The script needs the
@@ -136,6 +162,11 @@ REPEAT_DATASET = "CBF"
 STAGED_BUDGET_S = 600.0
 APPROX_PER_DENSE = 3.0
 PARITY_S = 150.0
+# phase 8 (the sparse tail and the batch entry points): its expected
+# seconds in all, and those of its n = PARITY_N part (8b), which runs at
+# REPEAT_DATASET's n where it would take the script past the budget
+SPARSE_S = 90.0
+SPARSE_B_S = 100.0
 
 
 def fail(msg: str) -> None:
@@ -232,11 +263,15 @@ def main() -> None:
     import numpy as np
 
     from repro_torch.approx import knn, sparse_tmfg
-    from repro_torch.core import PipelineConfig, adjusted_rand_index, cluster
+    from repro_torch.core import (PipelineConfig, adjusted_rand_index,
+                                  cluster, cluster_batch, cut_linkage)
+    from repro_torch.core import fused_approx as fa_mod
+    from repro_torch.core import sparse_dbht
     from repro_torch.core import tmfg as tmfg_mod
     from repro_torch.core.apsp import hub_count
     from repro_torch.data.graphs import apollonian_edges
-    from repro_torch.data.timeseries import make_dataset, make_ucr_like
+    from repro_torch.data.timeseries import (UCR_SIZES, make_dataset,
+                                             make_ucr_like)
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import sparse_apsp as sp
     from repro_torch.kernels.gainscan import masked_argmax_cuda
@@ -900,7 +935,7 @@ def main() -> None:
     # the budget, then at REPEAT_DATASET size (with its own default run)
     rep = name
     projected = (time.perf_counter() - t_start
-                 + (1.1 + APPROX_PER_DENSE) * total + PARITY_S)
+                 + (1.1 + APPROX_PER_DENSE) * total + PARITY_S + SPARSE_S)
     if projected > STAGED_BUDGET_S:
         rep = REPEAT_DATASET
         log(f"[main] projected finish {projected:.1f} s > {STAGED_BUDGET_S}"
@@ -912,6 +947,7 @@ def main() -> None:
         r0_ = cluster(Xr, k=kr, config=cfg)
         Zr, lr = r0_.linkage, r0_.labels
         del r0_
+    tm_crop = res.tmfg                         # phase 8's TMFG
     del res
     res2 = cluster(Xr, k=len(np.unique(lr)), config=cfg, fused=False,
                    collect_timings=True)
@@ -975,7 +1011,8 @@ def main() -> None:
         f"{int(ta['sim_pair_misses'])}, launches {launches_a}, peak memory "
         f"{peak_a} B, ARI vs generator {ari_a:.4f}, vs dense {ari_ad:.4f}")
     Xs, ks, rep_a = X_np, k, name
-    projected = time.perf_counter() - t_start + 1.1 * total_a + PARITY_S
+    projected = (time.perf_counter() - t_start + 1.1 * total_a + PARITY_S
+                 + SPARSE_S)
     if projected > STAGED_BUDGET_S and name != REPEAT_DATASET:
         rep_a = REPEAT_DATASET
         _, Xs, _, ks = make_ucr_like(rep_a, seed=args.seed)
@@ -1155,6 +1192,235 @@ def main() -> None:
         f"{json.dumps(builders)}")
     log(f"[time] loop phase done at {time.perf_counter() - t_start:.1f} s")
 
+    # ---- 8. the sparse tail and the batch entry points ------------------
+    t8 = time.perf_counter()
+    cfg_sp = PipelineConfig.opt().replace(apsp_method="sparse")
+
+    def same_up_to_ties(Za, Zb, nn):
+        """(equal, rows that differ in place): the two linkages hold the
+        same merges (each child named by its smallest leaf and its size,
+        which no two clusters of one hierarchy share) at the same
+        heights, whatever the order of the rows of equal height."""
+        def canon(Z_):
+            lo = np.arange(2 * nn - 1)
+            size = np.ones(2 * nn - 1, np.int64)
+            rows = []
+            for g, (a, b, hgt, _) in enumerate(Z_):
+                a, b = int(a), int(b)
+                lo[nn + g] = min(lo[a], lo[b])
+                size[nn + g] = size[a] + size[b]
+                kids = sorted([(int(lo[a]), int(size[a])),
+                               (int(lo[b]), int(size[b]))])
+                rows.append((float(hgt), *kids))
+            return sorted(rows)
+        return (canon(Za) == canon(Zb),
+                int((Za != Zb).any(axis=1).sum()))
+
+    # 8a. the staged sparse tail at full width on phase 4's Crop TMFG
+    S8 = ops.pearson(torch.from_numpy(X_np).to(dev))
+    sync()
+    base8 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    r8 = cluster(S=S8, reuse_tmfg=tm_crop, config=cfg_sp, fused=False, k=k,
+                 collect_timings=True)
+    sync()
+    tail_s = time.perf_counter() - t0
+    launches8 = ops.launch_counts()
+    tail_bytes = torch.cuda.max_memory_allocated() - base8
+    check(r8.reused_tmfg and r8.dbht.hubs is not None,
+          "sparse tail: not the reused TMFG's sparse tail")
+    check(launches8["sparse_relax"] == int(r8.timings["apsp_rounds"]) > 0,
+          f"sparse tail: sparse_relax launches {launches8} != rounds "
+          f"{r8.timings['apsp_rounds']}")
+    check(launches8["minplus"] >= math.ceil(n / 512),
+          f"sparse tail: minplus launches {launches8} < ceil(n / 512)")
+    check(launches8["masked_argmax"] > 0,
+          f"sparse tail: masked_argmax launches {launches8}")
+    check(launches8["pearson"] == 0 and launches8["topk"] == 0,
+          f"sparse tail: pearson or topk ran {launches8}")
+    # the bound is checked from a few panels' rows up, as in phase 5
+    if n >= 8 * 512:
+        check(tail_bytes < n * n * 4, f"sparse tail: {tail_bytes} B above "
+              f"S and the TMFG >= one (n, n) f32 {n * n * 4} B")
+    check_linkage(r8.linkage, n, k, r8.labels, "sparse tail")
+    C8 = int(r8.dbht.converging.shape[0])
+    # the fused tail on the same TMFG and edge weights
+    e8 = tm_crop.edges.long()
+    fz8 = fa_mod._sparse_tail(cfg_sp, n, tm_crop, S8[e8[:, 0], e8[:, 1]])
+    check(not fz8["overflow"], "sparse tail: the fused tail overflowed its "
+          "slot caps on the Crop TMFG")
+    Zf8 = fz8["Z"].cpu().numpy()
+    equal8, rows8 = same_up_to_ties(r8.linkage, Zf8, n)
+    check(np.array_equal(cut_linkage(Zf8, n, k), r8.labels) and equal8,
+          f"sparse tail: the fused tail's labels or merges differ from the "
+          f"staged tail's ({rows8} rows differ in place)")
+    ari8 = adjusted_rand_index(dense_labels, r8.labels)
+    sparse_a = dict(n=n, clusters=C8, tail_s=tail_s,
+                    stages_s={s_: r8.timings[s_]
+                              for s_ in ("apsp", "dbht", "hac")},
+                    bf_rounds=int(r8.timings["apsp_rounds"]),
+                    launches=launches8, tail_bytes=tail_bytes,
+                    nn_f32_bytes=n * n * 4, fused_rows_differ=rows8,
+                    ari_vs_hub_tail=ari8)
+    log(f"[sparse] {name} n={n}: staged sparse tail on the phase-4 TMFG "
+        f"{json.dumps(sparse_a)}")
+    del S8, r8, fz8, e8, tm_crop
+    torch.cuda.empty_cache()
+
+    # 8b. n = PARITY_N, at REPEAT_DATASET's n where the budget needs it
+    n8 = PARITY_N
+    projected = time.perf_counter() - t_start + SPARSE_B_S
+    if projected > STAGED_BUDGET_S:
+        n8 = [e for e in UCR_SIZES if e[0] == REPEAT_DATASET][0][1]
+        log(f"[sparse] projected finish {projected:.1f} s > "
+            f"{STAGED_BUDGET_S} s: phase 8b runs at n={n8} "
+            f"({REPEAT_DATASET} size)")
+    X8 = Xp if n8 == PARITY_N else make_dataset(n8, 46, 8, noise=0.5,
+                                                seed=args.seed + 1)[0]
+    X8d = torch.from_numpy(X8).to(dev)
+    S8t = ops.pearson(X8d, backend="torch")
+    parity8 = {}
+
+    def on_S(cfg_, be, **kw):
+        return cluster(S=S8t, k=8, config=cfg_.replace(backend=be), **kw)
+
+    def same_run(what, rc_, rt_):
+        """A cuda run against the torch backend's on one S: linkage and
+        labels bitwise."""
+        check(np.array_equal(rc_.linkage, rt_.linkage)
+              and np.array_equal(rc_.labels, rt_.labels),
+              f"{what}: cuda and torch backends differ on one S")
+        parity8[what] = True
+
+    # fused against staged, from X; the staged run reruns the similarity
+    # and the tail on the fused run's TMFG (the lazy builder launches no
+    # kernel, so a rebuild would repeat the same steps)
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    fx = cluster(X8, k=8, config=cfg_sp, collect_timings=True)
+    sync()
+    fused8_s = time.perf_counter() - t0
+    launches_f8 = ops.launch_counts()
+    check(launches_f8["pearson"] == 1
+          and launches_f8["sparse_relax"] == int(fx.timings["apsp_rounds"])
+          and launches_f8["minplus"] >= math.ceil(n8 / 512)
+          and launches_f8["masked_argmax"] > 0,
+          f"sparse fused n={n8}: launches {launches_f8}")
+    sx = cluster(X8, k=8, config=cfg_sp, fused=False, reuse_tmfg=fx.tmfg)
+    eq_fs, rows_fs = same_up_to_ties(fx.linkage, sx.linkage, n8)
+    check(np.array_equal(fx.labels, sx.labels) and eq_fs,
+          f"sparse n={n8}: fused and staged differ ({rows_fs} rows)")
+    check_linkage(fx.linkage, n8, 8, fx.labels, "sparse fused")
+    # the staged tail on one S, through the kernels and the plain path
+    # (the torch runs take the cuda run's TMFG), its own memory, and the
+    # host oracle against it: labels bitwise and the same merges; the
+    # oracle's one global run orders merges of exactly equal height in
+    # two clusters by its flat scan, the tail's assembly by cluster (the
+    # reference's own caveat, DESIGN.md §14.5)
+    st8 = on_S(cfg_sp, "cuda", fused=False)
+    same_run("opt-sparse staged", st8,
+             on_S(cfg_sp, "torch", reuse_tmfg=st8.tmfg))
+    sync()
+    base_t8 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sr8 = on_S(cfg_sp, "cuda", reuse_tmfg=st8.tmfg)
+    sync()
+    peak_tail8 = torch.cuda.max_memory_allocated() - base_t8
+    check(np.array_equal(sr8.linkage, st8.linkage),
+          f"sparse n={n8}: the tail on a reused TMFG differs")
+    cfg_ho = cfg_sp.replace(dbht_impl="host")
+    ho = on_S(cfg_ho, "cuda", reuse_tmfg=st8.tmfg)
+    same_run("opt-sparse host oracle", ho,
+             on_S(cfg_ho, "torch", reuse_tmfg=st8.tmfg))
+    eq_ho, rows_ho = same_up_to_ties(ho.linkage, st8.linkage, n8)
+    check(np.array_equal(ho.labels, st8.labels) and eq_ho,
+          f"host oracle n={n8}: labels or merges differ from the staged "
+          f"sparse tail ({rows_ho} rows differ in place)")
+    # approx with the sparse tail, fused and staged from X, the staged
+    # run's peak logged: at these n one (n, n) f32 (16 MB at n = 2000) is
+    # below the fixed workspaces of the top-K kernel and the lazy loop's
+    # graph pool, so the bound is checked from 8 panels' rows up
+    cfg_as = PipelineConfig.approx(sim_k=K, apsp_method="sparse")
+    ax = cluster(X8, k=8, config=cfg_as)
+    sync()
+    base_a8 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    axs = cluster(X8, k=8, config=cfg_as, fused=False)
+    sync()
+    peak_as = torch.cuda.max_memory_allocated() - base_a8
+    eq_as, rows_as = same_up_to_ties(ax.linkage, axs.linkage, n8)
+    check(np.array_equal(ax.labels, axs.labels) and eq_as,
+          f"approx sparse n={n8}: fused and staged differ ({rows_as} rows)")
+    if n8 >= 8 * 512:
+        check(peak_as < n8 * n8 * 4, f"approx sparse staged n={n8}: peak "
+              f"{peak_as} B >= one (n, n) f32 {n8 * n8 * 4} B")
+    # the repair: approx with a non-lazy method, fused against staged;
+    # CORR's steps launch the masked-argmax kernel, so the torch run
+    # builds its own TMFG
+    cfg_ac = PipelineConfig.approx(sim_k=K, method="corr", topk=0)
+    acf = on_S(cfg_ac, "cuda")
+    same_run("approx-corr fused", acf, on_S(cfg_ac, "torch"))
+    acs = on_S(cfg_ac, "cuda", fused=False)
+    check(np.array_equal(acf.linkage, acs.linkage),
+          f"approx corr n={n8}: fused and staged linkage differ")
+    # the tree mode above hac_max = 64 (half the largest cluster where
+    # none is that large), on the staged run's TMFG
+    tm8 = st8.tmfg
+    big8 = int(np.bincount(st8.dbht.cluster_of.cpu().numpy()).max())
+    hac_max8 = 64 if big8 > 64 else max(1, big8 // 2)
+    trees = {}
+    for be in ("cuda", "torch"):
+        rt8 = sparse_dbht.dbht_sparse(S8t, tm8, backend=be, hac_max=hac_max8)
+        trees[be] = rt8.linkage.cpu().numpy()
+    Zt8 = trees["cuda"]
+    refs8 = np.sort(np.concatenate([Zt8[:, 0], Zt8[:, 1]]).astype(np.int64))
+    check(Zt8.shape == (n8 - 1, 4) and np.array_equal(refs8,
+                                                      np.arange(2 * n8 - 2))
+          and bool(np.isfinite(Zt8).all()) and int(Zt8[-1, 3]) == n8,
+          f"tree mode n={n8}: not a full dendrogram")
+    check(np.array_equal(Zt8, trees["torch"]),
+          f"tree mode n={n8}: cuda and torch backends differ")
+    parity8["tree mode"] = True
+    # cluster_batch: each entry the single cluster(X[b])
+    Xb8 = np.stack([X8] + [make_dataset(n8, 46, 8, noise=0.5,
+                                        seed=args.seed + 2 + b)[0]
+                           for b in range(3)])
+    # OPT in full; the sparse batch with limit=2, its other two entries
+    # pads that run on the device only
+    batch8 = {}
+    for what, cfg_b, lim in (("opt", PipelineConfig.opt(), None),
+                             ("opt-sparse", cfg_sp, 2)):
+        sync()
+        t0 = time.perf_counter()
+        bb = cluster_batch(Xb8, k=8, config=cfg_b, limit=lim)
+        sync()
+        batch8[what] = time.perf_counter() - t0
+        check(len(bb) == (lim or 4) and bb.labels.shape == (lim or 4, n8),
+              f"cluster_batch {what} limit={lim}: {len(bb)} results")
+        for b in range(lim or 4):
+            one = (fx if what == "opt-sparse" and b == 0 else
+                   cluster(Xb8[b], k=8, config=cfg_b))
+            check(np.array_equal(bb[b].linkage, one.linkage)
+                  and np.array_equal(bb.labels[b], one.labels),
+                  f"cluster_batch {what} entry {b} differs from cluster()")
+    sparse_b = dict(n=n8, fused_s=fused8_s, launches=launches_f8,
+                    fused_staged_rows_differ=rows_fs,
+                    host_staged_rows_differ=rows_ho,
+                    approx_fused_staged_rows_differ=rows_as,
+                    approx_staged_peak_bytes=peak_as,
+                    staged_tail_peak_bytes=peak_tail8,
+                    nn_f32_bytes=n8 * n8 * 4,
+                    tree_largest_cluster=big8, tree_hac_max=hac_max8,
+                    batch_s=batch8,
+                    backends_bitwise=parity8)
+    sparse_s = time.perf_counter() - t8
+    log(f"[sparse] n={n8}: {json.dumps(sparse_b)}")
+    log(f"[time] sparse phase done at {time.perf_counter() - t_start:.1f} s"
+        f" ({sparse_s:.1f} s)")
+
     dense_kernels = ("pearson", "minplus", "masked_argmax")
     for e in entries.values():
         e["launches"] = (launches_s if e["name"] == "flash_attention_wgmma"
@@ -1162,6 +1428,7 @@ def main() -> None:
                          else launches if e["name"] in dense_kernels
                          else launches_a)[e["name"]]
     main["seconds_in_all"] = time.perf_counter() - t_start
+    main["sparse_phase_s"] = sparse_s
     log(f"[main] {json.dumps(main)}")
     log(f"[approx] {json.dumps(approx)}")
     log(f"[serve] {json.dumps(serve)}")

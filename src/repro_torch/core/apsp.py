@@ -16,9 +16,9 @@ reference.
 The sparse hub factor (``hub_factor_sparse``, DESIGN.md §14.2) runs the
 same fixed point over the 2(3n-6) CSR entries of the TMFG with
 ``kernels.sparse_apsp`` (``ops.sparse_relax``, the CUDA kernel on the
-card), in O(h·n + E) memory; ``apsp_sparse`` densifies it for parity
-tests.  ``apsp(method="sparse")`` in the pipeline is ROADMAP Queue 1
-item 8.
+card), in O(h·n + E) memory; ``apsp_sparse`` densifies it, which
+``apsp(method="sparse")`` returns, as in the reference.  The pipeline's
+sparse tail (``core/sparse_dbht.py``) consumes the factor itself.
 """
 
 from __future__ import annotations
@@ -29,8 +29,6 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import sparse_apsp as sparse_kernels
-
-from .config import not_ported
 
 INF = float("inf")
 
@@ -148,12 +146,12 @@ def csr_from_dense(W: torch.Tensor) -> sparse_kernels.CSRGraph:
 
 
 def apsp_sparse(W: torch.Tensor, *, n_hubs: int = 0, rounds: int = 0,
-                backend: str = "auto") -> torch.Tensor:
+                backend: str = "auto", stats: dict = None) -> torch.Tensor:
     """Sparse hub APSP densified back to (n, n), for parity tests: the hub
     factor of W's CSR composed as ``min_h D_h[:, u] + D_h[:, v]`` with
     :func:`apsp_hub`'s edge floor, symmetrization and zero diagonal."""
     _, D_h = hub_factor_sparse(csr_from_dense(W), n_hubs=n_hubs,
-                               rounds=rounds, backend=backend)
+                               rounds=rounds, backend=backend, stats=stats)
     est = ops.minplus(D_h.T.contiguous(), D_h, backend=backend)
     torch.minimum(est, W.float(), out=est)
     est = torch.minimum(est, est.T)
@@ -164,14 +162,16 @@ def apsp_sparse(W: torch.Tensor, *, n_hubs: int = 0, rounds: int = 0,
 def apsp(W: torch.Tensor, *, method: str = "hub", n_hubs: int = 0,
          rounds: int = 0, backend: str = "auto",
          stats: dict = None) -> torch.Tensor:
-    """Dispatch to exact / hub APSP by ``method``; below HUB_MIN_N
-    vertices ``method="hub"`` runs the exact program, as in the
-    reference.  ``method="sparse"`` raises NotImplementedError."""
+    """Dispatch to exact / hub / sparse APSP by ``method``; below
+    HUB_MIN_N vertices ``method="hub"`` runs the exact program, as in
+    the reference.  ``method="sparse"`` is :func:`apsp_sparse` at every
+    n."""
     if method == "exact" or (method == "hub" and W.shape[0] < HUB_MIN_N):
         return apsp_exact(W, backend=backend)
     if method == "hub":
         return apsp_hub(W, n_hubs=n_hubs, rounds=rounds, backend=backend,
                         stats=stats)
     if method == "sparse":
-        raise not_ported("apsp_method", "sparse")
+        return apsp_sparse(W, n_hubs=n_hubs, rounds=rounds, backend=backend,
+                           stats=stats)
     raise ValueError(f"unknown APSP method {method!r}")

@@ -212,12 +212,10 @@ class PipelineConfig:
 # Knob values the reference runs and this slice of the port does not,
 # each with the ROADMAP.md Queue 1 item that ports it.
 _NOT_PORTED = (
-    ("apsp_method", "sparse", "Queue 1 item 8 (sparse APSP tail)"),
     ("filter", "mst", "Queue 1 item 10 (filters)"),
     ("filter", "pmfg", "Queue 1 item 10 (filters)"),
     ("filter", "ag", "Queue 1 item 10 (filters)"),
     ("clean", "rmt", "Queue 1 item 10 (RMT cleaning)"),
-    ("dbht_impl", "host", "Queue 1 item 5 (host DBHT oracle)"),
 )
 
 
@@ -237,3 +235,15 @@ def check_ported(cfg: PipelineConfig) -> None:
     for f, v, _ in _NOT_PORTED:
         if getattr(cfg, f) == v:
             raise not_ported(f, v)
+
+
+def check_no_conflict(config: Optional[PipelineConfig], **kwargs) -> None:
+    """Raise if ``config`` is combined with any explicit (non-None) loose
+    kwarg: the contract of :meth:`PipelineConfig.resolve`, for the
+    lower-layer entry points (``dbht``, ``dbht_batch``)."""
+    if config is None:
+        return
+    clash = sorted(k for k, v in kwargs.items() if v is not None)
+    if clash:
+        raise ValueError(f"config= conflicts with {clash}: pass one "
+                         f"surface, or use config.replace(...)")

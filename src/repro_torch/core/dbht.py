@@ -1,43 +1,53 @@
-"""DBHT — Directed Bubble Hierarchy Tree clustering on a TMFG, on device.
+"""DBHT — Directed Bubble Hierarchy Tree clustering on a TMFG.
 
-The port of the device half of ``repro.core.dbht`` (DESIGN.md §11): the
-bubble-tree ancestry by pointer doubling, the edge directions as one
-(B, n) reduction, the converging-bubble flow by pointer jumping, the fine
-assignment as one masked (n, B) argmin, and the nested complete linkage
-on the offset-adjusted APSP matrix (``hac.hierarchical_offsets``).  Every
-step is a fixed-shape tensor program, as in the reference; nothing goes
-to the host until the result is unpacked.
+The port of ``repro.core.dbht`` (DESIGN.md §11).  Two strategies, as in
+the reference, with the same outputs on the same inputs:
 
-The host oracle (``impl="host"``) and ``dbht_batch`` are ROADMAP Queue 1
-item 5.  The (n, n)-sized steps update in place where that saves a
-second (n, n) buffer; each such place says so.
+  * ``impl="device"`` (the default): the bubble-tree ancestry by pointer
+    doubling, the edge directions as one (B, n) reduction, the
+    converging-bubble flow by pointer jumping, the fine assignment as
+    one masked (n, B) argmin, and the nested complete linkage on the
+    offset-adjusted APSP matrix (``hac.hierarchical_offsets``).  Every
+    step is a fixed-shape tensor program; nothing goes to the host until
+    the result is unpacked.  The (n, n)-sized steps update in place where
+    that saves a second (n, n) buffer; each such place says so.
+  * ``impl="host"``: the reference's numpy tree walk (the parity oracle,
+    :func:`_dbht_host`), with APSP and the one nested linkage still run
+    on the device of the TMFG's tensors (``apsp.apsp``, ``ops.minplus``;
+    ``hac.complete_linkage``, ``ops.masked_argmax``).
+
+``apsp_method="sparse"`` routes to the edge-list tail
+(``core/sparse_dbht.py``), which never forms (n, n); :func:`dbht_batch`
+runs a batch of matrices one entry after another.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from . import apsp as apsp_mod
 from . import hac as hac_mod
-from .config import PipelineConfig, not_ported
+from .config import PipelineConfig, check_no_conflict
 from .tmfg import tmfg_adjacency
 
 
 @dataclass
 class DBHTResult:
     """DBHT outputs, tensors on the device the stage ran on (the
-    reference's fields; ``labels`` cuts on the host)."""
+    reference's fields; ``labels`` cuts on the host).  The integer fields
+    are int32 from the device walk and int64 from the host walks, as in
+    the reference."""
 
     linkage: torch.Tensor        # (n-1, 4) f32 scipy-style dendrogram
-    cluster_of: torch.Tensor     # (n,) i32 coarse cluster id per vertex
-    bubble_of: torch.Tensor      # (n,) i32 fine bubble per vertex
+    cluster_of: torch.Tensor     # (n,) coarse cluster id per vertex
+    bubble_of: torch.Tensor      # (n,) fine bubble per vertex
     converging: torch.Tensor     # int64 ids of converging bubbles
-    direction: torch.Tensor      # (n-4,) i32: +1 edge points parent->child
+    direction: torch.Tensor      # (n-4,): +1 edge points parent->child
     apsp: torch.Tensor           # (n, n) f32 distances, or the hub
     #                              factor D_h (h, n) of the sparse tail
     hubs: Optional[torch.Tensor] = None  # (h,) i32 hub ids (sparse tail)
@@ -46,6 +56,184 @@ class DBHTResult:
         n = self.cluster_of.shape[0]
         return hac_mod.cut_linkage(self.linkage, n, k)
 
+
+def _no_stage(name: str) -> None:
+    pass
+
+
+# ---------------------------------------------------------------------------
+# the host oracle (impl="host"): numpy copies of the reference's walk
+# ---------------------------------------------------------------------------
+
+def euler_tour(parent: np.ndarray):
+    """Preorder (tin, tout) of the bubble tree with children in ascending
+    id, tout = tin + subtree size: the reference's DFS ``_euler_tour`` as
+    two O(B) loops.  Parents have smaller ids than their children
+    (insertion order)."""
+    par = [int(x) for x in parent]
+    B = len(par)
+    size = [1] * B
+    for b in range(B - 1, 0, -1):
+        size[par[b]] += size[b]
+    tin = [0] * B
+    nxt = [0] * B
+    nxt[0] = 1
+    for b in range(1, B):
+        p = par[b]
+        t = nxt[p]
+        tin[b] = t
+        nxt[p] = t + size[b]
+        nxt[b] = t + 1
+    tin_a = np.asarray(tin, np.int64)
+    return tin_a, tin_a + np.asarray(size, np.int64)
+
+
+def _edge_directions(S: np.ndarray, edges: np.ndarray,
+                     bubble_parent: np.ndarray, bubble_tri: np.ndarray,
+                     home_bubble: np.ndarray):
+    """Direction of every bubble-tree edge by side connection strength,
+    summed in float64 vertex by vertex (the reference's loops).
+
+    Edge b (b >= 1) joins bubble b to its parent over the separating
+    triangle t; a side's strength is the sum of the TMFG similarities
+    from t's corners into the vertices whose home bubble lies on that
+    side.  +1 when the edge points parent -> child (the subtree side is
+    at least as strong), else -1.  Returns (direction, tin, tout)."""
+    n = S.shape[0]
+    B = bubble_parent.shape[0]
+    tin, tout = euler_tour(bubble_parent)
+    adj = [[] for _ in range(n)]
+    for a, b in edges:
+        adj[int(a)].append(int(b))
+        adj[int(b)].append(int(a))
+    home_tin = tin[home_bubble]
+    direction = np.zeros(B, np.int64)
+    for b in range(1, B):
+        t = bubble_tri[b]
+        tset = set(int(x) for x in t)
+        lo, hi = tin[b], tout[b]
+        s_child = 0.0
+        s_parent = 0.0
+        for v in t:
+            for u in adj[int(v)]:
+                if u in tset:
+                    continue
+                if lo <= home_tin[u] < hi:
+                    s_child += S[int(v), u]
+                else:
+                    s_parent += S[int(v), u]
+        direction[b] = 1 if s_child >= s_parent else -1
+    return direction, tin, tout
+
+
+def _flow_to_converging(bubble_parent: np.ndarray, direction: np.ndarray):
+    """Follow each bubble's first outgoing edge until a converging bubble
+    (one with no outgoing edge).  ``direction[b] = +1`` points the edge
+    parent -> b.  Returns (destination per bubble, converging ids)."""
+    B = bubble_parent.shape[0]
+    out_edges = [[] for _ in range(B)]
+    for b in range(1, B):
+        p = bubble_parent[b]
+        if direction[b] == 1:
+            out_edges[p].append(b)
+        else:
+            out_edges[b].append(p)
+    converging = np.array([b for b in range(B) if not out_edges[b]],
+                          dtype=np.int64)
+    dest = np.full(B, -1, np.int64)
+
+    def walk(b):
+        path = []
+        cur = b
+        while dest[cur] == -1 and out_edges[cur]:
+            path.append(cur)
+            cur = out_edges[cur][0]      # a tree: no cycle along out-edges
+        d = dest[cur] if dest[cur] != -1 else cur
+        dest[cur] = d
+        for x in path:
+            dest[x] = d
+        return d
+
+    for b in range(B):
+        if dest[b] == -1:
+            walk(b)
+    return dest, converging
+
+
+def host_tmfg(tmfg) -> Dict[str, np.ndarray]:
+    """The TMFG's tree arrays as host numpy arrays."""
+    return {f: getattr(tmfg, f).cpu().numpy()
+            for f in ("edges", "bubble_parent", "bubble_tri",
+                      "bubble_verts", "home_bubble")}
+
+
+def _dbht_host(S, tmfg, *, apsp_method: str, apsp_backend: str,
+               precomputed_apsp=None, apsp_hubs: int = 0,
+               apsp_rounds: int = 0, done=_no_stage,
+               stats: Optional[dict] = None) -> DBHTResult:
+    """The reference's per-matrix numpy walk (the parity oracle).
+
+    Directions, flow, clusters and the fine assignment run in numpy on
+    the host, S in float64; APSP (unless ``precomputed_apsp``) and the
+    one offset-adjusted complete linkage run on the device of the TMFG's
+    tensors.  Holds S in float64 and an (n, B, 4) float32 array: an
+    oracle for small n, not a production path."""
+    dev = tmfg.edges.device
+    S64 = (S.double().cpu().numpy() if isinstance(S, torch.Tensor)
+           else np.asarray(S, np.float64))
+    n = S64.shape[0]
+    tm = host_tmfg(tmfg)
+    bubble_parent, bubble_verts = tm["bubble_parent"], tm["bubble_verts"]
+    home_bubble = tm["home_bubble"]
+    B = bubble_parent.shape[0]
+
+    direction, _, _ = _edge_directions(S64, tm["edges"], bubble_parent,
+                                       tm["bubble_tri"], home_bubble)
+    dest, converging = _flow_to_converging(bubble_parent, direction)
+    conv_index = {int(c): i for i, c in enumerate(converging)}
+    cluster_of = np.array([conv_index[int(dest[home_bubble[v]])]
+                           for v in range(n)], dtype=np.int64)
+
+    if precomputed_apsp is not None:
+        D = _as_f32(precomputed_apsp, dev)
+    else:
+        W = apsp_mod.edge_lengths(n, tmfg.edges,
+                                  torch.from_numpy(S64.astype(np.float32))
+                                  .to(dev))
+        D = apsp_mod.apsp(W, method=apsp_method, n_hubs=apsp_hubs,
+                          rounds=apsp_rounds, backend=apsp_backend,
+                          stats=stats)
+        del W
+    done("apsp")
+    D_np = D.cpu().numpy()
+
+    # fine assignment: the nearest (mean APSP) bubble of the cluster's
+    # basin, the basin of c being the bubbles that flow to c
+    bubble_cluster = np.array([conv_index[int(dest[b])] for b in range(B)],
+                              dtype=np.int64)
+    mean_dist = D_np[:, bubble_verts.reshape(-1)].reshape(n, B, 4).mean(
+        axis=2)
+    same = bubble_cluster[None, :] == cluster_of[:, None]          # (n, B)
+    bubble_of = np.argmin(np.where(same, mean_dist, np.inf), axis=1)
+    del mean_dist, same
+    done("dbht")
+
+    adj = hac_mod.hierarchical_offsets(
+        D, torch.from_numpy(bubble_of).to(dev),
+        torch.from_numpy(cluster_of).to(dev))
+    Z = hac_mod.complete_linkage(adj, backend=apsp_backend)
+    del adj
+    done("hac")
+    return DBHTResult(
+        linkage=Z, cluster_of=torch.from_numpy(cluster_of).to(dev),
+        bubble_of=torch.from_numpy(bubble_of).to(dev),
+        converging=torch.from_numpy(converging).to(dev),
+        direction=torch.from_numpy(direction[1:]).to(dev), apsp=D)
+
+
+# ---------------------------------------------------------------------------
+# the device form (impl="device")
+# ---------------------------------------------------------------------------
 
 def _steps(B: int) -> int:
     return int(math.ceil(math.log2(max(B, 2)))) + 1
@@ -159,10 +347,6 @@ def _dbht_device_core(S, edges, bubble_parent, bubble_tri, bubble_verts,
     return out
 
 
-def _no_stage(name: str) -> None:
-    pass
-
-
 def dense_tail(S: torch.Tensor, tm, cfg: PipelineConfig, *,
                D: Optional[torch.Tensor] = None, done=_no_stage):
     """The dense tail on a TMFG ``tm`` of S: edge lengths and APSP (unless
@@ -195,40 +379,123 @@ def _result_from_device(out) -> DBHTResult:
         direction=out["direction"][1:], apsp=out["D"])
 
 
-def dbht(S: torch.Tensor, tmfg, *, apsp_method: Optional[str] = None,
+def _as_f32(a, dev: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(dev, torch.float32)
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+
+def _tail_config(config: Optional[PipelineConfig], *, apsp_method=None,
+                 backend=None, apsp_hubs=None,
+                 apsp_rounds=None) -> PipelineConfig:
+    """The APSP knobs and the backend from ``config`` or from the loose
+    kwargs (combining the two is rejected); a loose kwarg left None takes
+    the dataclass default."""
+    check_no_conflict(config, apsp_method=apsp_method, backend=backend,
+                      apsp_hubs=apsp_hubs, apsp_rounds=apsp_rounds)
+    if config is not None:
+        return config
+    d = PipelineConfig()
+    return d.replace(
+        apsp_method=apsp_method or d.apsp_method,
+        apsp_hubs=d.apsp_hubs if apsp_hubs is None else apsp_hubs,
+        apsp_rounds=d.apsp_rounds if apsp_rounds is None else apsp_rounds,
+        backend=backend or d.backend)
+
+
+def run_dbht(S, tmfg, cfg: PipelineConfig, *, impl: str,
+             edge_weights=None, precomputed_apsp=None, done=_no_stage,
+             stats: Optional[dict] = None) -> DBHTResult:
+    """The DBHT stage of ``cfg`` on a TMFG (tensors on the run's device):
+    the sparse edge-list tail for ``apsp_method="sparse"`` (S may then be
+    None when ``edge_weights`` holds the similarity of each TMFG edge),
+    else the dense tail on S, on the device or as the host oracle.
+    ``done(stage)`` is called after "apsp", "dbht" and "hac";
+    ``stats``, if a dict, receives ``bf_rounds`` where a Bellman-Ford
+    loop ran."""
+    if impl not in ("device", "host"):
+        raise ValueError(f"unknown DBHT impl {impl!r}")
+    if cfg.apsp_method == "sparse" and precomputed_apsp is None:
+        from . import sparse_dbht
+        return sparse_dbht.dbht_sparse(
+            S, tmfg, edge_weights=edge_weights, n_hubs=cfg.apsp_hubs,
+            rounds=cfg.apsp_rounds, backend=cfg.backend, impl=impl,
+            done=done, stats=stats)
+    dev = tmfg.edges.device
+    if impl == "host":
+        return _dbht_host(S, tmfg, apsp_method=cfg.apsp_method,
+                          apsp_backend=cfg.backend,
+                          precomputed_apsp=precomputed_apsp,
+                          apsp_hubs=cfg.apsp_hubs,
+                          apsp_rounds=cfg.apsp_rounds, done=done,
+                          stats=stats)
+    D = None if precomputed_apsp is None else _as_f32(precomputed_apsp, dev)
+    out, rounds = dense_tail(_as_f32(S, dev), tmfg, cfg, D=D, done=done)
+    if stats is not None:
+        stats["bf_rounds"] = rounds
+    return _result_from_device(out)
+
+
+def dbht(S, tmfg, *, apsp_method: Optional[str] = None,
          apsp_backend: Optional[str] = None,
          apsp_hubs: Optional[int] = None, apsp_rounds: Optional[int] = None,
-         precomputed_apsp: Optional[torch.Tensor] = None,
-         config: Optional[PipelineConfig] = None,
-         impl: Optional[str] = None) -> DBHTResult:
-    """Run DBHT on a TMFG (a ``tmfg.TMFGResult`` of tensors on S's device).
+         precomputed_apsp=None, config: Optional[PipelineConfig] = None,
+         impl: Optional[str] = None, edge_weights=None) -> DBHTResult:
+    """Run DBHT on a TMFG (a ``tmfg.TMFGResult`` of tensors on the run's
+    device); S is a tensor or an array.
 
-    ``config`` supplies the APSP knobs and the backend instead of the
-    loose kwargs (combining the two is rejected); ``impl="host"`` and
-    ``apsp_method="sparse"`` raise NotImplementedError.
+    ``config`` supplies the APSP knobs, the backend and the impl instead
+    of the loose kwargs (combining the two is rejected, except ``impl``,
+    the one deliberate override).  ``apsp_method="sparse"`` runs the
+    edge-list tail (``sparse_dbht.dbht_sparse``), where S may be None
+    when ``edge_weights`` gives the similarity of each TMFG edge;
+    ``impl="host"`` runs the numpy oracle.
     """
-    loose = dict(apsp_method=apsp_method, apsp_backend=apsp_backend,
-                 apsp_hubs=apsp_hubs, apsp_rounds=apsp_rounds)
-    if config is not None:
-        clash = sorted(k for k, v in loose.items() if v is not None)
-        if clash:
-            raise ValueError(f"config= conflicts with {clash}: pass one "
-                             f"surface, or use config.replace(...)")
-        cfg = config
-    else:
-        d = PipelineConfig()
-        cfg = d.replace(
-            apsp_method=apsp_method or d.apsp_method,
-            apsp_hubs=d.apsp_hubs if apsp_hubs is None else apsp_hubs,
-            apsp_rounds=d.apsp_rounds if apsp_rounds is None else apsp_rounds,
-            backend=apsp_backend or d.backend)
-    impl = impl or cfg.dbht_impl
-    if impl == "host":
-        raise not_ported("dbht_impl", "host")
-    if impl != "device":
-        raise ValueError(f"unknown DBHT impl {impl!r}")
-    S = S.float()
-    D = None if precomputed_apsp is None else \
-        precomputed_apsp.to(S.device, torch.float32)
-    out, _ = dense_tail(S, tmfg, cfg, D=D)
-    return _result_from_device(out)
+    cfg = _tail_config(config, apsp_method=apsp_method, backend=apsp_backend,
+                       apsp_hubs=apsp_hubs, apsp_rounds=apsp_rounds)
+    return run_dbht(S, tmfg, cfg, impl=impl or cfg.dbht_impl,
+                    edge_weights=edge_weights,
+                    precomputed_apsp=precomputed_apsp)
+
+
+def tmfg_entry(tmfg, b: int):
+    """Entry b of a batched TMFG (every field with a leading batch axis)."""
+    return type(tmfg)(*(f[b] for f in tmfg))
+
+
+def dbht_batch(S, tmfg, *, apsp_method: Optional[str] = None,
+               backend: Optional[str] = None,
+               apsp_hubs: Optional[int] = None,
+               apsp_rounds: Optional[int] = None,
+               config: Optional[PipelineConfig] = None,
+               limit: Optional[int] = None,
+               edge_weights=None) -> List[DBHTResult]:
+    """Device DBHT for a batch: S (B, n, n) and a batched TMFG (every
+    field with a leading B axis, tensors on the run's device).
+
+    The entries run one after another on the device; the linkages of the
+    first ``limit`` entries (all by default) then come to the host in one
+    copy, and each result's ``linkage`` is its row of it (the other
+    fields stay on the device).  Entries past ``limit`` do device work
+    only.  The sparse method runs :func:`sparse_dbht.dbht_sparse` per
+    entry, for the first ``limit`` entries only, as in the reference (S
+    may be None there when ``edge_weights`` (B, 3n-6) is given).
+    ``config`` supplies the APSP knobs and the backend instead of the
+    loose kwargs (combining the two is rejected).
+    """
+    cfg = _tail_config(config, apsp_method=apsp_method, backend=backend,
+                       apsp_hubs=apsp_hubs, apsp_rounds=apsp_rounds)
+    B = len(S) if S is not None else len(edge_weights)
+    B_out = B if limit is None else min(limit, B)
+    sparse = cfg.apsp_method == "sparse"
+    res = []
+    for b in range(B_out if sparse else B):
+        res.append(run_dbht(
+            None if S is None else S[b], tmfg_entry(tmfg, b), cfg,
+            impl="device",
+            edge_weights=None if edge_weights is None else edge_weights[b]))
+    res = res[:B_out]
+    Z = torch.stack([r.linkage for r in res]).cpu()     # the one copy
+    for r, z in zip(res, Z):
+        r.linkage = z
+    return res

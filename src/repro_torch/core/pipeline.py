@@ -1,8 +1,8 @@
 """End-to-end TMFG-DBHT clustering pipeline in PyTorch (OPT-TDBHT).
 
-The port of ``repro.core.pipeline.cluster`` for the dense TMFG path: the
-body of the reference's fused program (``_fused_one``) run eagerly,
-stage by stage —
+The port of ``repro.core.pipeline``: :func:`cluster` for one matrix and
+:func:`cluster_batch` for a batch.  The dense path runs the body of the
+reference's fused program (``_fused_one``) eagerly, stage by stage --
 
   Pearson similarity (``ops.pearson``, the CUDA kernel on the card)
   → TMFG by ``cfg.method`` (``core/tmfg.py``): lazy, with the top-K
@@ -17,24 +17,27 @@ and no ``device="cpu"`` it raises.  ``fused`` keeps the reference's
 meaning as far as an eager program has one (DESIGN.md §12.2, §12.4): the
 default runs every stage back to back with no sync between them besides
 the ones the algorithm needs (one per T captured lazy-TMFG steps, one per
-Bellman-Ford round) and one device->host copy at the end; ``fused=False`` synchronises
-after each stage and reports per-stage seconds.  Both give bitwise the
-same result.
+Bellman-Ford round) and one device->host copy at the end;
+``fused=False`` synchronises after each stage and reports per-stage
+seconds.  Both give bitwise the same result.
 
-``PipelineConfig.approx()`` (``similarity="topk"``) never builds the
-(n, n) similarity: the default runs ``core/fused_approx.py`` (top-K
-kernel, sparse TMFG, sparse hub APSP with the relaxation kernel, the
-sparse DBHT tail); ``fused=False`` runs the staged form the reference
-runs -- the table, the sparse TMFG, the weighted adjacency and the dense
-tail above -- and is also where a fused run whose clusters overflow the
-reference's slot caps is rerun.
+``PipelineConfig.approx()`` (``similarity="topk"``) and
+``apsp_method="sparse"`` run, by default, the body of
+``core/fused_approx.py`` (the top-K kernel or the dense S, the TMFG, the
+sparse hub APSP with the relaxation kernel, the sparse DBHT tail, which
+never forms (n, n)).  ``fused=False`` runs the staged form the reference
+runs -- the table (or S), the TMFG, then ``dbht.run_dbht``: the sparse
+tail of ``core/sparse_dbht.py`` or the dense tail -- and is where a fused
+run whose clusters overflow the reference's slot caps is rerun, and the
+only path for ``dbht_impl="host"`` (the numpy oracle) and
+``reuse_tmfg=``.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -60,9 +63,42 @@ class ClusterResult:
     dbht: dbht_mod.DBHTResult          # tensors on the run's device
     edge_sum: float
     timings: Dict[str, float] = field(default_factory=dict)
+    # True when the TMFG was carried over (cluster(reuse_tmfg=...)) rather
+    # than built on this similarity
+    reused_tmfg: bool = False
 
     def labels_at(self, k: int) -> np.ndarray:
         return self.dbht.labels(k)
+
+
+@dataclass
+class BatchClusterResult:
+    """Results for a batch: ``labels`` stacks the flat assignments
+    (B_out, n); ``results`` holds each entry's :class:`ClusterResult`."""
+
+    labels: np.ndarray                     # (B_out, n)
+    results: List[ClusterResult]
+    timings: Dict[str, float] = field(default_factory=dict)
+
+    def __len__(self) -> int:
+        return len(self.results)
+
+    def __getitem__(self, b: int) -> ClusterResult:
+        return self.results[b]
+
+    def __iter__(self):
+        return iter(self.results)
+
+
+def resolve_variant(variant: Optional[str], *, method: str = "lazy",
+                    prefix: int = 10, topk: int = 64,
+                    apsp_method: str = "hub"):
+    """The kwarg-era shim: (method, prefix, topk, apsp_method) for a named
+    variant, or the values given when ``variant`` is None, through
+    :meth:`PipelineConfig.resolve`."""
+    cfg = PipelineConfig.resolve(variant, method=method, prefix=prefix,
+                                 topk=topk, apsp_method=apsp_method)
+    return cfg.method, cfg.prefix, cfg.topk, cfg.apsp_method
 
 
 def resolve_device(device=None) -> torch.device:
@@ -105,50 +141,172 @@ class _Stages:
         self._t = now
 
 
-def cluster(X=None, *, S=None, k: Optional[int] = None,
+def _needs_approx_body(cfg: PipelineConfig) -> bool:
+    """Configs whose fused form is ``core/fused_approx.py``'s body (the
+    reference's rule; the port runs no other filter than the TMFG)."""
+    return cfg.similarity == "topk" or cfg.apsp_method == "sparse"
+
+
+def _setup(cfg: PipelineConfig, fused: Optional[bool], can_fuse: bool,
+           refusal: str, mesh, moments, device):
+    """The checks every entry point makes; returns (fused, device)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (the multi-device funnel) is not ported to repro_torch "
+            "yet; see ROADMAP.md Queue 1 item 14")
+    if moments is not None:
+        raise NotImplementedError(
+            "moments= (streaming window co-moments) is not ported to "
+            "repro_torch yet; see ROADMAP.md Queue 1 item 12")
+    check_ported(cfg)
+    dev = resolve_device(device)
+    if fused is None:
+        fused = can_fuse
+    elif fused and not can_fuse:
+        raise ValueError(refusal)
+    return bool(fused), dev
+
+
+_FUSED_REFUSAL = (
+    "fused=True requires dbht_impl='device', no reuse_tmfg and a "
+    "device-buildable filter (the staged path is the host-oracle/"
+    "warm-start mode and the only path for the host-orchestrated "
+    "filter='pmfg', DESIGN.md §18.3; fused=False also remains the "
+    "per-stage-timings mode, DESIGN.md §12.4)")
+_BATCH_FUSED_REFUSAL = (
+    "fused=True requires dbht_impl='device' and a device-buildable "
+    "filter (the staged path is the host-oracle mode and the only "
+    "path for the host-orchestrated filter='pmfg', DESIGN.md "
+    "§18.3; fused=False also remains the per-stage-timings mode, "
+    "DESIGN.md §12.4)")
+
+
+def cluster(X=None, *, S=None, moments=None, k: Optional[int] = None,
             config: Optional[PipelineConfig] = None,
-            fused: Optional[bool] = None, device=None,
+            method: Optional[str] = None, prefix: Optional[int] = None,
+            topk: Optional[int] = None, apsp_method: Optional[str] = None,
+            backend: Optional[str] = None, variant: Optional[str] = None,
+            reuse_tmfg=None, dbht_impl: Optional[str] = None,
+            fused: Optional[bool] = None, mesh=None, device=None,
             collect_timings: bool = False) -> ClusterResult:
     """Cluster time series X (n, L) — or a precomputed similarity S — with
     TMFG-DBHT.  ``k`` cuts the dendrogram into k flat clusters (default:
     the number of converging bubbles).
 
     ``config`` selects the stages (default ``PipelineConfig()``, the
-    paper's OPT-TDBHT); values this slice has not ported raise
-    NotImplementedError.  ``device`` defaults to CUDA.  With
-    ``collect_timings`` the result's ``timings`` hold ``total`` seconds
-    (and, with ``fused=False``, ``similarity``, ``tmfg``, ``apsp``,
-    ``dbht`` and ``hac``), plus the counts ``tmfg_pops``,
+    paper's OPT-TDBHT); the loose ``method/prefix/topk/apsp_method/
+    backend/variant/dbht_impl`` kwargs resolve through
+    :meth:`PipelineConfig.resolve` instead (combining them with
+    ``config=`` raises ValueError).  Values this slice has not ported
+    raise NotImplementedError, as do ``mesh=`` and ``moments=``.
+    ``reuse_tmfg`` (a ``TMFGResult``) skips the TMFG construction and
+    reruns only the DBHT stage on it, staged; with
+    ``similarity="topk"`` it needs ``S=``.  ``device`` defaults to CUDA.
+
+    With ``collect_timings`` the result's ``timings`` hold ``total``
+    seconds (and, with ``fused=False``, ``similarity``, ``tmfg``,
+    ``apsp``, ``dbht`` and ``hac``), plus the counts ``tmfg_pops``,
     ``tmfg_host_syncs`` and ``apsp_rounds`` (Bellman-Ford rounds; 0 on
-    the exact path), and for the approx configs ``sim_fallbacks``,
+    the exact path), and for the lazy approx configs ``sim_fallbacks``,
     ``sim_fallback_rate`` and ``sim_pair_misses``.
     """
-    cfg = config if config is not None else PipelineConfig()
-    check_ported(cfg)
-    dev = resolve_device(device)
-    fused = True if fused is None else bool(fused)
-    if cfg.similarity == "topk":
-        return _cluster_approx(X, S, k, cfg, fused, dev, collect_timings)
-    t0 = time.perf_counter()
-    st = _Stages(dev, fenced=not fused)
+    cfg = PipelineConfig.resolve(
+        variant, config, method=method, prefix=prefix, topk=topk,
+        apsp_method=apsp_method, backend=backend, dbht_impl=dbht_impl)
+    fused, dev = _setup(
+        cfg, fused, cfg.dbht_impl == "device" and reuse_tmfg is None,
+        _FUSED_REFUSAL, mesh, moments, device)
+    run = _run_one(X, S, cfg, fused, dev, reuse_tmfg, collect_timings)
+    return _finish(run, k)
 
-    if S is not None:
-        S = _as_f32(S, dev)
-    elif X is not None:
-        S = ops.pearson(_as_f32(X, dev), backend=cfg.backend)
-    else:
+
+class _Run(NamedTuple):
+    """One entry's outputs before the host copy of its linkage."""
+
+    res: dbht_mod.DBHTResult
+    tm: TMFGResult
+    timings: Dict[str, float]
+    reused: bool
+
+
+def _run_one(X, S, cfg: PipelineConfig, fused: bool, dev: torch.device,
+             reuse_tmfg, collect_timings: bool) -> _Run:
+    """One matrix through the fused or the staged pipeline, up to the
+    DBHT result on the device."""
+    if S is None and X is None:
         raise ValueError("need X or S")
+    have_S = S is not None
+    arr = _as_f32(S if have_S else X, dev)
+    n = arr.shape[0]
+    t0 = time.perf_counter()
+    if fused and _needs_approx_body(cfg):
+        core = fa_mod.fused_one(cfg, have_S, n)(arr)
+        if core["overflow"]:
+            # the reference's slot caps cannot hold these clusters: the
+            # staged path sizes its blocks per cluster, so rerun there
+            return _run_one(X, S, cfg, False, dev, None, collect_timings)
+        tm = core["tmfg"]
+        res = dbht_mod._result_from_device(core)
+        res.hubs = core["hubs"]
+        timings = {}
+        if collect_timings:
+            timings = _timings(_Stages(dev, fenced=False), t0, tm,
+                               core["tmfg_host_syncs"], core["bf_rounds"])
+            if core["counters"] is not None:
+                timings.update(_sim_counts(core["counters"]))
+        return _Run(res, tm, timings, False)
+
+    st = _Stages(dev, fenced=not fused)
+    approx = cfg.similarity == "topk"
+    if approx and reuse_tmfg is not None and not have_S:
+        raise ValueError(
+            "similarity='topk' with reuse_tmfg needs S= or moments=: the "
+            "warm-start splice reruns DBHT on the window's similarities, "
+            "which only exist materialized (DESIGN.md §13)")
+    S = arr if have_S else None
+    table = Zn = counters = w_edges = None
+    if not approx:
+        if S is None:
+            S = ops.pearson(arr, backend=cfg.backend)
+    elif reuse_tmfg is None:
+        kk = min(cfg.sim_k, n - 1)
+        if have_S:
+            table = knn_mod.topk_from_similarity(S, kk)
+        else:
+            table, Zn = knn_mod.topk_pearson_and_z(arr, kk,
+                                                   backend=cfg.backend)
     st.done("similarity")
 
-    tm, syncs = _build(prepare_similarity(S), cfg.method, cfg.prefix,
-                       cfg.topk, cfg.backend)
+    syncs = 0
+    if reuse_tmfg is not None:
+        tm = type(reuse_tmfg)(*(f.to(dev) for f in reuse_tmfg))
+    elif approx and cfg.method == "lazy":
+        sst = {}
+        tm, w_edges, counters = sparse_tmfg_mod.build_tmfg_sparse(
+            table, Xn=Zn, S=S, stats=sst)
+        syncs = sst["host_syncs"]
+        if S is None and cfg.apsp_method != "sparse":
+            # the sparse tail takes w_edges itself; the others gather
+            # from the weighted adjacency
+            S = adjacency_from_weights(n, tm.edges, w_edges)
+    else:
+        if approx:
+            # non-lazy methods run on the densified table (§13.3)
+            S = knn_mod.densify(table, n=n)
+        tm, syncs = _build(prepare_similarity(S), cfg.method, cfg.prefix,
+                           cfg.topk, cfg.backend)
+    del table, Zn
     st.done("tmfg")
 
-    core, rounds = dbht_mod.dense_tail(S, tm, cfg, done=st.done)
-    out = _finish(dbht_mod._result_from_device(core), tm, k)
+    stats = {}
+    res = dbht_mod.run_dbht(S, tm, cfg, impl=cfg.dbht_impl,
+                            edge_weights=w_edges, done=st.done, stats=stats)
+    timings = {}
     if collect_timings:
-        out.timings = _timings(st, t0, tm, syncs, rounds)
-    return out
+        timings = _timings(st, t0, tm, syncs, stats.get("bf_rounds", 0))
+        if counters is not None:
+            timings.update(_sim_counts(counters))
+    return _Run(res, tm, timings, reuse_tmfg is not None)
 
 
 def _timings(st: _Stages, t0: float, tm: TMFGResult, syncs: int,
@@ -163,71 +321,82 @@ def _timings(st: _Stages, t0: float, tm: TMFGResult, syncs: int,
     return timings
 
 
-def _finish(res: dbht_mod.DBHTResult, tm: TMFGResult,
-            k: Optional[int]) -> ClusterResult:
-    """The result with the linkage on the host (the one bulk transfer,
-    which waits for the device) and the labels cut there."""
-    n = res.cluster_of.shape[0]
-    linkage = res.linkage.cpu().numpy()          # the one bulk transfer
-    kk = k if k is not None else int(res.converging.shape[0])
-    labels = hac_mod.cut_linkage(linkage, n, kk)
-    return ClusterResult(labels=labels, linkage=linkage, tmfg=tm, dbht=res,
-                         edge_sum=float(tm.edge_sum))
-
-
-def _cluster_approx(X, S, k, cfg: PipelineConfig, fused: bool,
-                    dev: torch.device, collect_timings: bool):
-    """``similarity="topk"``: the fused body of ``core/fused_approx.py``,
-    or, with ``fused=False`` (and after a fused run that overflowed the
-    slot caps, as the reference does), the staged path -- the table, the
-    sparse TMFG, the weighted adjacency and the dense tail."""
-    if S is None and X is None:
-        raise ValueError("need X or S")
-    have_S = S is not None
-    arr = _as_f32(S if have_S else X, dev)
-    n = arr.shape[0]
-    t0 = time.perf_counter()
-    if fused:
-        core = fa_mod.fused_one(cfg, have_S, n)(arr)
-        if core["overflow"]:
-            return _cluster_approx(X, S, k, cfg, False, dev,
-                                   collect_timings)
-        tm = core["tmfg"]
-        res = dbht_mod._result_from_device(core)
-        res.hubs = core["hubs"]
-        out = _finish(res, tm, k)
-        if collect_timings:
-            out.timings = _timings(_Stages(dev, fenced=False), t0, tm,
-                                   core["tmfg_host_syncs"], core["bf_rounds"])
-            out.timings.update(_sim_counts(core["counters"]))
-        return out
-
-    st = _Stages(dev, fenced=True)
-    kk = min(cfg.sim_k, n - 1)
-    if have_S:
-        S, Zn = arr, None
-        table = knn_mod.topk_from_similarity(S, kk)
-    else:
-        table, Zn = knn_mod.topk_pearson_and_z(arr, kk, backend=cfg.backend)
-    st.done("similarity")
-    sst = {}
-    tm, w_edges, counters = sparse_tmfg_mod.build_tmfg_sparse(
-        table, Xn=Zn, S=S, stats=sst)
-    del table, Zn
-    if S is None:
-        S = adjacency_from_weights(n, tm.edges, w_edges)
-    st.done("tmfg")
-    core, rounds = dbht_mod.dense_tail(S, tm, cfg, done=st.done)
-    out = _finish(dbht_mod._result_from_device(core), tm, k)
-    if collect_timings:
-        out.timings = _timings(st, t0, tm, sst["host_syncs"], rounds)
-        out.timings.update(_sim_counts(counters))
-    return out
-
-
 def _sim_counts(counters) -> Dict[str, float]:
     """The sparse construction's diagnostics, as the reference reports
     them in ``timings``."""
     return {"sim_fallbacks": float(counters.fallbacks),
             "sim_fallback_rate": counters.fallbacks / max(counters.lookups, 1),
             "sim_pair_misses": float(counters.pair_misses)}
+
+
+def _finish(run: _Run, k: Optional[int],
+            linkage: Optional[np.ndarray] = None) -> ClusterResult:
+    """The result with the linkage on the host (by default its own copy,
+    which waits for the device) and the labels cut there."""
+    res = run.res
+    n = res.cluster_of.shape[0]
+    if linkage is None:
+        linkage = res.linkage.cpu().numpy()          # the one bulk transfer
+    kk = k if k is not None else int(res.converging.shape[0])
+    labels = hac_mod.cut_linkage(linkage, n, kk)
+    return ClusterResult(labels=labels, linkage=linkage, tmfg=run.tm,
+                         dbht=res, edge_sum=float(run.tm.edge_sum),
+                         timings=run.timings, reused_tmfg=run.reused)
+
+
+def cluster_batch(X=None, *, S=None, k: Optional[int] = None,
+                  config: Optional[PipelineConfig] = None,
+                  method: Optional[str] = None, prefix: Optional[int] = None,
+                  topk: Optional[int] = None,
+                  apsp_method: Optional[str] = None,
+                  backend: Optional[str] = None,
+                  variant: Optional[str] = None, mesh=None,
+                  limit: Optional[int] = None,
+                  dbht_impl: Optional[str] = None,
+                  fused: Optional[bool] = None, device=None,
+                  collect_timings: bool = False) -> BatchClusterResult:
+    """Cluster a batch of datasets X (B, n, L) — or similarities
+    S (B, n, n) — with the stages :func:`cluster` takes (``config`` or
+    the loose kwargs, ``fused``, ``device``); entry b is bitwise
+    ``cluster(X[b], ...)``, fused and staged.
+
+    The entries run one after another on the device; the linkages of the
+    first ``limit`` entries (all by default) come to the host in one
+    copy at the end, and only those are cut and returned.  Entries past
+    ``limit`` (the pads of a bucketed micro-batch) do device work only.
+    Running the batch as one captured program is later performance work
+    (ROADMAP Queue 1 item 6).  ``timings`` holds the batch's ``total``
+    seconds and, with ``collect_timings``, the other keys of the entries'
+    timings summed over the batch (each result keeps its own).
+    """
+    cfg = PipelineConfig.resolve(
+        variant, config, method=method, prefix=prefix, topk=topk,
+        apsp_method=apsp_method, backend=backend, dbht_impl=dbht_impl)
+    fused, dev = _setup(cfg, fused, cfg.dbht_impl == "device",
+                        _BATCH_FUSED_REFUSAL, mesh, None, device)
+    if S is None and X is None:
+        raise ValueError("need X or S")
+    have_S = S is not None
+    arr = _as_f32(S if have_S else X, dev)
+    if arr.ndim != 3:
+        raise ValueError(f"batched input must be 3-D, got {tuple(arr.shape)}")
+    if limit is not None and limit < 1:
+        raise ValueError(f"limit must be >= 1, got {limit}")
+    B = arr.shape[0]
+    B_out = B if limit is None else min(limit, B)
+    t0 = time.perf_counter()
+    runs = [_run_one(None if have_S else arr[b], arr[b] if have_S else None,
+                     cfg, fused, dev, None, collect_timings)
+            for b in range(B)]
+    Z = torch.stack([r.res.linkage for r in runs[:B_out]]).cpu().numpy()
+    results = [_finish(runs[b], k, Z[b]) for b in range(B_out)]
+    timings = {}
+    if collect_timings:
+        for r in runs:
+            for key, v in r.timings.items():
+                if key != "sim_fallback_rate":
+                    timings[key] = timings.get(key, 0.0) + v
+    timings["total"] = time.perf_counter() - t0
+    return BatchClusterResult(
+        labels=np.stack([r.labels for r in results]), results=results,
+        timings=timings)

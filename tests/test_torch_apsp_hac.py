@@ -67,8 +67,8 @@ def test_apsp_dispatch():
     exact = tapsp.apsp_exact(_t(W))
     assert torch.equal(tapsp.apsp(_t(W), method="hub"), exact)  # n < 200
     assert torch.equal(tapsp.apsp(_t(W), method="exact"), exact)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tapsp.apsp(_t(W), method="sparse")
+    assert torch.equal(tapsp.apsp(_t(W), method="sparse"),
+                       tapsp.apsp_sparse(_t(W)))
     assert tapsp.HUB_MIN_N == japsp.HUB_MIN_N
     for n in (1, 9, 48, 19412):
         assert tapsp.hub_count(n) == japsp.hub_count(n)

@@ -647,3 +647,50 @@ def test_cuda_masked_argmax_on_all_neg_inf_rows(cuda):
         vk, ik = ops.masked_argmax(S_d, m_d, backend="cuda")
         vp, ip = ref.masked_argmax_ref(S_d, m_d)
         assert torch.equal(vk, vp) and torch.equal(ik, ip)
+
+
+@pytest.mark.cuda
+def test_cuda_dbht_sparse_backends_agree_bitwise(cuda):
+    """The staged sparse tail through the relaxation, min-plus and
+    masked-argmax kernels equals the plain path on the card, given one S
+    and TMFG: device and host impls, and the tree mode above hac_max."""
+    from repro_torch.core import build_tmfg, sparse_dbht
+    X, _ = make_dataset(500, 46, 5, noise=0.5, seed=6)
+    S = ops.pearson(torch.from_numpy(X).to(cuda), backend="torch")
+    tm = build_tmfg(S, topk=64)
+    fields = ("linkage", "cluster_of", "bubble_of", "converging",
+              "direction", "apsp")
+    for kw in ({}, {"impl": "host"}, {"hac_max": 64}):
+        ops.reset_launch_counts()
+        stats = {}
+        rc = sparse_dbht.dbht_sparse(S, tm, backend="cuda", stats=stats, **kw)
+        counts = ops.launch_counts()
+        rt = sparse_dbht.dbht_sparse(S, tm, backend="torch", **kw)
+        for f in fields:
+            assert torch.equal(getattr(rc, f), getattr(rt, f)), (kw, f)
+        assert counts["sparse_relax"] == stats["bf_rounds"] > 0
+        assert counts["minplus"] >= 1 and counts["masked_argmax"] > 0
+    if rc.hubs is not None:
+        assert torch.equal(rc.hubs, rt.hubs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("apsp_method", ["hub", "sparse"])
+def test_cuda_cluster_batch_backends_agree_bitwise(cuda, apsp_method):
+    """Each ``cluster_batch`` entry on the card is the single ``cluster``
+    of that entry, fused and staged, and the ``cuda`` backend is bitwise
+    the ``torch`` backend on one S."""
+    from repro_torch.core import cluster_batch
+    Xb = np.stack([make_dataset(500, 46, 5, noise=0.5, seed=s)[0]
+                   for s in range(2)])
+    Sb = torch.stack([ops.pearson(torch.from_numpy(x).to(cuda),
+                                  backend="torch") for x in Xb])
+    cfg = PipelineConfig.opt(backend="cuda").replace(apsp_method=apsp_method)
+    bt = cluster_batch(S=Sb, k=5, config=cfg.replace(backend="torch"))
+    for fused in (True, False):
+        bc = cluster_batch(S=Sb, k=5, config=cfg, fused=fused)
+        for b in range(2):
+            one = cluster(S=Sb[b], k=5, config=cfg, fused=fused)
+            np.testing.assert_array_equal(bc[b].linkage, one.linkage)
+            np.testing.assert_array_equal(bc[b].linkage, bt[b].linkage)
+            np.testing.assert_array_equal(bc[b].labels, bt[b].labels)

@@ -120,7 +120,7 @@ def test_dbht_entry_point_equals_jax():
 def test_dbht_refuses_unported_and_conflicting_knobs():
     S, tm, _ = _inputs("clustered", 24, 64, "exact")
     St, ttm = torch.from_numpy(S), interop.tmfg_from_numpy(tm, "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tdbht.dbht(St, ttm, impl="host")
     with pytest.raises(ValueError, match="conflicts"):
         tdbht.dbht(St, ttm, config=PipelineConfig(), apsp_method="exact")
+    with pytest.raises(ValueError, match="unknown DBHT impl"):
+        tdbht.dbht(St, ttm, impl="gpu")

@@ -100,8 +100,8 @@ def test_similarity_from_timeseries_on_cpu(data):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("apsp_method", "sparse", "Queue 1 item 8"),
-    ("dbht_impl", "host", "Queue 1 item 5"),
+    ("filter", "pmfg", "Queue 1 item 10"),
+    ("filter", "ag", "Queue 1 item 10"),
     ("filter", "mst", "Queue 1 item 10"), ("clean", "rmt", "Queue 1 item 10")])
 def test_unported_knobs_raise_with_their_roadmap_item(data, field, value,
                                                       item):
