@@ -112,6 +112,31 @@ Phases (any failure exits non-zero; no phase is skipped):
    config take the cuda run's TMFG: that builder launches no kernel).
    The phase's seconds are logged.
 
+9. Filters and sketch pools: (a) at full width on phase 4's X,
+   ``cluster`` with ``PipelineConfig.mst(clean="rmt")`` and with
+   ``filter="ag"``, fused, counts reset just before and read just after
+   each: exactly n - 1 (a spanning tree, by a host union-find) or 3n - 6
+   distinct canonical edges, the AG's m-th weight at or above every
+   unpicked upper-triangle entry (one device count), one Pearson launch,
+   n - 1 masked-argmax launches and one relaxation launch per
+   Bellman-Ford round; k labels and a monotone finite linkage; the
+   stage seconds (the eigh's as "clean"), the peak bytes and the ARI
+   logged; then ``candidate_pools(X, 256, dim=64)`` (one top-K launch)
+   and ``rescore_pools(X, pools, 64)``, the rescored table's index recall
+   against the exact top-64 table logged, and the top-K kernel timed at
+   the sketch's shape.  (b) at n = 2000 (at CBF's n where the projected
+   finish passes 600 s): fused against staged from X, bitwise, for mst
+   and ag with and without RMT and the TMFG with RMT; on one S the
+   ``cuda`` backend bitwise the ``torch`` backend for each filter under
+   each APSP method; ``cluster_batch`` on 4 series sets with mst and ag,
+   each entry bitwise ``cluster(X[b])``; ``candidate_pools`` on the card
+   a stable top-k of the Pearson kernel's rows of its sketch and sharing
+   at least 99.9% of its candidates with the same call on the CPU (one
+   seed's R comes from a CPU generator; the two sketches round otherwise
+   in the last bits); ``compare_to_dense`` logged.  PMFG needs networkx,
+   which the GPU machine lacks, and is held on the CPU only.  The
+   phase's seconds are logged.
+
 The line before the last is the JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.  The script needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero
@@ -167,6 +192,16 @@ PARITY_S = 150.0
 # REPEAT_DATASET's n where it would take the script past the budget
 SPARSE_S = 90.0
 SPARSE_B_S = 100.0
+# phase 9 (the filters and the sketch pools): its expected seconds in all
+# (two Crop runs with a full HAC each, about 15 s, the eigh about 4 s, and
+# about 50 s at n = PARITY_N), and
+# those of its n = PARITY_N part (9b), which runs at REPEAT_DATASET's n
+# where it would take the script past the budget
+FILTER_S = 90.0
+FILTER_B_S = 60.0
+# the sketch pools at full width: pool size and sketch width
+POOL = 256
+POOL_DIM = 64
 
 
 def fail(msg: str) -> None:
@@ -262,7 +297,8 @@ def main() -> None:
 
     import numpy as np
 
-    from repro_torch.approx import knn, sparse_tmfg
+    from repro_torch.approx import knn, project, sparse_tmfg
+    from repro_torch.approx.quality import compare_to_dense
     from repro_torch.core import (PipelineConfig, adjusted_rand_index,
                                   cluster, cluster_batch, cut_linkage)
     from repro_torch.core import fused_approx as fa_mod
@@ -935,7 +971,8 @@ def main() -> None:
     # the budget, then at REPEAT_DATASET size (with its own default run)
     rep = name
     projected = (time.perf_counter() - t_start
-                 + (1.1 + APPROX_PER_DENSE) * total + PARITY_S + SPARSE_S)
+                 + (1.1 + APPROX_PER_DENSE) * total + PARITY_S + SPARSE_S
+                 + FILTER_S)
     if projected > STAGED_BUDGET_S:
         rep = REPEAT_DATASET
         log(f"[main] projected finish {projected:.1f} s > {STAGED_BUDGET_S}"
@@ -1012,7 +1049,7 @@ def main() -> None:
         f"{peak_a} B, ARI vs generator {ari_a:.4f}, vs dense {ari_ad:.4f}")
     Xs, ks, rep_a = X_np, k, name
     projected = (time.perf_counter() - t_start + 1.1 * total_a + PARITY_S
-                 + SPARSE_S)
+                 + SPARSE_S + FILTER_S)
     if projected > STAGED_BUDGET_S and name != REPEAT_DATASET:
         rep_a = REPEAT_DATASET
         _, Xs, _, ks = make_ucr_like(rep_a, seed=args.seed)
@@ -1271,7 +1308,7 @@ def main() -> None:
 
     # 8b. n = PARITY_N, at REPEAT_DATASET's n where the budget needs it
     n8 = PARITY_N
-    projected = time.perf_counter() - t_start + SPARSE_B_S
+    projected = time.perf_counter() - t_start + SPARSE_B_S + FILTER_S
     if projected > STAGED_BUDGET_S:
         n8 = [e for e in UCR_SIZES if e[0] == REPEAT_DATASET][0][1]
         log(f"[sparse] projected finish {projected:.1f} s > "
@@ -1421,18 +1458,255 @@ def main() -> None:
     log(f"[time] sparse phase done at {time.perf_counter() - t_start:.1f} s"
         f" ({sparse_s:.1f} s)")
 
+    # ---- 9. the filters and the sketch pools ----------------------------
+    t9 = time.perf_counter()
+    X = torch.from_numpy(X_np).to(dev)
+
+    def union_find_tree(E_, nn):
+        """Whether the (nn - 1, 2) host edges form a spanning tree."""
+        par = list(range(nn))
+
+        def find(x):
+            while par[x] != x:
+                par[x] = par[par[x]]
+                x = par[x]
+            return x
+        for a, b in E_:
+            ra, rb = find(int(a)), find(int(b))
+            if ra == rb:
+                return False
+            par[ra] = rb
+        return len(E_) == nn - 1
+
+    # 9a. at full width on phase 4's X: the MST with RMT cleaning and the
+    # AG, fused, counts reset just before and read just after each
+    filt_runs, filt_launches = {}, {}
+    for what, cfg9 in (("mst-rmt", PipelineConfig.mst(clean="rmt")),
+                       ("ag", PipelineConfig.opt().replace(filter="ag"))):
+        sync()
+        base9 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r9 = cluster(X_np, k=k, config=cfg9, collect_timings=True)
+        sync()
+        run_s = time.perf_counter() - t0
+        l9 = ops.launch_counts()
+        peak9 = torch.cuda.max_memory_allocated() - base9
+        t9m = r9.timings
+        E9 = r9.tmfg.edges.long()
+        m9 = n - 1 if cfg9.filter == "mst" else 3 * n - 6
+        check(tuple(E9.shape) == (m9, 2)
+              and bool((E9[:, 0] < E9[:, 1]).all())
+              and int(torch.unique(E9[:, 0] * n + E9[:, 1]).numel()) == m9,
+              f"{what}: not {m9} distinct canonical edges")
+        extra = {}
+        if cfg9.filter == "mst":
+            check(union_find_tree(E9.cpu().numpy().tolist(), n),
+                  f"{what}: the edges are not a spanning tree")
+        else:
+            # the m-th weight is >= every unpicked upper-triangle entry:
+            # S is bitwise symmetric (phase 2), so the upper triangle's
+            # count above it is half the off-diagonal count
+            S9 = ops.pearson(X)
+            wm = r9.tmfg.weights.min()
+            above = int((S9 > wm).sum()) - int((S9.diagonal() > wm).sum())
+            check(above % 2 == 0 and above // 2
+                  == int((r9.tmfg.weights > wm).sum()),
+                  f"{what}: an unpicked pair lies above the {m9}-th weight")
+            extra["components"] = int(r9.dbht.converging.shape[0])
+            del S9
+        check(l9["pearson"] == 1, f"{what}: pearson launches {l9}")
+        check(l9["masked_argmax"] == n - 1,
+              f"{what}: masked_argmax launches {l9} != n-1 = {n - 1}")
+        check(l9["sparse_relax"] == int(t9m["apsp_rounds"]) > 0,
+              f"{what}: sparse_relax launches {l9} != Bellman-Ford rounds "
+              f"{t9m['apsp_rounds']}")
+        check(l9["minplus"] >= 1 and l9["topk"] == 0,
+              f"{what}: launches {l9}")
+        check_linkage(r9.linkage, n, k, r9.labels, what)
+        filt_launches[what] = l9
+        filt_runs[what] = dict(
+            total_s=run_s, stages_s={s_: t9m[s_] for s_ in (
+                "similarity", "clean", "tmfg", "apsp", "dbht", "hac")
+                if s_ in t9m},
+            tail_s=t9m["apsp"] + t9m["dbht"] + t9m["hac"],
+            bf_rounds=int(t9m["apsp_rounds"]),
+            mst_rounds=int(t9m.get("mst_rounds", 0)), launches=l9,
+            peak_bytes=peak9, edge_sum=r9.edge_sum,
+            ari=adjusted_rand_index(y, r9.labels),
+            ari_vs_dense=adjusted_rand_index(dense_labels, r9.labels),
+            **extra)
+        log(f"[filters] {name} n={n} {what}: {json.dumps(filt_runs[what])}")
+        del r9, E9
+        torch.cuda.empty_cache()
+
+    # the sketch pools and their exact rescoring at full width, against
+    # the exact top-K table (phase 5's table, the top-K kernel at (n, L))
+    sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pools = project.candidate_pools(X, POOL, dim=POOL_DIM, seed=args.seed)
+    sync()
+    pools_s = time.perf_counter() - t0
+    l_pool = ops.launch_counts()
+    check(l_pool["topk"] == 1 and sum(l_pool.values()) == 1,
+          f"candidate_pools: launches {l_pool}")
+    check(tuple(pools.shape) == (n, POOL) and not bool(
+        (pools == torch.arange(n, device=dev)[:, None]).any()),
+          "candidate_pools: wrong shape or a self-candidate")
+    t0 = time.perf_counter()
+    table9 = knn.rescore_pools(X, pools, K)
+    sync()
+    rescore_s = time.perf_counter() - t0
+    _, exact_i = topk_pearson_cuda(X, K)
+    hits = sum(int((table9.indices[r0:r0 + 2048, :, None]
+                    == exact_i[r0:r0 + 2048, None, :]).any(-1).sum())
+               for r0 in range(0, n, 2048))
+    recall9 = hits / (n * K)
+    # the rescored values are the exact Pearson values of their pairs,
+    # value descending (checked on the first rows)
+    Zs = ref.standardize_rows(X)
+    r_chk = table9.indices[:2048].long()
+    v_chk = torch.clamp((Zs[:2048, None, :] * Zs[r_chk]).sum(-1), -1.0, 1.0)
+    err9 = float((v_chk - table9.values[:2048]).abs().max())
+    check(err9 <= 1e-5 and bool((table9.values[:, :-1]
+                                 >= table9.values[:, 1:]).all()),
+          f"rescored pools: values off the exact Pearson by {err9}, or "
+          f"not descending")
+    del Zs, r_chk, v_chk
+    filt_launches["pools"] = l_pool
+    # the top-K kernel at the sketch's shape, timed
+    sk9 = project.sketch(X, dim=POOL_DIM, seed=args.seed)
+    b_ms, b_by = bound(4 * (n * POOL_DIM + 2 * n) + 8 * n * POOL,
+                       n * (n + 1) * POOL_DIM)
+    entries["topk"]["at_sketch"] = dict(
+        shape=[n, POOL_DIM, POOL],
+        ms=cuda_ms(lambda: topk_pearson_cuda(sk9, POOL), 5),
+        plain_ms=cuda_ms(lambda: ref.topk_pearson_ref(sk9, POOL), 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    pools_a = dict(n=n, pool=POOL, dim=POOL_DIM, k=K, pools_s=pools_s,
+                   rescore_s=rescore_s, index_recall_vs_exact=recall9,
+                   rescore_max_abs_err=err9,
+                   launches=l_pool, topk_at_sketch=entries["topk"][
+                       "at_sketch"])
+    log(f"[filters] {name} n={n} pools: {json.dumps(pools_a)}")
+    del pools, table9, exact_i, sk9, X
+    torch.cuda.empty_cache()
+    log(f"[time] filters (a) done at {time.perf_counter() - t_start:.1f} s")
+
+    # 9b. n = PARITY_N, at REPEAT_DATASET's n where the budget needs it
+    n9 = PARITY_N
+    projected = time.perf_counter() - t_start + FILTER_B_S
+    if projected > STAGED_BUDGET_S:
+        n9 = [e for e in UCR_SIZES if e[0] == REPEAT_DATASET][0][1]
+        log(f"[filters] projected finish {projected:.1f} s > "
+            f"{STAGED_BUDGET_S} s: phase 9b runs at n={n9} "
+            f"({REPEAT_DATASET} size)")
+    X9 = Xp if n9 == PARITY_N else make_dataset(n9, 46, 8, noise=0.5,
+                                                seed=args.seed + 1)[0]
+    X9d = torch.from_numpy(X9).to(dev)
+    S9t = ops.pearson(X9d, backend="torch")
+    P9 = PipelineConfig
+    cfgs9 = {"mst": P9.mst(), "ag": P9.opt().replace(filter="ag"),
+             "mst-rmt": P9.mst(clean="rmt"),
+             "ag-rmt": P9.opt().replace(filter="ag", clean="rmt"),
+             "tmfg-rmt": P9.opt(clean="rmt")}
+    # fused against staged from X, bitwise
+    for what, cfg9 in cfgs9.items():
+        f9 = cluster(X9, k=8, config=cfg9)
+        s9 = cluster(X9, k=8, config=cfg9, fused=False)
+        check(np.array_equal(f9.linkage, s9.linkage)
+              and np.array_equal(f9.labels, s9.labels),
+              f"{what} n={n9}: fused and staged differ")
+        check_linkage(f9.linkage, n9, 8, f9.labels, f"{what} n={n9}")
+    # the cuda backend against the torch backend on one S, for each
+    # filter under each APSP method
+    back9 = {}
+    for what in ("mst", "ag"):
+        for am in ("exact", "hub", "sparse"):
+            cfg9 = cfgs9[what].replace(apsp_method=am)
+            ops.reset_launch_counts()
+            rc9 = cluster(S=S9t, k=8, config=cfg9.replace(backend="cuda"))
+            lc9 = ops.launch_counts()
+            rt9 = cluster(S=S9t, k=8, config=cfg9.replace(backend="torch"))
+            check(np.array_equal(rc9.linkage, rt9.linkage)
+                  and np.array_equal(rc9.labels, rt9.labels)
+                  and bool(torch.equal(rc9.tmfg.edges, rt9.tmfg.edges)),
+                  f"{what} {am} n={n9}: cuda and torch backends differ on "
+                  f"one S")
+            check(lc9["masked_argmax"] == n9 - 1 and lc9["minplus"] >= 1
+                  and (lc9["sparse_relax"] > 0) == (am != "exact"),
+                  f"{what} {am} n={n9}: launches {lc9}")
+            back9[f"{what}-{am}"] = lc9
+    # cluster_batch on 4 series sets, each entry the single cluster(X[b])
+    Xb9 = np.stack([X9] + [make_dataset(n9, 46, 8, noise=0.5,
+                                        seed=args.seed + 2 + b)[0]
+                           for b in range(3)])
+    batch9 = {}
+    for what in ("mst", "ag"):
+        sync()
+        t0 = time.perf_counter()
+        bb9 = cluster_batch(Xb9, k=8, config=cfgs9[what])
+        sync()
+        batch9[what] = time.perf_counter() - t0
+        for b in range(4):
+            one = cluster(Xb9[b], k=8, config=cfgs9[what])
+            check(np.array_equal(bb9[b].linkage, one.linkage)
+                  and np.array_equal(bb9.labels[b], one.labels),
+                  f"cluster_batch {what} entry {b} differs from cluster()")
+    # candidate_pools on the card against the same call on the CPU: one R
+    # (a CPU generator); the card's pools a stable top-k of the Pearson
+    # kernel's rows of its sketch; the CPU's sketch rounds otherwise in
+    # the last bits, which can reorder a near-tie
+    pc9 = project.candidate_pools(X9d, POOL, dim=POOL_DIM, seed=args.seed)
+    pt9 = project.candidate_pools(torch.from_numpy(X9), POOL, dim=POOL_DIM,
+                                  seed=args.seed)
+    sk9 = project.sketch(X9d, dim=POOL_DIM, seed=args.seed)
+    sk_err = float((sk9.cpu() - project.sketch(
+        torch.from_numpy(X9), dim=POOL_DIM, seed=args.seed)).abs().max())
+    P9s = pearson_cuda(sk9)
+    P9s.fill_diagonal_(float("-inf"))
+    want9 = torch.sort(P9s, dim=1, descending=True, stable=True)[1]
+    check(bool(torch.equal(pc9, want9[:, :POOL].int())),
+          f"candidate_pools n={n9}: not a stable top-k of the sketch's "
+          f"Pearson kernel rows")
+    pools_equal = bool(torch.equal(pc9.cpu(), pt9))
+    rows_differ9 = int((pc9.cpu() != pt9).any(dim=1).sum())
+    same9 = sum(len(set(a) & set(b)) for a, b in zip(
+        pc9.cpu().numpy().tolist(), pt9.numpy().tolist()))
+    check(sk_err <= 1e-5 and same9 >= 0.999 * n9 * POOL,
+          f"candidate_pools n={n9}: card and CPU differ (sketch "
+          f"{sk_err}, {same9} of {n9 * POOL} candidates shared)")
+    del P9s, want9, sk9
+    q9 = compare_to_dense(X9, sim_k=K, k=8)
+    filters_b = dict(n=n9, fused_staged_bitwise=sorted(cfgs9),
+                     backends_bitwise=back9, batch_s=batch9,
+                     pools_card_cpu_equal=pools_equal,
+                     pools_rows_differ=rows_differ9,
+                     pools_shared=same9, sketch_max_abs_err=sk_err,
+                     compare_to_dense=q9)
+    filter_s = time.perf_counter() - t9
+    log(f"[filters] n={n9}: {json.dumps(filters_b)}")
+    log(f"[time] filter phase done at {time.perf_counter() - t_start:.1f} s"
+        f" ({filter_s:.1f} s)")
+
     dense_kernels = ("pearson", "minplus", "masked_argmax")
     for e in entries.values():
         e["launches"] = (launches_s if e["name"] == "flash_attention_wgmma"
                          else launches_32 if e["name"] == "flash_attention"
                          else launches if e["name"] in dense_kernels
                          else launches_a)[e["name"]]
+        e["filter_launches"] = {w: c[e["name"]]
+                                for w, c in filt_launches.items()}
     main["seconds_in_all"] = time.perf_counter() - t_start
     main["sparse_phase_s"] = sparse_s
+    main["filter_phase_s"] = filter_s
     log(f"[main] {json.dumps(main)}")
     log(f"[approx] {json.dumps(approx)}")
     log(f"[serve] {json.dumps(serve)}")
     log(f"[fp32] {json.dumps(fp32_path)}")
+    log(f"[filters] {json.dumps(filt_runs)}")
     log(smi_line)
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -1,15 +1,16 @@
 """Top-K Pearson candidate tables (DESIGN.md §13.2).
 
-The port of ``repro.approx.knn`` without ``rescore_pools`` (ROADMAP
-Queue 1 item 7).  The tables the sparse TMFG consumes:
+The port of ``repro.approx.knn``.  The tables the sparse TMFG consumes:
 
   * :func:`topk_pearson` -- straight from the series through ``ops.topk``
     (``csrc/topk.cu`` on the card), never holding (n, n);
   * :func:`topk_from_similarity` -- cut from a dense S by a stable
-    descending sort, for callers that already hold S.
+    descending sort, for callers that already hold S;
+  * :func:`rescore_pools` -- exact Pearson rescoring of candidate pools
+    (``project.candidate_pools``), row panel by row panel.
 
-Both order each row by value descending, then index ascending
-(``lax.top_k``'s order), and never list the diagonal.
+Each orders a row by value descending, then index ascending
+(``lax.top_k``'s order), and never lists the diagonal.
 """
 
 from __future__ import annotations
@@ -67,6 +68,39 @@ def topk_from_similarity(S: torch.Tensor, k: int) -> TopKTable:
         v, i = torch.sort(rows, dim=1, descending=True, stable=True)
         vals.append(v[:, :k].contiguous())
         idxs.append(i[:, :k].int())
+    return TopKTable(values=torch.cat(vals), indices=torch.cat(idxs))
+
+
+def rescore_pools(X, pools, k: int) -> TopKTable:
+    """Exact Pearson rescoring of candidate pools ``pools (n, P)`` (P >= k,
+    e.g. from ``project.candidate_pools``): each pool rescored with true
+    Pearson dots, the row itself dropped, reduced to its top-k in the
+    table's (value desc, index asc) order — a sort by candidate index,
+    then a stable sort by value.  k is clamped to P and n - 1.  The
+    (rows, P, L) gathers run in row panels of at most ``_SORT_ELEMS``
+    elements.  The batched dots may round a pair differently from
+    ``topk_pearson``'s by about an ulp, so the two tables agree exactly
+    only where values are well separated, as in the reference."""
+    X = torch.as_tensor(X).float()
+    pools = torch.as_tensor(pools, device=X.device).long()
+    n, P = pools.shape
+    k = min(int(k), P, X.shape[0] - 1)
+    Z = standardize_rows(X)
+    L = Z.shape[1]
+    chunk = max(1, _SORT_ELEMS // max(P * L, 1))
+    vals, idxs = [], []
+    for r0 in range(0, n, chunk):
+        p = pools[r0:r0 + chunk]
+        s = torch.bmm(Z[r0:r0 + chunk, None, :],
+                      Z[p].transpose(1, 2)).squeeze(1)
+        s = torch.clamp(s, -1.0, 1.0)
+        own = torch.arange(r0, r0 + p.shape[0], device=X.device)[:, None]
+        s = s.masked_fill(p == own, NEG)                  # drop self
+        p, by_index = torch.sort(p, dim=1, stable=True)
+        v, by_value = torch.sort(s.gather(1, by_index), dim=1,
+                                 descending=True, stable=True)
+        vals.append(v[:, :k].contiguous())
+        idxs.append(p.gather(1, by_value[:, :k]).int())
     return TopKTable(values=torch.cat(vals), indices=torch.cat(idxs))
 
 

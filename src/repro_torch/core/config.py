@@ -8,10 +8,8 @@ launches the kernel (and raises for a CPU tensor); ``"torch"`` always
 runs the plain version, on whatever device the tensor lies.
 
 Every field and every named variant of the reference is kept, so
-``content_key`` tuples and ``VARIANTS`` agree between the two packages.
-The values this slice of the port does not run yet are accepted here
-and refused where they would be used, by :func:`check_ported`, with a
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``content_key`` tuples and ``VARIANTS`` agree between the two packages,
+and every value of every field runs in the port.
 """
 
 from __future__ import annotations
@@ -207,34 +205,6 @@ class PipelineConfig:
     def replace(self, **changes) -> "PipelineConfig":
         """A copy with ``changes`` applied (frozen-dataclass update)."""
         return dataclasses.replace(self, **changes)
-
-
-# Knob values the reference runs and this slice of the port does not,
-# each with the ROADMAP.md Queue 1 item that ports it.
-_NOT_PORTED = (
-    ("filter", "mst", "Queue 1 item 10 (filters)"),
-    ("filter", "pmfg", "Queue 1 item 10 (filters)"),
-    ("filter", "ag", "Queue 1 item 10 (filters)"),
-    ("clean", "rmt", "Queue 1 item 10 (RMT cleaning)"),
-)
-
-
-def not_ported(field: str, value: str) -> NotImplementedError:
-    """The error for a knob value this slice does not run yet."""
-    for f, v, item in _NOT_PORTED:
-        if (f, v) == (field, value):
-            return NotImplementedError(
-                f"{field}={value!r} is not ported to repro_torch yet; "
-                f"see ROADMAP.md {item}")
-    raise KeyError((field, value))
-
-
-def check_ported(cfg: PipelineConfig) -> None:
-    """Raise NotImplementedError if ``cfg`` needs a part of the pipeline
-    that this slice of the port does not have."""
-    for f, v, _ in _NOT_PORTED:
-        if getattr(cfg, f) == v:
-            raise not_ported(f, v)
 
 
 def check_no_conflict(config: Optional[PipelineConfig], **kwargs) -> None:

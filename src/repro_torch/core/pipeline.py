@@ -31,6 +31,15 @@ tail of ``core/sparse_dbht.py`` or the dense tail -- and is where a fused
 run whose clusters overflow the reference's slot caps is rerun, and the
 only path for ``dbht_impl="host"`` (the numpy oracle) and
 ``reuse_tmfg=``.
+
+``clean="rmt"`` (DESIGN.md §18.2) cleans S by eigenvalue clipping
+(``filters/rmt.py``) after the Pearson stage, on every filter.  A
+non-TMFG ``filter`` (§18) runs, fused and staged, the similarity (and
+the cleaning), the filter's builder (``filters.build_filter``: the MST's
+Borůvka rounds, the AG's top-m, the PMFG's host loop, staged only) and
+the edge-list tail (``filters.filter_tail``: APSP on the filter's edges
+by ``apsp_method``, components, one nested complete linkage) in place of
+the TMFG and DBHT stages.
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ from repro_torch.approx import sparse_tmfg as sparse_tmfg_mod
 from . import dbht as dbht_mod
 from . import fused_approx as fa_mod
 from . import hac as hac_mod
-from .config import VARIANTS, PipelineConfig, check_ported  # noqa: F401
+from .config import VARIANTS, PipelineConfig  # noqa: F401
 from .tmfg import (TMFGResult, _build, adjacency_from_weights,
                    prepare_similarity)
 
@@ -124,27 +133,58 @@ def similarity_from_timeseries(X, *, backend: str = "auto",
 
 
 class _Stages:
-    """Per-stage wall clock, fenced by a device sync when ``fenced``."""
+    """Per-stage wall clock, fenced by a device sync when ``fenced``.
 
-    def __init__(self, dev: torch.device, fenced: bool):
+    With ``events`` an unfenced run on the card records a CUDA event at
+    each stage's end instead (no sync), and :meth:`read` turns them into
+    the seconds between them once the last has completed; on the CPU an
+    unfenced run with ``events`` takes the wall clock (its operations are
+    synchronous)."""
+
+    def __init__(self, dev: torch.device, fenced: bool,
+                 events: bool = False):
         self.dev, self.fenced = dev, fenced
+        self.timed = fenced or events
         self.seconds: Dict[str, float] = {}
         self._t = time.perf_counter()
+        self._marks = None
+        if events and not fenced and dev.type == "cuda":
+            self._marks = [("", self._event())]
+
+    @staticmethod
+    def _event() -> torch.cuda.Event:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
 
     def done(self, name: str) -> None:
-        if not self.fenced:
+        if self._marks is not None:
+            self._marks.append((name, self._event()))
             return
-        if self.dev.type == "cuda":
+        if not self.timed:
+            return
+        if self.fenced and self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)
         now = time.perf_counter()
         self.seconds[name] = now - self._t
         self._t = now
 
+    def read(self) -> Dict[str, float]:
+        """The stage seconds (waiting for the last event, if any)."""
+        if self._marks is not None:
+            self._marks[-1][1].synchronize()
+            for (_, a), (name, b) in zip(self._marks, self._marks[1:]):
+                self.seconds[name] = a.elapsed_time(b) / 1e3
+            self._marks = None
+        return self.seconds
+
 
 def _needs_approx_body(cfg: PipelineConfig) -> bool:
     """Configs whose fused form is ``core/fused_approx.py``'s body (the
-    reference's rule; the port runs no other filter than the TMFG)."""
-    return cfg.similarity == "topk" or cfg.apsp_method == "sparse"
+    reference's rule).  Non-TMFG filters never route here: their sparse
+    APSP runs inside the §18.4 tail on the filter's own edge list."""
+    return cfg.filter == "tmfg" and (cfg.similarity == "topk"
+                                     or cfg.apsp_method == "sparse")
 
 
 def _setup(cfg: PipelineConfig, fused: Optional[bool], can_fuse: bool,
@@ -158,7 +198,6 @@ def _setup(cfg: PipelineConfig, fused: Optional[bool], can_fuse: bool,
         raise NotImplementedError(
             "moments= (streaming window co-moments) is not ported to "
             "repro_torch yet; see ROADMAP.md Queue 1 item 12")
-    check_ported(cfg)
     dev = resolve_device(device)
     if fused is None:
         fused = can_fuse
@@ -179,6 +218,10 @@ _BATCH_FUSED_REFUSAL = (
     "path for the host-orchestrated filter='pmfg', DESIGN.md "
     "§18.3; fused=False also remains the per-stage-timings mode, "
     "DESIGN.md §12.4)")
+_RMT_REFUSAL = (
+    "clean='rmt' needs the raw series X: the Marchenko–Pastur bulk edge "
+    "comes from the (n, T) window shape (DESIGN.md §18.2) — pass X, not "
+    "S/moments")
 
 
 def cluster(X=None, *, S=None, moments=None, k: Optional[int] = None,
@@ -197,24 +240,36 @@ def cluster(X=None, *, S=None, moments=None, k: Optional[int] = None,
     paper's OPT-TDBHT); the loose ``method/prefix/topk/apsp_method/
     backend/variant/dbht_impl`` kwargs resolve through
     :meth:`PipelineConfig.resolve` instead (combining them with
-    ``config=`` raises ValueError).  Values this slice has not ported
-    raise NotImplementedError, as do ``mesh=`` and ``moments=``.
-    ``reuse_tmfg`` (a ``TMFGResult``) skips the TMFG construction and
-    reruns only the DBHT stage on it, staged; with
-    ``similarity="topk"`` it needs ``S=``.  ``device`` defaults to CUDA.
+    ``config=`` raises ValueError).  ``mesh=`` and ``moments=`` raise
+    NotImplementedError.  ``reuse_tmfg`` (a ``TMFGResult``) skips the
+    TMFG construction and reruns only the DBHT stage on it, staged; with
+    ``similarity="topk"`` it needs ``S=``.  ``clean="rmt"`` needs X, and
+    ``filter="pmfg"`` runs staged only (both raise ValueError otherwise,
+    as in the reference).  ``device`` defaults to CUDA.
 
     With ``collect_timings`` the result's ``timings`` hold ``total``
     seconds (and, with ``fused=False``, ``similarity``, ``tmfg``,
-    ``apsp``, ``dbht`` and ``hac``), plus the counts ``tmfg_pops``,
-    ``tmfg_host_syncs`` and ``apsp_rounds`` (Bellman-Ford rounds; 0 on
-    the exact path), and for the lazy approx configs ``sim_fallbacks``,
-    ``sim_fallback_rate`` and ``sim_pair_misses``.
+    ``apsp``, ``dbht`` and ``hac``, and ``clean`` after it with
+    ``clean="rmt"``), plus the counts ``tmfg_pops``, ``tmfg_host_syncs``
+    and ``apsp_rounds`` (Bellman-Ford rounds; 0 on the exact path), and
+    for the lazy approx configs ``sim_fallbacks``, ``sim_fallback_rate``
+    and ``sim_pair_misses``.  A non-TMFG filter reports the stages in
+    both modes (fused: from CUDA events, no sync), "tmfg" timing the
+    filter's build and "dbht" its components, and the counts
+    ``apsp_rounds`` and, for the MST, ``mst_rounds``.
     """
     cfg = PipelineConfig.resolve(
         variant, config, method=method, prefix=prefix, topk=topk,
         apsp_method=apsp_method, backend=backend, dbht_impl=dbht_impl)
+    if cfg.clean == "rmt" and (X is None or S is not None):
+        raise ValueError(_RMT_REFUSAL)
+    if cfg.filter != "tmfg" and reuse_tmfg is not None:
+        raise ValueError(
+            f"reuse_tmfg is the TMFG warm-start splice (DESIGN.md §10); "
+            f"filter={cfg.filter!r} rebuilds its graph per window")
     fused, dev = _setup(
-        cfg, fused, cfg.dbht_impl == "device" and reuse_tmfg is None,
+        cfg, fused, (cfg.dbht_impl == "device" and reuse_tmfg is None
+                     and cfg.filter != "pmfg"),
         _FUSED_REFUSAL, mesh, moments, device)
     run = _run_one(X, S, cfg, fused, dev, reuse_tmfg, collect_timings)
     return _finish(run, k)
@@ -239,6 +294,8 @@ def _run_one(X, S, cfg: PipelineConfig, fused: bool, dev: torch.device,
     arr = _as_f32(S if have_S else X, dev)
     n = arr.shape[0]
     t0 = time.perf_counter()
+    if cfg.filter != "tmfg":
+        return _run_filter(arr, have_S, cfg, fused, dev, collect_timings)
     if fused and _needs_approx_body(cfg):
         core = fa_mod.fused_one(cfg, have_S, n)(arr)
         if core["overflow"]:
@@ -250,8 +307,9 @@ def _run_one(X, S, cfg: PipelineConfig, fused: bool, dev: torch.device,
         res.hubs = core["hubs"]
         timings = {}
         if collect_timings:
-            timings = _timings(_Stages(dev, fenced=False), t0, tm,
-                               core["tmfg_host_syncs"], core["bf_rounds"])
+            timings = _timings(_Stages(dev, fenced=False), t0,
+                               _tmfg_counts(tm, core["tmfg_host_syncs"],
+                                            core["bf_rounds"]))
             if core["counters"] is not None:
                 timings.update(_sim_counts(core["counters"]))
         return _Run(res, tm, timings, False)
@@ -276,6 +334,9 @@ def _run_one(X, S, cfg: PipelineConfig, fused: bool, dev: torch.device,
             table, Zn = knn_mod.topk_pearson_and_z(arr, kk,
                                                    backend=cfg.backend)
     st.done("similarity")
+    if cfg.clean == "rmt":
+        S = _clean(S, arr.shape[-1])
+        st.done("clean")
 
     syncs = 0
     if reuse_tmfg is not None:
@@ -303,21 +364,63 @@ def _run_one(X, S, cfg: PipelineConfig, fused: bool, dev: torch.device,
                             edge_weights=w_edges, done=st.done, stats=stats)
     timings = {}
     if collect_timings:
-        timings = _timings(st, t0, tm, syncs, stats.get("bf_rounds", 0))
+        timings = _timings(st, t0, _tmfg_counts(
+            tm, syncs, stats.get("bf_rounds", 0)))
         if counters is not None:
             timings.update(_sim_counts(counters))
     return _Run(res, tm, timings, reuse_tmfg is not None)
 
 
-def _timings(st: _Stages, t0: float, tm: TMFGResult, syncs: int,
-             rounds: int) -> Dict[str, float]:
-    """Per-stage seconds (staged runs), ``total`` and the loop counts."""
+def _clean(S: torch.Tensor, T: int) -> torch.Tensor:
+    """The RMT cleaning step (§18.2), shared by every path."""
+    from repro_torch.filters import rmt  # lazy: filters imports core
+    return rmt.clean(S, T)
+
+
+def _run_filter(arr: torch.Tensor, have_S: bool, cfg: PipelineConfig,
+                fused: bool, dev: torch.device,
+                collect_timings: bool) -> _Run:
+    """A non-TMFG filter (§18): similarity (and the RMT cleaning), the
+    filter's build and the §18.4 edge-list tail, the same calls fused and
+    staged (staged syncs after each stage)."""
+    from repro_torch import filters as filt  # lazy: filters imports core
+
+    st = _Stages(dev, fenced=not fused, events=collect_timings)
+    t0 = time.perf_counter()
+    S = arr if have_S else ops.pearson(arr, backend=cfg.backend)
+    st.done("similarity")
+    if cfg.clean == "rmt":
+        S = _clean(S, arr.shape[-1])
+        st.done("clean")
+    stats = {}
+    fg = filt.build_filter(S, cfg, stats=stats)
+    st.done("tmfg")
+    core = filt.filter_tail(S, fg, apsp_method=cfg.apsp_method,
+                            apsp_hubs=cfg.apsp_hubs,
+                            apsp_rounds=cfg.apsp_rounds,
+                            backend=cfg.backend, done=st.done, stats=stats)
+    res = dbht_mod._result_from_device(core)
+    timings = {}
+    if collect_timings:
+        st.read()
+        timings = _timings(st, t0, {"apsp_rounds": stats.pop("bf_rounds", 0),
+                                    **stats})
+    return _Run(res, fg, timings, False)
+
+
+def _tmfg_counts(tm: TMFGResult, syncs: int, rounds: int) -> Dict[str, int]:
+    """The TMFG path's loop counts, as ``timings`` reports them."""
+    return {"tmfg_pops": int(tm.pops), "tmfg_host_syncs": syncs,
+            "apsp_rounds": rounds}
+
+
+def _timings(st: _Stages, t0: float,
+             counts: Dict[str, int]) -> Dict[str, float]:
+    """Per-stage seconds (where timed), ``total`` and the loop counts."""
     timings = dict(st.seconds)
     timings["total"] = (sum(st.seconds.values()) if st.fenced
                         else time.perf_counter() - t0)
-    timings["tmfg_pops"] = float(tm.pops)
-    timings["tmfg_host_syncs"] = float(syncs)
-    timings["apsp_rounds"] = float(rounds)
+    timings.update({key: float(v) for key, v in counts.items()})
     return timings
 
 
@@ -372,7 +475,10 @@ def cluster_batch(X=None, *, S=None, k: Optional[int] = None,
     cfg = PipelineConfig.resolve(
         variant, config, method=method, prefix=prefix, topk=topk,
         apsp_method=apsp_method, backend=backend, dbht_impl=dbht_impl)
-    fused, dev = _setup(cfg, fused, cfg.dbht_impl == "device",
+    if cfg.clean == "rmt" and (X is None or S is not None):
+        raise ValueError(_RMT_REFUSAL)
+    fused, dev = _setup(cfg, fused,
+                        cfg.dbht_impl == "device" and cfg.filter != "pmfg",
                         _BATCH_FUSED_REFUSAL, mesh, None, device)
     if S is None and X is None:
         raise ValueError("need X or S")

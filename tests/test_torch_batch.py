@@ -239,6 +239,3 @@ def test_unported_hooks_raise_with_their_roadmap_item():
         tcore.cluster(moments=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         tcore.cluster_batch(X[None], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tcore.cluster_batch(X[None], config=tcore.PipelineConfig(
-            filter="mst"), device="cpu")

@@ -694,3 +694,64 @@ def test_cuda_cluster_batch_backends_agree_bitwise(cuda, apsp_method):
             np.testing.assert_array_equal(bc[b].linkage, one.linkage)
             np.testing.assert_array_equal(bc[b].linkage, bt[b].linkage)
             np.testing.assert_array_equal(bc[b].labels, bt[b].labels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filt,ag_m", [("mst", 0), ("ag", 0), ("ag", 100)])
+@pytest.mark.parametrize("apsp_method", ["exact", "hub", "sparse"])
+def test_cuda_filters_backends_agree_bitwise(cuda, filt, ag_m, apsp_method):
+    """Each filter's tail through the min-plus, relaxation and
+    masked-argmax kernels equals the plain path on the card, given one S
+    (n = 256: the hub path runs from 200 up); an AG of 100 edges
+    shatters into components."""
+    n = 256
+    X, _ = make_dataset(n, 46, 4, noise=0.7, seed=8)
+    S = ops.pearson(torch.from_numpy(X).to(cuda), backend="torch")
+    cfg = PipelineConfig.opt(backend="cuda").replace(
+        filter=filt, ag_m=ag_m, apsp_method=apsp_method)
+    ops.reset_launch_counts()
+    rc = cluster(S=S, k=4, config=cfg, collect_timings=True)
+    counts = ops.launch_counts()
+    rt = cluster(S=S, k=4, config=cfg.replace(backend="torch"))
+    np.testing.assert_array_equal(rc.linkage, rt.linkage)
+    np.testing.assert_array_equal(rc.labels, rt.labels)
+    assert torch.equal(rc.tmfg.edges, rt.tmfg.edges)
+    assert torch.equal(rc.dbht.apsp, rt.dbht.apsp)
+    assert counts["masked_argmax"] == n - 1
+    assert counts["minplus"] >= 1 and counts["pearson"] == 0
+    assert counts["sparse_relax"] == int(rc.timings["apsp_rounds"])
+    assert (counts["sparse_relax"] > 0) == (apsp_method != "exact")
+    if ag_m:
+        assert int(rc.dbht.converging.shape[0]) > 1
+
+
+@pytest.mark.cuda
+def test_cuda_candidate_pools_match_the_cpu_call(cuda):
+    """One seed draws one R (a CPU generator) for the card and the CPU;
+    the card's pools are bitwise a stable top-k of the Pearson kernel's
+    rows of the card's sketch, and the CPU call's pools hold the same
+    candidates but where the two sketches' last-bit roundings reorder a
+    near-tie; rescoring on the card is the CPU's table."""
+    from repro_torch.approx import knn, project
+    from repro_torch.kernels.pearson import pearson_cuda
+    n, pool, dim = 1000, 64, 32
+    X, _ = make_dataset(n, 46, 5, noise=0.5, seed=9)
+    Xc = torch.from_numpy(X).to(cuda)
+    ops.reset_launch_counts()
+    pc = project.candidate_pools(Xc, pool, dim=dim, seed=5)
+    assert ops.launch_counts()["topk"] == 1
+    pt = project.candidate_pools(torch.from_numpy(X), pool, dim=dim, seed=5)
+    sk = project.sketch(Xc, dim=dim, seed=5)
+    np.testing.assert_allclose(sk.cpu().numpy(), project.sketch(
+        torch.from_numpy(X), dim=dim, seed=5).numpy(), rtol=0, atol=1e-5)
+    P = pearson_cuda(sk)
+    P.fill_diagonal_(float("-inf"))
+    want = torch.sort(P, dim=1, descending=True, stable=True)[1][:, :pool]
+    assert torch.equal(pc, want.int())
+    same = sum(len(set(a) & set(b)) for a, b in zip(
+        pc.cpu().numpy().tolist(), pt.numpy().tolist()))
+    assert same >= 0.999 * n * pool
+    rc = knn.rescore_pools(Xc, pc, 16)
+    rt = knn.rescore_pools(torch.from_numpy(X), pc.cpu(), 16)
+    np.testing.assert_allclose(rc.values.cpu().numpy(), rt.values.numpy(),
+                               rtol=0, atol=1e-6)

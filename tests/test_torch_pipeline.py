@@ -99,16 +99,28 @@ def test_similarity_from_timeseries_on_cpu(data):
     np.testing.assert_allclose(got.numpy(), S, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("filter", "pmfg", "Queue 1 item 10"),
-    ("filter", "ag", "Queue 1 item 10"),
-    ("filter", "mst", "Queue 1 item 10"), ("clean", "rmt", "Queue 1 item 10")])
-def test_unported_knobs_raise_with_their_roadmap_item(data, field, value,
-                                                      item):
+@pytest.mark.parametrize("field,value", [
+    ("filter", "pmfg"), ("filter", "ag"), ("filter", "mst"),
+    ("clean", "rmt")])
+def test_filter_knobs_match_reference(data, field, value):
+    """Every knob value of the filter matrix runs on the CPU with the
+    reference's labels and merge structure (heights within 1e-4 from X,
+    the rule above)."""
+    if value == "pmfg":
+        pytest.importorskip("networkx")
     X, _, _ = data
+    X = X[:32]
     cfg = tcore.PipelineConfig().replace(**{field: value})
-    with pytest.raises(NotImplementedError, match=item):
-        tcore.cluster(X, k=4, config=cfg, device="cpu")
+    want = jcore.cluster(X, k=4, config=jcore.PipelineConfig().replace(
+        **{field: value}))
+    got = tcore.cluster(X, k=4, config=cfg, device="cpu")
+    np.testing.assert_array_equal(got.labels, want.labels)
+    np.testing.assert_array_equal(got.linkage[:, [0, 1, 3]],
+                                  np.asarray(want.linkage)[:, [0, 1, 3]])
+    np.testing.assert_allclose(got.linkage[:, 2],
+                               np.asarray(want.linkage)[:, 2], atol=1e-4)
+    np.testing.assert_array_equal(got.tmfg.edges.numpy(),
+                                  np.asarray(want.tmfg.edges))
 
 
 def test_approx_config_runs_on_cpu_and_needs_a_card_by_default(data):
