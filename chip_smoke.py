@@ -66,8 +66,10 @@ Phases (any failure exits non-zero; no phase is skipped):
 5. Approx path: ``cluster(X, k, config=PipelineConfig.approx(sim_k=64))``
    fused, counts reset just before and read just after: one top-K
    launch, one sparse-relaxation launch per Bellman-Ford round, masked
-   argmax in the per-cluster HAC, no slot overflow, peak device memory
-   below one (n, n) float32 matrix, k labels, a monotone finite
+   argmax in the per-cluster HAC, no slot overflow, the call evicting
+   phase 4's cached dense program, peak device memory below one (n, n)
+   float32 matrix (beside that program until its eviction, and after
+   it), k labels, a monotone finite
    linkage, ARI against the generator and the dense labels; then
    ``fused=False`` for per-stage seconds, counts and microseconds per
    pop, and whether its linkage equals the fused one (at CBF size, with
@@ -77,10 +79,13 @@ Phases (any failure exits non-zero; no phase is skipped):
    bitwise-equal linkage on one S (OPT, HEAP with its exact squarings,
    and approx), agreeing labels (ARI >= 0.99) from one X, and at
    sim_k = n-1 the sparse TMFG from X is bitwise the dense OPT TMFG.
-7. TMFG loops at n = 2000: the captured lazy loop bitwise the same step
-   run eagerly (``lazy_build(..., graph=False)``) for the dense source
-   with the top-64 table, without it, and the table-first source from
-   Z, each within the host-sync cap; CORR and PAR-10 through
+7. TMFG loops at n = 2000: for the dense source with the top-64 table,
+   without it, and the table-first source from Z, the cached loop
+   program (the main path's: ``dense_program``, ``sparse_lazy_tmfg``)
+   on one input, then replayed on a second input bitwise the same step
+   run eagerly (``lazy_build``) and building nothing, then replayed on
+   the first input bitwise its first run, each within the host-sync
+   cap; CORR and PAR-10 through
    ``cluster()`` on the ``cuda`` backend bitwise the ``torch`` backend
    (the masked-argmax kernel in every CORR step and ORIG round against
    ``masked_argmax_ref``), counts reset just before and read just after
@@ -137,6 +142,28 @@ Phases (any failure exits non-zero; no phase is skipped):
    which the GPU machine lacks, and is held on the CPU only.  The
    phase's seconds are logged.
 
+10. Streaming tier: ``ClusterService(n=1000, window=512, k=4,
+   config=PipelineConfig.opt(), recluster_every=16)`` (the paper-sized
+   window of ``benchmarks/bench_stream.py``; at n = 400, its service
+   scenario's n, where the projected finish passes 600 s) on ticks from
+   ``make_dataset``: the window filled and reclustered, one warm-up
+   cadence, then 96 ticks (6 reclusters) in which no loop program is
+   built and the watchdog stays silent; microseconds per tick (and of
+   the push alone), milliseconds per recluster, warm hits, cache hits;
+   ``window_similarity`` within 1e-5 of the Pearson kernel on the
+   materialized window; the fused ``cluster(moments=state)`` bitwise
+   ``cluster(S=window_similarity(state))``; a replayed
+   ``run_pipeline_device`` building nothing and ``clear_compiled()``
+   lowering ``torch.cuda.memory_allocated()``; an admission service at
+   n = 256 whose ``cluster_batch`` fails twice (an injected clock): the
+   breaker opens, the degraded lane answers with labels, ``healthz()``
+   says so, and after the cooldown one probe closes it; ``profile()``
+   writing a non-empty trace file; and a replayed fused ``cluster()``
+   with tracing off making no ``device_wait`` and no
+   ``torch.cuda.synchronize`` call.  Phase 4 also logs the Crop loop
+   program's bytes, its build and capture times, and the bytes the
+   cache holds after the Crop calls.
+
 The line before the last is the JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.  The script needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero
@@ -186,7 +213,7 @@ PARITY_N = 2000
 REPEAT_DATASET = "CBF"
 STAGED_BUDGET_S = 600.0
 APPROX_PER_DENSE = 3.0
-PARITY_S = 150.0
+PARITY_S = 190.0
 # phase 8 (the sparse tail and the batch entry points): its expected
 # seconds in all, and those of its n = PARITY_N part (8b), which runs at
 # REPEAT_DATASET's n where it would take the script past the budget
@@ -202,6 +229,19 @@ FILTER_B_S = 60.0
 # the sketch pools at full width: pool size and sketch width
 POOL = 256
 POOL_DIM = 64
+# phase 10 (the streaming tier): its expected seconds in all, added to
+# every projection above; the paper-sized scenario of
+# benchmarks/bench_stream.py (n series, a rolling window of STREAM_W
+# ticks, a recluster every STREAM_EVERY ticks, STREAM_TICKS timed ticks),
+# at STREAM_N_SMALL (its service scenario's n) where the projected finish
+# passes the budget; the admission service's n
+STREAM_S = 45.0
+STREAM_N = 1000
+STREAM_N_SMALL = 400
+STREAM_W = 512
+STREAM_EVERY = 16
+STREAM_TICKS = 96
+ADMISSION_N = 256
 
 
 def fail(msg: str) -> None:
@@ -300,7 +340,8 @@ def main() -> None:
     from repro_torch.approx import knn, project, sparse_tmfg
     from repro_torch.approx.quality import compare_to_dense
     from repro_torch.core import (PipelineConfig, adjusted_rand_index,
-                                  cluster, cluster_batch, cut_linkage)
+                                  clear_compiled, cluster, cluster_batch,
+                                  cut_linkage, jitcache, run_pipeline_device)
     from repro_torch.core import fused_approx as fa_mod
     from repro_torch.core import sparse_dbht
     from repro_torch.core import tmfg as tmfg_mod
@@ -966,13 +1007,27 @@ def main() -> None:
         f"{int(t['tmfg_pops'])}, tmfg host syncs {int(t['tmfg_host_syncs'])}, "
         f"hub Bellman-Ford rounds {int(t['apsp_rounds'])}, launches "
         f"{launches}, peak memory {peak} B, ARI vs generator labels {ari:.4f}")
+    # the cached lazy program at Crop: its buffers' bytes, its build and
+    # the capture that a replay no longer pays
+    crop_prog = tmfg_mod.dense_program(n, tmfg_mod.table_width(cfg.topk, n),
+                                       dev)
+    check(crop_prog.runs == 1 and crop_prog.graph is not None,
+          f"dense: the Crop loop program ran {crop_prog.runs} times")
+    cache_main = dict(program_bytes=crop_prog.nbytes(),
+                      jitcache_bytes=jitcache.nbytes(),
+                      s_buffer_bytes=n * n * 4,
+                      build_ms=crop_prog.build_s * 1e3,
+                      capture_ms=crop_prog.capture_s * 1e3,
+                      peak_bytes=peak)
+    log(f"[cache] Crop dense: {json.dumps(cache_main)}")
+    del crop_prog
 
     # the staged repeat, at the dataset's size unless the projection passes
     # the budget, then at REPEAT_DATASET size (with its own default run)
     rep = name
     projected = (time.perf_counter() - t_start
                  + (1.1 + APPROX_PER_DENSE) * total + PARITY_S + SPARSE_S
-                 + FILTER_S)
+                 + FILTER_S + STREAM_S)
     if projected > STAGED_BUDGET_S:
         rep = REPEAT_DATASET
         log(f"[main] projected finish {projected:.1f} s > {STAGED_BUDGET_S}"
@@ -1005,20 +1060,52 @@ def main() -> None:
                 bf_rounds=int(t["apsp_rounds"]), launches=launches,
                 peak_bytes=peak, ari=ari)
     del res2
+    # the bytes the program cache holds after the Crop calls (the program
+    # of the last call's shape; phase 10 reads clear_compiled())
+    sync()
+    cache_main.update(jitcache_bytes_end=jitcache.nbytes(),
+                      entries_end=jitcache.size(),
+                      allocated_end=torch.cuda.memory_allocated())
+    main["cache"] = cache_main
+    log(f"[cache] after the Crop calls: {json.dumps(cache_main)}")
     torch.cuda.empty_cache()
     log(f"[time] dense phase done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 5. the approx path --------------------------------------------
+    # the cache still holds phase 4's last dense program; the approx
+    # call's program miss evicts it (jitcache.evict, wrapped here to read
+    # the peak from that point on as well as over the whole call)
     cfg_a = PipelineConfig.approx(sim_k=K)
     sync()
+    held_a = jitcache.nbytes()
+    real_evict = jitcache.evict
+    peaks_a = []
+
+    def evict_and_read(pred):
+        gone = real_evict(pred)
+        peaks_a.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return gone
+    jitcache.evict = evict_and_read
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    ra = cluster(X_np, k=k, config=cfg_a, collect_timings=True)
-    sync()
+    try:
+        ra = cluster(X_np, k=k, config=cfg_a, collect_timings=True)
+        sync()
+    finally:
+        jitcache.evict = real_evict
     total_a = time.perf_counter() - t0
     launches_a = ops.launch_counts()
-    peak_a = torch.cuda.max_memory_allocated()
+    peaks_a.append(torch.cuda.max_memory_allocated())
+    # before the eviction the call's own bytes sit on the held program's;
+    # after it, the peak is the call's alone
+    peak_a = max(peaks_a[:-1], default=0) - held_a
+    peak_a_after = peaks_a[-1]
+    left_a = [k[1] for k in jitcache.keys()]
+    check(len(peaks_a) == 2 and left_a == ["table"],
+          f"approx: {len(peaks_a) - 1} program misses, cache left holding "
+          f"{left_a}, not the call's table program alone")
     ta = ra.timings
     check_syncs(ta, "approx")
     # a slot-grid overflow reruns staged, whose timings carry the stages
@@ -1034,8 +1121,9 @@ def main() -> None:
     # below a few panels' worth of rows the (512, n) sweep panels are
     # themselves a large share of (n, n); the bound is checked from there
     if n >= 8 * 512:
-        check(peak_a < n * n * 4, f"approx: peak memory {peak_a} B >= one "
-              f"(n, n) f32 {n * n * 4} B")
+        check(max(peak_a, peak_a_after) < n * n * 4, f"approx: peak memory "
+              f"{peak_a} B beside the cached program, {peak_a_after} B "
+              f"after its eviction, >= one (n, n) f32 {n * n * 4} B")
     Za = ra.linkage
     check_linkage(Za, n, k, ra.labels, "approx")
     ari_a = adjusted_rand_index(y, ra.labels)
@@ -1046,10 +1134,12 @@ def main() -> None:
         f"{int(ta['apsp_rounds'])}, fallbacks {int(ta['sim_fallbacks'])} "
         f"(rate {ta['sim_fallback_rate']:.4f}), pair misses "
         f"{int(ta['sim_pair_misses'])}, launches {launches_a}, peak memory "
-        f"{peak_a} B, ARI vs generator {ari_a:.4f}, vs dense {ari_ad:.4f}")
+        f"{peak_a} B beside the cached dense program ({held_a} B, evicted "
+        f"by the call), {peak_a_after} B after, ARI vs generator "
+        f"{ari_a:.4f}, vs dense {ari_ad:.4f}")
     Xs, ks, rep_a = X_np, k, name
     projected = (time.perf_counter() - t_start + 1.1 * total_a + PARITY_S
-                 + SPARSE_S + FILTER_S)
+                 + SPARSE_S + FILTER_S + STREAM_S)
     if projected > STAGED_BUDGET_S and name != REPEAT_DATASET:
         rep_a = REPEAT_DATASET
         _, Xs, _, ks = make_ucr_like(rep_a, seed=args.seed)
@@ -1103,7 +1193,9 @@ def main() -> None:
                   fallbacks=int(ta["sim_fallbacks"]),
                   fallback_rate=ta["sim_fallback_rate"],
                   pair_misses=int(ta["sim_pair_misses"]),
-                  launches=launches_a, peak_bytes=peak_a, ari=ari_a,
+                  launches=launches_a, peak_bytes=peak_a,
+                  peak_bytes_after_eviction=peak_a_after,
+                  cached_bytes_evicted=held_a, ari=ari_a,
                   ari_vs_dense=ari_ad, staged_equal=same_link,
                   staged_merges_equal=same_merges,
                   staged_max_height_diff=height_diff,
@@ -1164,41 +1256,82 @@ def main() -> None:
     log(f"[time] parity phase done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 7. the TMFG device loops at n = 2000 ---------------------------
-    # the captured lazy loop (T steps a CUDA-graph replay) against the same
-    # step run eagerly, for each value source
-    Sq = tmfg_mod.prepare_similarity(Sc)
-    table_q, Zq = knn.topk_pearson_and_z(Xpd, K, backend="cuda")
-    sources = {
-        "dense, top-64 table": lambda: tmfg_mod._Device(
-            Sq, tmfg_mod.candidate_table(Sq, 64)),
-        "dense, full scans": lambda: tmfg_mod._Device(Sq, None),
-        "table-first from Z": lambda: sparse_tmfg._TableSource(
-            table_q.values, table_q.indices, Zq, True)}
+    # the main path's cached loop program (T steps a CUDA-graph replay)
+    # for each value source: a first run on one input, a replay on a
+    # second input against the same step run eagerly on it, and a replay
+    # on the first input against the first run
+    from repro_torch.obs import trace as obs_trace
+
+    def loop_inputs(Xd):
+        Sq = tmfg_mod.prepare_similarity(ops.pearson(Xd, backend="cuda"))
+        tq, Zq = knn.topk_pearson_and_z(Xd, K, backend="cuda")
+        return {"dense, top-64 table": (Sq, tmfg_mod.candidate_table(Sq, 64)),
+                "dense, full scans": (Sq, None),
+                "table-first from Z": (tq.values, tq.indices, Zq)}
+
+    def cached_run(what, inp):
+        if what.startswith("table"):
+            st_ = {}
+            r_, w_, c_ = sparse_tmfg.sparse_lazy_tmfg(*inp, from_x=True,
+                                                      stats=st_)
+            return r_, st_["host_syncs"], w_, c_
+        S_, tab_ = inp
+        prog = tmfg_mod.dense_program(PARITY_N, 0 if tab_ is None else 64,
+                                      dev)
+        with prog.lock:
+            prog.d.S.copy_(S_)
+            if tab_ is not None:
+                prog.d.table.copy_(tab_)
+            return prog.run()
+
+    def eager_run(what, inp):
+        d_ = (sparse_tmfg._TableSource(*inp, True) if what.startswith("table")
+              else tmfg_mod._Device(*inp))
+        return tmfg_mod.lazy_build(d_)
+
+    def same_build(a_, b_, what, against):
+        for f in a_[0]._fields:
+            check(bool(torch.equal(getattr(a_[0], f), getattr(b_[0], f))),
+                  f"{what}: the cached program differs from {against} in {f}")
+        check(bool(torch.equal(a_[2], b_[2])) and a_[3] == b_[3],
+              f"{what}: edge values or counters differ from {against}")
+
+    X2, _ = make_dataset(PARITY_N, 46, 8, noise=0.5, seed=args.seed + 2)
+    inputs = (loop_inputs(Xpd), loop_inputs(torch.from_numpy(X2).to(dev)))
     loops = {}
-    for what, source in sources.items():
+    for what in inputs[0]:
         sync()
         t0 = time.perf_counter()
-        got, syncs_g, w_g, c_g = tmfg_mod.lazy_build(source())
+        first = cached_run(what, inputs[0][what])
         sync()
         t1 = time.perf_counter()
-        want, syncs_e, w_e, c_e = tmfg_mod.lazy_build(source(), graph=False)
+        with obs_trace.watch_recompiles() as w7:
+            got = cached_run(what, inputs[1][what])
+            sync()
+            t2 = time.perf_counter()
+            again = cached_run(what, inputs[0][what])
+        check(w7.count == 0, f"{what}: a replay built {w7.count} programs")
         sync()
-        t2 = time.perf_counter()
-        for f in want._fields:
-            check(bool(torch.equal(getattr(got, f), getattr(want, f))),
-                  f"{what}: the captured loop differs from eager steps in {f}")
-        check(bool(torch.equal(w_g, w_e)) and c_g == c_e,
-              f"{what}: captured and eager edge values or counters differ")
-        pq = int(got.pops)
-        check(syncs_g <= math.ceil(pq / tmfg_mod.STEPS_PER_SYNC) + 3,
-              f"{what}: {syncs_g} host syncs for {pq} pops")
-        loops[what] = dict(pops=pq, graph_s=t1 - t0, eager_s=t2 - t1,
-                           graph_syncs=syncs_g, eager_syncs=syncs_e,
-                           fallbacks=c_g.fallbacks,
-                           pair_misses=c_g.pair_misses)
-    log(f"[loops] n={PARITY_N}, T={tmfg_mod.STEPS_PER_SYNC}: captured loop "
-        f"bitwise the eager steps for every source: {json.dumps(loops)}")
-    del Sq, table_q, Zq
+        t3 = time.perf_counter()
+        want = eager_run(what, inputs[1][what])
+        sync()
+        t4 = time.perf_counter()
+        same_build(got, want, what, "eager steps on the second input")
+        same_build(again, first, what, "its first run on the first input")
+        check(not torch.equal(got[2], first[2]),
+              f"{what}: the two inputs gave the same edge values")
+        pq = int(got[0].pops)
+        check(got[1] <= math.ceil(pq / tmfg_mod.STEPS_PER_SYNC) + 3,
+              f"{what}: {got[1]} host syncs for {pq} pops")
+        loops[what] = dict(pops=pq, first_s=t1 - t0, replay_s=t2 - t1,
+                           eager_s=t4 - t3, graph_syncs=got[1],
+                           eager_syncs=want[1], fallbacks=got[3].fallbacks,
+                           pair_misses=got[3].pair_misses)
+    log(f"[loops] n={PARITY_N}, T={tmfg_mod.STEPS_PER_SYNC}: the cached "
+        f"program's replay on a second input bitwise the eager steps, and "
+        f"its replay on the first input bitwise its first run, for every "
+        f"source: {json.dumps(loops)}")
+    del inputs, first, got, again, want
     # CORR and PAR-10 end to end: the masked-argmax kernel in every CORR
     # step and ORIG round against masked_argmax_ref, min-plus and HAC as
     # on the other paths
@@ -1308,7 +1441,8 @@ def main() -> None:
 
     # 8b. n = PARITY_N, at REPEAT_DATASET's n where the budget needs it
     n8 = PARITY_N
-    projected = time.perf_counter() - t_start + SPARSE_B_S + FILTER_S
+    projected = (time.perf_counter() - t_start + SPARSE_B_S + FILTER_S
+                 + STREAM_S)
     if projected > STAGED_BUDGET_S:
         n8 = [e for e in UCR_SIZES if e[0] == REPEAT_DATASET][0][1]
         log(f"[sparse] projected finish {projected:.1f} s > "
@@ -1597,7 +1731,7 @@ def main() -> None:
 
     # 9b. n = PARITY_N, at REPEAT_DATASET's n where the budget needs it
     n9 = PARITY_N
-    projected = time.perf_counter() - t_start + FILTER_B_S
+    projected = time.perf_counter() - t_start + FILTER_B_S + STREAM_S
     if projected > STAGED_BUDGET_S:
         n9 = [e for e in UCR_SIZES if e[0] == REPEAT_DATASET][0][1]
         log(f"[filters] projected finish {projected:.1f} s > "
@@ -1656,9 +1790,10 @@ def main() -> None:
                   and np.array_equal(bb9.labels[b], one.labels),
                   f"cluster_batch {what} entry {b} differs from cluster()")
     # candidate_pools on the card against the same call on the CPU: one R
-    # (a CPU generator); the card's pools a stable top-k of the Pearson
-    # kernel's rows of its sketch; the CPU's sketch rounds otherwise in
-    # the last bits, which can reorder a near-tie
+    # (the seed's threefry stream, drawn on the host); the card's pools a
+    # stable top-k of the Pearson kernel's rows of its sketch; the CPU's
+    # sketch rounds otherwise in the last bits, which can reorder a
+    # near-tie
     pc9 = project.candidate_pools(X9d, POOL, dim=POOL_DIM, seed=args.seed)
     pt9 = project.candidate_pools(torch.from_numpy(X9), POOL, dim=POOL_DIM,
                                   seed=args.seed)
@@ -1691,6 +1826,236 @@ def main() -> None:
     log(f"[time] filter phase done at {time.perf_counter() - t_start:.1f} s"
         f" ({filter_s:.1f} s)")
 
+    # ---- 10. the streaming tier ----------------------------------------
+    import shutil
+
+    from repro_torch import obs
+    from repro_torch.stream import AdmissionConfig, ClusterService
+    from repro_torch.stream import scheduler as sched_mod
+    from repro_torch.stream import window as win
+
+    t10 = time.perf_counter()
+    n10 = STREAM_N
+    projected = time.perf_counter() - t_start + STREAM_S
+    if projected > STAGED_BUDGET_S:
+        n10 = STREAM_N_SMALL
+        log(f"[stream] projected finish {projected:.1f} s > "
+            f"{STAGED_BUDGET_S} s: phase 10 runs at n={n10}")
+    X10, _ = make_dataset(n10, STREAM_W + STREAM_EVERY + STREAM_TICKS, 4,
+                          noise=0.7, seed=1)
+    cfg10 = PipelineConfig.opt()
+    svc = ClusterService(n=n10, window=STREAM_W, k=4, config=cfg10,
+                         recluster_every=STREAM_EVERY)
+    check(svc.state.buf.is_cuda, "stream: the window state is not on the "
+          "card")
+    # fill the window, recluster it, then one warm-up cadence
+    t0 = time.perf_counter()
+    for t_ in range(STREAM_W):
+        svc.tick(X10[:, t_])
+    svc.recluster()
+    for t_ in range(STREAM_W, STREAM_W + STREAM_EVERY):
+        req = svc.tick(X10[:, t_])
+        if req is not None and not req.done:
+            svc.drain()
+    sync()
+    warm_s = time.perf_counter() - t0
+    # the steady state: STREAM_TICKS ticks, a recluster every STREAM_EVERY
+    hits0 = jitcache.stats()["hits"]
+    warm0 = svc.warm_hits
+    tick_s, recl_s = [], []
+    t0 = time.perf_counter()
+    with obs_trace.watch_recompiles() as w10:
+        for t_ in range(STREAM_W + STREAM_EVERY,
+                        STREAM_W + STREAM_EVERY + STREAM_TICKS):
+            a = time.perf_counter()
+            req = svc.tick(X10[:, t_])
+            if req is None:
+                tick_s.append(time.perf_counter() - a)
+                continue
+            if not req.done:
+                svc.drain()
+            check(req.done and req.result.labels.shape == (n10,),
+                  "stream: a recluster did not resolve")
+            recl_s.append(time.perf_counter() - a)
+    sync()
+    steady_s = time.perf_counter() - t0
+    check(w10.count == 0 and w10.recompile_events == 0,
+          f"stream: {w10.count} programs built, {w10.recompile_events} "
+          f"watchdog alarms in the steady state")
+    check(len(recl_s) == STREAM_TICKS // STREAM_EVERY,
+          f"stream: {len(recl_s)} reclusters in {STREAM_TICKS} ticks")
+    check(svc.healthz()["status"] == "ok", f"stream: {svc.healthz()}")
+    svc_hits = jitcache.stats()["hits"] - hits0
+    prog10 = tmfg_mod.dense_program(n10, tmfg_mod.table_width(cfg10.topk,
+                                                              n10), dev)
+    prog_info = dict(program_capture_ms=prog10.capture_s * 1e3,
+                     program_build_ms=prog10.build_s * 1e3,
+                     program_bytes=prog10.nbytes(), program_runs=prog10.runs)
+    del prog10                         # clear_compiled() below frees it
+    # the co-moment similarity against the Pearson kernel on the window
+    st10 = svc._flush_ticks()
+    # the push alone: one block of STREAM_EVERY ticks on the card
+    blk = X10[:, -STREAM_EVERY:]
+    win.window_push_block(st10, blk)
+    sync()
+    a = time.perf_counter()
+    win.window_push_block(st10, blk)
+    sync()
+    push_us = (time.perf_counter() - a) / STREAM_EVERY * 1e6
+    Sw = win.window_similarity(st10)
+    Pw = pearson_cuda(torch.from_numpy(win.materialize(st10).copy()).to(dev))
+    win_err = float((Sw - Pw).abs().max())
+    check(win_err <= 1e-5, f"stream: window_similarity differs from the "
+          f"Pearson kernel by {win_err}")
+    # cluster(moments=) fused is bitwise cluster(S=window_similarity)
+    rm = cluster(moments=st10, k=4, config=cfg10)
+    rs10 = cluster(S=Sw, k=4, config=cfg10)
+    check(np.array_equal(rm.linkage, rs10.linkage)
+          and np.array_equal(rm.labels, rs10.labels),
+          "stream: cluster(moments=) differs from cluster(S=)")
+    # a replayed run_pipeline_device builds nothing; clear_compiled()
+    # gives the programs' memory back
+    run_pipeline_device(Sw, cfg10, is_similarity=True)
+    with obs_trace.watch_recompiles() as w_rpd:
+        out10 = run_pipeline_device(Sw, cfg10, is_similarity=True)
+    sync()
+    check(w_rpd.count == 0, f"stream: a replayed run_pipeline_device "
+          f"built {w_rpd.count} programs")
+    check(bool(torch.equal(out10.linkage.cpu(),
+                           torch.from_numpy(rs10.linkage))),
+          "stream: run_pipeline_device's linkage differs from cluster()'s")
+    del out10, rm, rs10
+    cache_bytes10 = jitcache.nbytes()
+    mem_held10 = torch.cuda.memory_allocated()
+    clear_compiled()
+    mem_cleared10 = torch.cuda.memory_allocated()
+    check(mem_cleared10 < mem_held10, f"stream: clear_compiled() left "
+          f"{mem_cleared10} of {mem_held10} B allocated")
+
+    # the admission front door at ADMISSION_N: a scripted primary-lane
+    # failure run opens the breaker; the degraded lane answers
+    class Clock:
+        def __init__(self):
+            self.t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    clk = Clock()
+    real_batch = sched_mod.pipeline.cluster_batch
+    fails = {"left": 2, "calls": 0}
+
+    def flaky_batch(*a_, **kw_):
+        fails["calls"] += 1
+        if fails["left"] > 0:
+            fails["left"] -= 1
+            raise RuntimeError("scripted compute failure")
+        return real_batch(*a_, **kw_)
+
+    pool = [ops.pearson(torch.from_numpy(make_dataset(
+        ADMISSION_N, 64, 4, noise=0.7, seed=40 + i)[0]).to(dev)).cpu()
+        .numpy() for i in range(4)]
+    asvc = ClusterService(n=ADMISSION_N, window=64, k=4, max_batch=2,
+                          admission=AdmissionConfig(
+                              breaker_failures=2, breaker_cooldown=5.0,
+                              degraded_sim_k=16),
+                          clock=clk)
+    sched_mod.pipeline.cluster_batch = flaky_batch
+    try:
+        tk = [asvc.submit(pool[0])]
+        asvc.drain()
+        tk.append(asvc.submit(pool[1]))
+        asvc.drain()
+        check(asvc.admission.breaker.state == "open",
+              f"admission: breaker {asvc.admission.breaker.state} after "
+              f"two failures")
+        h10 = asvc.healthz()
+        check(h10["status"] == "degraded" and h10["breaker"] == "open",
+              f"admission: healthz {h10}")
+        tk.append(asvc.submit(pool[2]))
+        check(all(t_.done and t_.degraded and t_.mode == "approx"
+                  and t_.result.labels.shape == (ADMISSION_N,)
+                  for t_ in tk), "admission: the degraded lane did not "
+              "answer with labels")
+        clk.t += 5.0
+        tk.append(asvc.submit(pool[3]))
+        asvc.drain()
+        check(tk[-1].done and not tk[-1].degraded
+              and asvc.admission.breaker.state == "closed",
+              "admission: the half-open probe did not close the breaker")
+    finally:
+        sched_mod.pipeline.cluster_batch = real_batch
+    adm10 = dict(n=ADMISSION_N, healthz_open=h10,
+                 degraded_modes=[t_.mode for t_ in tk[:3]],
+                 primary_calls=fails["calls"],
+                 stats=asvc.admission.stats())
+
+    # profile() writes a trace file (of a small call: the trace holds
+    # every launch); the fused cluster() with tracing off waits no more
+    # often than with the tracer's hooks stubbed out
+    Sa = torch.from_numpy(pool[0]).to(dev)
+    prof_dir = HERE / "build" / "obs-profile"
+    with obs.profile(str(prof_dir)) as prof:
+        cluster(S=Sa[:64, :64].contiguous(), k=4, config=cfg10)
+    prof_bytes = Path(prof.trace_path).stat().st_size
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    check(prof_bytes > 0, "profile(): empty trace file")
+    n_spans = len(obs_trace.spans())
+    obs_trace.clear()
+
+    # a replayed fused cluster() with tracing off: its waits counted
+    # through the one wait function and torch's synchronize calls (the
+    # linkage's download is a copy, not one of these)
+    waits = {"device_wait": 0, "synchronize": 0}
+
+    def counted(fn, what):
+        def inner(*a_, **kw_):
+            waits[what] += 1
+            return fn(*a_, **kw_)
+        return inner
+
+    cluster(S=Sa, k=4, config=cfg10)
+    check(not obs_trace.enabled(), "stream: tracing is on")
+    saved = (torch.cuda.synchronize, torch.cuda.Stream.synchronize,
+             torch.cuda.Event.synchronize, obs_trace.device_wait)
+    torch.cuda.synchronize = counted(saved[0], "synchronize")
+    torch.cuda.Stream.synchronize = counted(saved[1], "synchronize")
+    torch.cuda.Event.synchronize = counted(saved[2], "synchronize")
+    obs_trace.device_wait = counted(saved[3], "device_wait")
+    try:
+        cluster(S=Sa, k=4, config=cfg10)
+    finally:
+        (torch.cuda.synchronize, torch.cuda.Stream.synchronize,
+         torch.cuda.Event.synchronize, obs_trace.device_wait) = saved
+    check(waits == {"device_wait": 0, "synchronize": 0},
+          f"stream: the fused cluster() with tracing off waits {waits}")
+    render_lines = len(obs.render().splitlines())
+    stream_s = time.perf_counter() - t10
+    stream = dict(
+        n=n10, window=STREAM_W, every=STREAM_EVERY, ticks=STREAM_TICKS,
+        warmup_s=warm_s, steady_s=steady_s,
+        us_per_tick=steady_s / STREAM_TICKS * 1e6,
+        us_per_buffered_tick=float(np.mean(tick_s)) * 1e6,
+        push_us_per_tick=push_us,
+        ms_per_recluster=float(np.mean(recl_s)) * 1e3,
+        reclusters=len(recl_s), warm_hits=svc.warm_hits - warm0,
+        programs_built_steady=w10.count, jitcache_hits_steady=svc_hits,
+        watchdog_alarms_steady=w10.recompile_events,
+        **prog_info,
+        window_sim_max_abs_err=win_err,
+        jitcache_bytes_before_clear=cache_bytes10,
+        allocated_before_clear=mem_held10,
+        allocated_after_clear=mem_cleared10,
+        admission=adm10, profile_trace_bytes=prof_bytes,
+        profile_spans=n_spans, waits_tracing_off=waits,
+        render_lines=render_lines,
+        phase_s=stream_s)
+    del svc, asvc, st10, Sw, Pw, Sa
+    torch.cuda.empty_cache()
+    log(f"[stream] n={n10}: {json.dumps(stream)}")
+    log(f"[time] stream phase done at {time.perf_counter() - t_start:.1f} s"
+        f" ({stream_s:.1f} s)")
+
     dense_kernels = ("pearson", "minplus", "masked_argmax")
     for e in entries.values():
         e["launches"] = (launches_s if e["name"] == "flash_attention_wgmma"
@@ -1702,11 +2067,13 @@ def main() -> None:
     main["seconds_in_all"] = time.perf_counter() - t_start
     main["sparse_phase_s"] = sparse_s
     main["filter_phase_s"] = filter_s
+    main["stream_phase_s"] = stream_s
     log(f"[main] {json.dumps(main)}")
     log(f"[approx] {json.dumps(approx)}")
     log(f"[serve] {json.dumps(serve)}")
     log(f"[fp32] {json.dumps(fp32_path)}")
     log(f"[filters] {json.dumps(filt_runs)}")
+    log(f"[stream] {json.dumps(stream)}")
     log(smi_line)
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Sparse-similarity TMFG: the lazy construction on a candidate table.
 
 The port of ``repro.approx.sparse_tmfg`` (DESIGN.md §13.3).  It is the
-port's one lazy device loop (``core/tmfg.lazy_build``) with a table-first
+port's one lazy device loop (``core/tmfg.LoopProgram``) with a table-first
 value source in place of the dense S.  The three ways the dense construction
 touches S each get a table-first equivalent:
 
@@ -23,6 +23,11 @@ bitwise the dense one on the same card.  At K < n-1 it is the a-TMFG
 approximation: candidates from the table, values exact.
 
 The result carries the per-edge weights, so the later stages need no S.
+
+The loop is the cached program of (n, K, the exact-value source's shape,
+its kind, T, device) (``core/tmfg.LoopProgram``): the table, its values
+and the source are copied into the program's buffers, and the program
+replays.
 """
 
 from __future__ import annotations
@@ -31,8 +36,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.tmfg import (NEG, SparseCounters, _Source,  # noqa: F401
-                                   lazy_build, panel_row_sums)
+from repro_torch.core.tmfg import (NEG, SparseCounters,  # noqa: F401
+                                   _Source, cached_program,
+                                   panel_row_sums, program_device)
 
 from .knn import TopKTable
 
@@ -99,14 +105,25 @@ def sparse_lazy_tmfg(topv: torch.Tensor, topi: torch.Tensor,
 
     Returns (TMFGResult, edge_weights (3n-6,) f32, SparseCounters);
     ``stats``, if a dict, receives ``host_syncs``."""
-    n = topi.shape[0]
-    if from_x:
-        src = src.float()
-    else:
-        src = src.to(torch.float32, copy=True)
-        src.fill_diagonal_(NEG)
-    res, syncs, w, counters = lazy_build(
-        _TableSource(topv, topi, src, from_x))
+    n, K = topi.shape
+    dev = program_device(topi.device)
+    shape = tuple(src.shape)
+
+    def make_source():
+        return _TableSource(
+            torch.empty((n, K), dtype=torch.float32, device=dev),
+            torch.empty((n, K), dtype=torch.int64, device=dev),
+            torch.empty(shape, dtype=torch.float32, device=dev), from_x)
+
+    prog = cached_program(("table", n, K, shape, from_x), dev, make_source)
+    d = prog.d
+    with prog.lock:
+        d.topv.copy_(topv)
+        d.topi.copy_(topi)
+        d.src.copy_(src)
+        if not from_x:
+            d.src.fill_diagonal_(NEG)
+        res, syncs, w, counters = prog.run()
     if stats is not None:
         stats["host_syncs"] = syncs
     return res, w, counters

@@ -16,18 +16,23 @@ Public API (the reference's names):
   complete_linkage      -- complete-linkage HAC             (module: .hac)
   cluster               -- end-to-end pipeline (OPT-TDBHT by default)
   cluster_batch         -- the pipeline over a batch   (BatchClusterResult)
+  run_pipeline_device   -- the fused pipeline, outputs left on the device
+                           (DeviceOutputs)
+  clear_compiled        -- drop every cached program     (module: .jitcache)
+  ConfigFields          -- kwarg-era accessors over ``self.cfg`` (.config)
   adjusted_rand_index   -- ARI metric                       (module: .ari)
 """
 
-from . import (apsp, ari, config, dbht, hac, pipeline,  # noqa: F401
-               sparse_dbht, tmfg, tmfg_ref)
+from . import (apsp, ari, config, dbht, hac, jitcache,  # noqa: F401
+               pipeline, sparse_dbht, tmfg, tmfg_ref)
 from .apsp import apsp_exact, apsp_hub, edge_lengths  # noqa: F401
 from .ari import ari as adjusted_rand_index  # noqa: F401
-from .config import PipelineConfig, VARIANTS  # noqa: F401
+from .config import ConfigFields, PipelineConfig, VARIANTS  # noqa: F401
 from .dbht import DBHTResult, dbht as run_dbht, dbht_batch  # noqa: F401
 from .hac import complete_linkage, cut_linkage  # noqa: F401
 from .pipeline import (BatchClusterResult, ClusterResult,  # noqa: F401
-                       cluster, cluster_batch, resolve_variant)
+                       DeviceOutputs, clear_compiled, cluster, cluster_batch,
+                       resolve_variant, run_pipeline_device)
 from .sparse_dbht import dbht_sparse  # noqa: F401
 from .tmfg import TMFGResult, build_tmfg, tmfg_adjacency  # noqa: F401
 

@@ -207,6 +207,25 @@ class PipelineConfig:
         return dataclasses.replace(self, **changes)
 
 
+class ConfigFields:
+    """Mixin: kwarg-era read-only accessors delegating to ``self.cfg``.
+
+    The stream layer's request/service objects hold one
+    :class:`PipelineConfig` (``self.cfg``); this mixin keeps the old
+    attribute names (``req.apsp_method`` etc.) readable in one place, as
+    in the reference.
+    """
+
+    _CFG_FIELDS = ("method", "prefix", "topk", "apsp_method",
+                   "backend", "dbht_impl")
+
+    def __getattr__(self, name):
+        if name in ConfigFields._CFG_FIELDS:
+            return getattr(self.cfg, name)
+        raise AttributeError(
+            f"{type(self).__name__!r} object has no attribute {name!r}")
+
+
 def check_no_conflict(config: Optional[PipelineConfig], **kwargs) -> None:
     """Raise if ``config`` is combined with any explicit (non-None) loose
     kwarg: the contract of :meth:`PipelineConfig.resolve`, for the

@@ -66,8 +66,7 @@ from . import apsp as apsp_mod
 from . import dbht as dbht_mod
 from .dbht import euler_tour
 from .sparse_dbht import _sweep_panels, edge_lengths_from_sim, nested_linkage
-from .tmfg import (TMFGResult, _build, adjacency_from_weights,
-                   prepare_similarity)
+from .tmfg import TMFGResult, _build, adjacency_from_weights
 
 # The reference's slot-grid caps (DESIGN.md §17.3): at most c_cap coarse
 # clusters of at most m_cap members, c_cap = max(FUSED_C_CAP, 4 isqrt(n)).
@@ -247,8 +246,8 @@ def fused_one(cfg, have_S: bool, n: int):
 
     def built(S, st):
         """TMFG by ``cfg.method`` on a dense S; its edges' S values."""
-        tm, syncs = _build(prepare_similarity(S), cfg.method, cfg.prefix,
-                           cfg.topk, cfg.backend)
+        tm, syncs = _build(S, cfg.method, cfg.prefix, cfg.topk,
+                              cfg.backend)
         st["host_syncs"] = syncs
         e = tm.edges.long()
         return tm, S[e[:, 0], e[:, 1]]

@@ -32,6 +32,23 @@ run whose clusters overflow the reference's slot caps is rerun, and the
 only path for ``dbht_impl="host"`` (the numpy oracle) and
 ``reuse_tmfg=``.
 
+``moments=`` (a ``repro_torch.stream.window.WindowState``) takes S from
+the rolling window's co-moments (``window_similarity``) in place of the
+Pearson pass, fused and staged.  :func:`run_pipeline_device` runs the
+fused form and leaves every output on the device (:class:`DeviceOutputs`).
+
+Observability (DESIGN.md §15): ``pipeline_stage_seconds{stage=}`` and
+``pipeline_total_seconds{path=}`` histograms, the ``approx_*_total``
+counters, and the spans ``pipeline.fused`` (unfenced: the linkage's
+download is its one sync; with tracing on, its ``pipeline.similarity``,
+``pipeline.tmfg`` and ``pipeline.dbht+apsp`` children come from CUDA
+events, adding no sync) and, staged, the three stage spans, fenced
+through ``obs.trace.device_wait``.  The recompile watchdog remembers
+every fused (config, input kind, shape, device) it has run; a replay of
+one that builds a new loop program (``core/tmfg.LoopProgram``) raises
+its alarm (``obs.trace.record_recompile``).  :func:`clear_compiled`
+drops every cached program and what the watchdog remembers.
+
 ``clean="rmt"`` (DESIGN.md §18.2) cleans S by eigenvalue clipping
 (``filters/rmt.py``) after the Pearson stage, on every filter.  A
 non-TMFG ``filter`` (§18) runs, fused and staged, the similarity (and
@@ -44,6 +61,7 @@ the TMFG and DBHT stages.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional
@@ -52,6 +70,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 from repro_torch.approx import knn as knn_mod
 from repro_torch.approx import sparse_tmfg as sparse_tmfg_mod
@@ -59,9 +79,32 @@ from repro_torch.approx import sparse_tmfg as sparse_tmfg_mod
 from . import dbht as dbht_mod
 from . import fused_approx as fa_mod
 from . import hac as hac_mod
+from . import jitcache
+from . import tmfg as tmfg_mod
 from .config import VARIANTS, PipelineConfig  # noqa: F401
-from .tmfg import (TMFGResult, _build, adjacency_from_weights,
-                   prepare_similarity)
+from .tmfg import TMFGResult, _build, adjacency_from_weights
+
+
+def _observe_stage(stage: str, seconds: float) -> None:
+    """Per-stage latency into the process-global registry (DESIGN.md
+    §15.3), from the staged path's fenced stage clock."""
+    obs_metrics.histogram("pipeline_stage_seconds",
+                          "staged-path per-stage latency (fenced)",
+                          stage=stage).observe(seconds)
+
+
+def _observe_total(path: str, seconds: float) -> None:
+    obs_metrics.histogram("pipeline_total_seconds",
+                          "end-to-end cluster()/cluster_batch() latency",
+                          path=path).observe(seconds)
+
+
+def _observe_counters(counters) -> None:
+    """The approx construction's lookup counts into the registry."""
+    obs_metrics.counter("approx_lookups_total").inc(counters.lookups)
+    obs_metrics.counter("approx_fallbacks_total").inc(counters.fallbacks)
+    obs_metrics.counter("approx_pair_misses_total").inc(
+        counters.pair_misses)
 
 
 @dataclass
@@ -133,7 +176,8 @@ def similarity_from_timeseries(X, *, backend: str = "auto",
 
 
 class _Stages:
-    """Per-stage wall clock, fenced by a device sync when ``fenced``.
+    """Per-stage wall clock, fenced by a device sync when ``fenced``
+    (through ``obs.trace.device_wait``, the one function that waits).
 
     With ``events`` an unfenced run on the card records a CUDA event at
     each stage's end instead (no sync), and :meth:`read` turns them into
@@ -163,8 +207,8 @@ class _Stages:
             return
         if not self.timed:
             return
-        if self.fenced and self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
+        if self.fenced:
+            obs_trace.device_wait(self.dev)
         now = time.perf_counter()
         self.seconds[name] = now - self._t
         self._t = now
@@ -187,17 +231,17 @@ def _needs_approx_body(cfg: PipelineConfig) -> bool:
                                      or cfg.apsp_method == "sparse")
 
 
-def _setup(cfg: PipelineConfig, fused: Optional[bool], can_fuse: bool,
-           refusal: str, mesh, moments, device):
-    """The checks every entry point makes; returns (fused, device)."""
+def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (the multi-device funnel) is not ported to repro_torch "
             "yet; see ROADMAP.md Queue 1 item 14")
-    if moments is not None:
-        raise NotImplementedError(
-            "moments= (streaming window co-moments) is not ported to "
-            "repro_torch yet; see ROADMAP.md Queue 1 item 12")
+
+
+def _setup(cfg: PipelineConfig, fused: Optional[bool], can_fuse: bool,
+           refusal: str, mesh, device):
+    """The checks every entry point makes; returns (fused, device)."""
+    _no_mesh(mesh)
     dev = resolve_device(device)
     if fused is None:
         fused = can_fuse
@@ -232,20 +276,23 @@ def cluster(X=None, *, S=None, moments=None, k: Optional[int] = None,
             reuse_tmfg=None, dbht_impl: Optional[str] = None,
             fused: Optional[bool] = None, mesh=None, device=None,
             collect_timings: bool = False) -> ClusterResult:
-    """Cluster time series X (n, L) — or a precomputed similarity S — with
-    TMFG-DBHT.  ``k`` cuts the dendrogram into k flat clusters (default:
-    the number of converging bubbles).
+    """Cluster time series X (n, L) — or a precomputed similarity S, or
+    the similarity of a rolling window's co-moments ``moments`` (a
+    ``repro_torch.stream.window.WindowState``) — with TMFG-DBHT.  ``k``
+    cuts the dendrogram into k flat clusters (default: the number of
+    converging bubbles).
 
     ``config`` selects the stages (default ``PipelineConfig()``, the
     paper's OPT-TDBHT); the loose ``method/prefix/topk/apsp_method/
     backend/variant/dbht_impl`` kwargs resolve through
     :meth:`PipelineConfig.resolve` instead (combining them with
-    ``config=`` raises ValueError).  ``mesh=`` and ``moments=`` raise
+    ``config=`` raises ValueError).  ``mesh=`` raises
     NotImplementedError.  ``reuse_tmfg`` (a ``TMFGResult``) skips the
     TMFG construction and reruns only the DBHT stage on it, staged; with
-    ``similarity="topk"`` it needs ``S=``.  ``clean="rmt"`` needs X, and
-    ``filter="pmfg"`` runs staged only (both raise ValueError otherwise,
-    as in the reference).  ``device`` defaults to CUDA.
+    ``similarity="topk"`` it needs ``S=`` or ``moments=``.
+    ``clean="rmt"`` needs X, and ``filter="pmfg"`` runs staged only
+    (both raise ValueError otherwise, as in the reference).  ``device``
+    defaults to CUDA.
 
     With ``collect_timings`` the result's ``timings`` hold ``total``
     seconds (and, with ``fused=False``, ``similarity``, ``tmfg``,
@@ -261,7 +308,8 @@ def cluster(X=None, *, S=None, moments=None, k: Optional[int] = None,
     cfg = PipelineConfig.resolve(
         variant, config, method=method, prefix=prefix, topk=topk,
         apsp_method=apsp_method, backend=backend, dbht_impl=dbht_impl)
-    if cfg.clean == "rmt" and (X is None or S is not None):
+    if cfg.clean == "rmt" and (X is None or S is not None
+                               or moments is not None):
         raise ValueError(_RMT_REFUSAL)
     if cfg.filter != "tmfg" and reuse_tmfg is not None:
         raise ValueError(
@@ -270,9 +318,31 @@ def cluster(X=None, *, S=None, moments=None, k: Optional[int] = None,
     fused, dev = _setup(
         cfg, fused, (cfg.dbht_impl == "device" and reuse_tmfg is None
                      and cfg.filter != "pmfg"),
-        _FUSED_REFUSAL, mesh, moments, device)
-    run = _run_one(X, S, cfg, fused, dev, reuse_tmfg, collect_timings)
-    return _finish(run, k)
+        _FUSED_REFUSAL, mesh, device)
+    if S is None and moments is not None:
+        from repro_torch.stream.window import window_similarity  # no cycle
+        S = window_similarity(moments)
+    if S is None and X is None:
+        raise ValueError("need X, S or moments")
+    have_S = S is not None
+    arr = _as_f32(S if have_S else X, dev)
+    if not fused:
+        run = _run_one(arr, have_S, cfg, False, dev, reuse_tmfg,
+                       collect_timings)
+        _observe_staged([run])
+        return _finish(run, k)
+    # fence=False: the linkage's download is the fused path's one sync,
+    # and the span adds none (DESIGN.md §15.1)
+    with obs_trace.span("pipeline.fused", fence=False) as sp:
+        with _watch_replay(cfg, have_S, arr.shape, dev, batched=False):
+            run = _run_one(arr, have_S, cfg, True, dev, None,
+                           collect_timings)
+        out = _finish(run, k)
+        _record_fused_stages([run])
+    _observe_total("fused", sp.duration)
+    if run.counters is not None:
+        _observe_counters(run.counters)
+    return out
 
 
 class _Run(NamedTuple):
@@ -282,16 +352,81 @@ class _Run(NamedTuple):
     tm: TMFGResult
     timings: Dict[str, float]
     reused: bool
+    stages: Optional["_Stages"] = None     # the stage clock, for spans
+    counters: object = None                # SparseCounters (approx)
+    overflow: Optional[bool] = None        # fused approx body: caps hit
 
 
-def _run_one(X, S, cfg: PipelineConfig, fused: bool, dev: torch.device,
-             reuse_tmfg, collect_timings: bool) -> _Run:
-    """One matrix through the fused or the staged pipeline, up to the
-    DBHT result on the device."""
-    if S is None and X is None:
-        raise ValueError("need X or S")
-    have_S = S is not None
-    arr = _as_f32(S if have_S else X, dev)
+_STAGE_SPANS = {"similarity": "similarity", "clean": "similarity",
+                "tmfg": "tmfg"}
+
+
+def _stage_groups(runs) -> Dict[str, float]:
+    """The runs' stage seconds in the reference's three spans:
+    similarity (and the cleaning), tmfg, and dbht+apsp (APSP, DBHT and
+    the HAC)."""
+    groups = {"similarity": 0.0, "tmfg": 0.0, "dbht+apsp": 0.0}
+    for r in runs:
+        if r.stages is None:
+            continue
+        for name, sec in r.stages.read().items():
+            groups[_STAGE_SPANS.get(name, "dbht+apsp")] += sec
+    return groups
+
+
+def _observe_staged(runs) -> None:
+    """The staged path's fenced stage spans, the histograms and the
+    approx counters of its runs."""
+    groups = _stage_groups(runs)
+    for name, sec in groups.items():
+        obs_trace.record_span(f"pipeline.{name}", sec, fenced=True,
+                              batch=len(runs))
+        _observe_stage(name, sec)
+    _observe_total("staged", sum(groups.values()))
+    for r in runs:
+        if r.counters is not None:
+            _observe_counters(r.counters)
+
+
+def _record_fused_stages(runs) -> None:
+    """With tracing on, the fused runs' stage spans (children of the
+    open ``pipeline.fused`` span) from their CUDA events, read after the
+    download has waited for them: no sync is added."""
+    if not obs_trace.enabled():
+        return
+    for name, sec in _stage_groups(runs).items():
+        obs_trace.record_span(f"pipeline.{name}", sec, fenced=False,
+                              batch=len(runs))
+
+
+# the fused (config, input kind, shape, device) keys the watchdog has seen
+_seen_fused: set = set()
+
+
+@contextlib.contextmanager
+def _watch_replay(cfg: PipelineConfig, have_S: bool, shape, dev,
+                  batched: bool):
+    """The recompile watchdog around one fused call (DESIGN.md §15.2): a
+    replay of a (config, input kind, shape, device) key it has seen that
+    builds a loop program anyway raises ``obs.trace.record_recompile``."""
+    key = ("fused", cfg, have_S, batched, tuple(shape),
+           str(tmfg_mod.program_device(dev)))
+    replay = key in _seen_fused
+    _seen_fused.add(key)
+    before = obs_trace.compile_stats()["programs"]
+    yield
+    if replay and obs_trace.compile_stats()["programs"] > before:
+        obs_trace.record_recompile(
+            detail="replayed fused call built a new loop program",
+            shape=str(tuple(shape)), batched=batched)
+
+
+def _run_one(arr: torch.Tensor, have_S: bool, cfg: PipelineConfig,
+             fused: bool, dev: torch.device, reuse_tmfg,
+             collect_timings: bool) -> _Run:
+    """One matrix (X, or S when ``have_S``, float32 on ``dev``) through
+    the fused or the staged pipeline, up to the DBHT result on the
+    device."""
     n = arr.shape[0]
     t0 = time.perf_counter()
     if cfg.filter != "tmfg":
@@ -301,7 +436,8 @@ def _run_one(X, S, cfg: PipelineConfig, fused: bool, dev: torch.device,
         if core["overflow"]:
             # the reference's slot caps cannot hold these clusters: the
             # staged path sizes its blocks per cluster, so rerun there
-            return _run_one(X, S, cfg, False, dev, None, collect_timings)
+            return _run_one(arr, have_S, cfg, False, dev, None,
+                            collect_timings)._replace(overflow=True)
         tm = core["tmfg"]
         res = dbht_mod._result_from_device(core)
         res.hubs = core["hubs"]
@@ -312,63 +448,78 @@ def _run_one(X, S, cfg: PipelineConfig, fused: bool, dev: torch.device,
                                             core["bf_rounds"]))
             if core["counters"] is not None:
                 timings.update(_sim_counts(core["counters"]))
-        return _Run(res, tm, timings, False)
+        return _Run(res, tm, timings, False, counters=core["counters"],
+                    overflow=False)
 
-    st = _Stages(dev, fenced=not fused)
     approx = cfg.similarity == "topk"
     if approx and reuse_tmfg is not None and not have_S:
         raise ValueError(
             "similarity='topk' with reuse_tmfg needs S= or moments=: the "
             "warm-start splice reruns DBHT on the window's similarities, "
             "which only exist materialized (DESIGN.md §13)")
-    S = arr if have_S else None
-    table = Zn = counters = w_edges = None
-    if not approx:
-        if S is None:
-            S = ops.pearson(arr, backend=cfg.backend)
-    elif reuse_tmfg is None:
-        kk = min(cfg.sim_k, n - 1)
-        if have_S:
-            table = knn_mod.topk_from_similarity(S, kk)
+    with contextlib.ExitStack() as hold:
+        st = _Stages(dev, fenced=not fused, events=obs_trace.enabled())
+        S = arr if have_S else None
+        table = Zn = counters = w_edges = prog = None
+        if not approx:
+            if S is None and (cfg.method == "lazy" and cfg.clean == "none"
+                              and reuse_tmfg is None):
+                # the Pearson kernel writes S straight into the cached
+                # lazy program's S buffer, which the TMFG builds on and
+                # the DBHT stage reads: the program is held until then
+                prog = tmfg_mod.dense_program(
+                    n, tmfg_mod.table_width(cfg.topk, n), dev)
+                hold.enter_context(prog.lock)
+                S = ops.pearson(arr, backend=cfg.backend, out=prog.d.S)
+            elif S is None:
+                S = ops.pearson(arr, backend=cfg.backend)
+        elif reuse_tmfg is None:
+            kk = min(cfg.sim_k, n - 1)
+            if have_S:
+                table = knn_mod.topk_from_similarity(S, kk)
+            else:
+                table, Zn = knn_mod.topk_pearson_and_z(arr, kk,
+                                                       backend=cfg.backend)
+        st.done("similarity")
+        if cfg.clean == "rmt":
+            S = _clean(S, arr.shape[-1])
+            st.done("clean")
+
+        syncs = 0
+        if reuse_tmfg is not None:
+            tm = type(reuse_tmfg)(*(f.to(dev) for f in reuse_tmfg))
+        elif approx and cfg.method == "lazy":
+            sst = {}
+            tm, w_edges, counters = sparse_tmfg_mod.build_tmfg_sparse(
+                table, Xn=Zn, S=S, stats=sst)
+            syncs = sst["host_syncs"]
+            if S is None and cfg.apsp_method != "sparse":
+                # the sparse tail takes w_edges itself; the others gather
+                # from the weighted adjacency
+                S = adjacency_from_weights(n, tm.edges, w_edges)
+        elif prog is not None:
+            tm, syncs = tmfg_mod.build_dense(prog)
         else:
-            table, Zn = knn_mod.topk_pearson_and_z(arr, kk,
-                                                   backend=cfg.backend)
-    st.done("similarity")
-    if cfg.clean == "rmt":
-        S = _clean(S, arr.shape[-1])
-        st.done("clean")
+            if approx:
+                # non-lazy methods run on the densified table (§13.3)
+                S = knn_mod.densify(table, n=n)
+            tm, syncs = _build(S, cfg.method, cfg.prefix, cfg.topk,
+                                  cfg.backend)
+        del table, Zn
+        st.done("tmfg")
 
-    syncs = 0
-    if reuse_tmfg is not None:
-        tm = type(reuse_tmfg)(*(f.to(dev) for f in reuse_tmfg))
-    elif approx and cfg.method == "lazy":
-        sst = {}
-        tm, w_edges, counters = sparse_tmfg_mod.build_tmfg_sparse(
-            table, Xn=Zn, S=S, stats=sst)
-        syncs = sst["host_syncs"]
-        if S is None and cfg.apsp_method != "sparse":
-            # the sparse tail takes w_edges itself; the others gather
-            # from the weighted adjacency
-            S = adjacency_from_weights(n, tm.edges, w_edges)
-    else:
-        if approx:
-            # non-lazy methods run on the densified table (§13.3)
-            S = knn_mod.densify(table, n=n)
-        tm, syncs = _build(prepare_similarity(S), cfg.method, cfg.prefix,
-                           cfg.topk, cfg.backend)
-    del table, Zn
-    st.done("tmfg")
-
-    stats = {}
-    res = dbht_mod.run_dbht(S, tm, cfg, impl=cfg.dbht_impl,
-                            edge_weights=w_edges, done=st.done, stats=stats)
+        stats = {}
+        res = dbht_mod.run_dbht(S, tm, cfg, impl=cfg.dbht_impl,
+                                edge_weights=w_edges, done=st.done,
+                                stats=stats)
     timings = {}
     if collect_timings:
         timings = _timings(st, t0, _tmfg_counts(
-            tm, syncs, stats.get("bf_rounds", 0)))
+            tm, syncs, stats.get("bf_rounds", 0)), stages=not fused)
         if counters is not None:
             timings.update(_sim_counts(counters))
-    return _Run(res, tm, timings, reuse_tmfg is not None)
+    return _Run(res, tm, timings, reuse_tmfg is not None,
+                stages=st if st.timed else None, counters=counters)
 
 
 def _clean(S: torch.Tensor, T: int) -> torch.Tensor:
@@ -385,7 +536,8 @@ def _run_filter(arr: torch.Tensor, have_S: bool, cfg: PipelineConfig,
     staged (staged syncs after each stage)."""
     from repro_torch import filters as filt  # lazy: filters imports core
 
-    st = _Stages(dev, fenced=not fused, events=collect_timings)
+    st = _Stages(dev, fenced=not fused,
+                 events=collect_timings or obs_trace.enabled())
     t0 = time.perf_counter()
     S = arr if have_S else ops.pearson(arr, backend=cfg.backend)
     st.done("similarity")
@@ -405,7 +557,7 @@ def _run_filter(arr: torch.Tensor, have_S: bool, cfg: PipelineConfig,
         st.read()
         timings = _timings(st, t0, {"apsp_rounds": stats.pop("bf_rounds", 0),
                                     **stats})
-    return _Run(res, fg, timings, False)
+    return _Run(res, fg, timings, False, stages=st if st.timed else None)
 
 
 def _tmfg_counts(tm: TMFGResult, syncs: int, rounds: int) -> Dict[str, int]:
@@ -414,10 +566,11 @@ def _tmfg_counts(tm: TMFGResult, syncs: int, rounds: int) -> Dict[str, int]:
             "apsp_rounds": rounds}
 
 
-def _timings(st: _Stages, t0: float,
-             counts: Dict[str, int]) -> Dict[str, float]:
-    """Per-stage seconds (where timed), ``total`` and the loop counts."""
-    timings = dict(st.seconds)
+def _timings(st: _Stages, t0: float, counts: Dict[str, int],
+             stages: bool = True) -> Dict[str, float]:
+    """Per-stage seconds (where timed, and ``stages``), ``total`` and the
+    loop counts."""
+    timings = dict(st.seconds) if stages else {}
     timings["total"] = (sum(st.seconds.values()) if st.fenced
                         else time.perf_counter() - t0)
     timings.update({key: float(v) for key, v in counts.items()})
@@ -445,6 +598,131 @@ def _finish(run: _Run, k: Optional[int],
     return ClusterResult(labels=labels, linkage=linkage, tmfg=run.tm,
                          dbht=res, edge_sum=float(run.tm.edge_sum),
                          timings=run.timings, reused_tmfg=run.reused)
+
+
+# ---------------------------------------------------------------------------
+# the fused program's outputs, left on the device (DESIGN.md §12.2)
+# ---------------------------------------------------------------------------
+
+class DeviceOutputs(NamedTuple):
+    """Everything the fused pipeline leaves on the device: the TMFG (or
+    filter graph) tensors plus the DBHT stage outputs, the reference's
+    fields.  Batched runs carry a leading batch axis on every tensor.
+
+    ``direction`` and ``conv_mask`` have one entry per bubble (entry 0,
+    the root's direction, unused); ``apsp`` is the (n, n) distances or,
+    on the sparse tail, the (h, n) hub factor.  The last three fields
+    exist only on the approx/sparse body: ``hubs``, ``overflow`` (a bool
+    tensor: the reference's slot caps were exceeded, and the outputs
+    come from the staged rerun) and ``counters`` (SparseCounters)."""
+
+    tmfg: object
+    direction: torch.Tensor
+    conv_mask: torch.Tensor
+    cluster_of: torch.Tensor
+    bubble_of: torch.Tensor
+    apsp: torch.Tensor
+    linkage: torch.Tensor
+    hubs: Optional[torch.Tensor] = None
+    overflow: Optional[torch.Tensor] = None
+    counters: Optional[object] = None
+
+
+def _device_outputs(run: _Run) -> DeviceOutputs:
+    res = run.res
+    dev = res.linkage.device
+    direction = torch.cat([res.direction.new_zeros(1), res.direction])
+    conv = torch.zeros(direction.shape[0], dtype=torch.bool, device=dev)
+    conv[res.converging.long()] = True
+    return DeviceOutputs(
+        tmfg=run.tm, direction=direction, conv_mask=conv,
+        cluster_of=res.cluster_of, bubble_of=res.bubble_of, apsp=res.apsp,
+        linkage=res.linkage, hubs=res.hubs,
+        overflow=(None if run.overflow is None
+                  else torch.tensor(run.overflow, device=dev)),
+        counters=run.counters)
+
+
+def _stack(items):
+    """Stack a list of like outputs leaf by leaf (tuples field by field)."""
+    first = items[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items)
+    if isinstance(first, tuple):
+        return type(first)(*[_stack(list(f)) for f in zip(*items)])
+    return torch.tensor(items)
+
+
+def run_pipeline_device(X_or_S, config: PipelineConfig, *,
+                        is_similarity: Optional[bool] = None,
+                        batched: Optional[bool] = None, caps=None,
+                        mesh=None, device=None) -> DeviceOutputs:
+    """The fused pipeline with every output left on the device
+    (DESIGN.md §12.2): the same run as ``cluster(..., fused=True)`` up
+    to, and not including, the linkage's download.
+
+    ``X_or_S`` is a time-series matrix ``(n, L)``, a similarity matrix
+    ``(n, n)``, or the batched ``(B, ...)`` form of either;
+    ``is_similarity`` disambiguates (default: square trailing dims mean
+    similarity, checked for symmetry) and ``batched`` defaults to
+    ``ndim == 3`` (the entries run one after another).  Each call's
+    (config, input kind, shape, device) is remembered by the recompile
+    watchdog; a replay that builds a loop program is alarmed through
+    ``obs.trace.record_recompile``.  ``caps`` and ``mesh`` are
+    not ported (the fused approx body takes the reference's caps from
+    n) and raise NotImplementedError.  ``device`` defaults to CUDA."""
+    if config.dbht_impl != "device":
+        raise ValueError(
+            "run_pipeline_device IS the device program; "
+            "config.dbht_impl='host' has no fused form — use "
+            "cluster(..., fused=False) for the numpy oracle")
+    if config.filter == "pmfg":
+        raise ValueError(
+            "filter='pmfg' has no fused form: greedy planarity-checked "
+            "insertion is the host-orchestrated reference (DESIGN.md "
+            "§18.3) — use cluster(..., fused=False)")
+    _no_mesh(mesh)
+    if caps is not None:
+        raise NotImplementedError(
+            "caps= is not ported: the fused approx body takes the "
+            "reference's slot caps from n (fused_approx.fused_caps)")
+    dev = resolve_device(device)
+    arr = _as_f32(X_or_S, dev)
+    if batched is None:
+        batched = arr.ndim == 3
+    square = arr.shape[-1] == arr.shape[-2]
+    if config.clean == "rmt" and (is_similarity
+                                  or (is_similarity is None and square)):
+        raise ValueError(
+            "clean='rmt' needs the raw series X: the Marchenko–Pastur "
+            "bulk edge comes from the (n, T) window shape (DESIGN.md "
+            "§18.2) — a precomputed similarity has no T")
+    if is_similarity is None:
+        is_similarity = square
+        if is_similarity and not bool(
+                (arr - arr.transpose(-1, -2)).abs().le(1e-5).all()):
+            raise ValueError(
+                f"square input {tuple(arr.shape)} is not symmetric, so it "
+                f"is ambiguous: pass is_similarity= explicitly")
+    entries = list(arr) if batched else [arr]
+    with _watch_replay(config, is_similarity, arr.shape, dev, batched):
+        outs = [_device_outputs(_run_one(a, is_similarity, config, True,
+                                         dev, None, False))
+                for a in entries]
+    return _stack(outs) if batched else outs[0]
+
+
+def clear_compiled() -> None:
+    """Drop every cached program (``core/jitcache.clear``): the loop
+    programs' buffers and CUDA graphs are released once no caller holds
+    them, and the allocator's cached blocks go back to the card.  The
+    watchdog forgets its keys, so the next call at each is a first one."""
+    jitcache.clear()
+    _seen_fused.clear()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
 
 
 def cluster_batch(X=None, *, S=None, k: Optional[int] = None,
@@ -479,7 +757,7 @@ def cluster_batch(X=None, *, S=None, k: Optional[int] = None,
         raise ValueError(_RMT_REFUSAL)
     fused, dev = _setup(cfg, fused,
                         cfg.dbht_impl == "device" and cfg.filter != "pmfg",
-                        _BATCH_FUSED_REFUSAL, mesh, None, device)
+                        _BATCH_FUSED_REFUSAL, mesh, device)
     if S is None and X is None:
         raise ValueError("need X or S")
     have_S = S is not None
@@ -491,10 +769,23 @@ def cluster_batch(X=None, *, S=None, k: Optional[int] = None,
     B = arr.shape[0]
     B_out = B if limit is None else min(limit, B)
     t0 = time.perf_counter()
-    runs = [_run_one(None if have_S else arr[b], arr[b] if have_S else None,
-                     cfg, fused, dev, None, collect_timings)
-            for b in range(B)]
-    Z = torch.stack([r.res.linkage for r in runs[:B_out]]).cpu().numpy()
+    with (obs_trace.span("pipeline.fused", fence=False, batch=B) if fused
+          else contextlib.nullcontext()) as sp:
+        with (_watch_replay(cfg, have_S, arr.shape, dev, batched=True)
+              if fused else contextlib.nullcontext()):
+            runs = [_run_one(arr[b], have_S, cfg, fused, dev, None,
+                             collect_timings)
+                    for b in range(B)]
+        Z = torch.stack([r.res.linkage for r in runs[:B_out]]).cpu().numpy()
+        if fused:
+            _record_fused_stages(runs)
+    if fused:
+        _observe_total("fused", sp.duration)
+        for r in runs:
+            if r.counters is not None:
+                _observe_counters(r.counters)
+    else:
+        _observe_staged(runs)
     results = [_finish(runs[b], k, Z[b]) for b in range(B_out)]
     timings = {}
     if collect_timings:

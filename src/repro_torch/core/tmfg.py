@@ -25,15 +25,29 @@ are in -- goes to a trash slot, one extra row of faces, edges, bubbles
 and vertices, cut off at the end.  A step past the end is therefore an
 exact no-op.
 
-:func:`run_loop` drives the lazy step.  On a card it captures
-``STEPS_PER_SYNC`` (T) steps in one CUDA graph and replays it until the
-inserted count, read once per replay, reaches n; on the CPU it runs the
-same step eagerly and reads the count every T steps.  A build makes
+:func:`run_loop` drives the lazy step.  On a card the loop program
+(below) captures ``STEPS_PER_SYNC`` (T) steps in one CUDA graph and
+replays it until the inserted count, read once per replay, reaches n;
+on the CPU, and in :func:`lazy_build`, the same step runs eagerly and
+the count is read every T steps.  A build makes
 about ``ceil(pops / T) + 1`` host syncs (the returned count): the flag
 reads and one download of the edge values and counters.  CORR has a
 fixed step count and reads nothing until the end; ORIG reads the flag
 every ``ORIG_ROUNDS_PER_SYNC`` rounds.  A capture or replay that fails
 raises: there is no host fallback.
+
+The lazy loop is held as a :class:`LoopProgram` in the bounded cache of
+``core/jitcache.py``, keyed by (builder, n, K, T, device), the port's
+counterpart of a cached XLA executable: the source's buffers (S and the
+candidate table for the dense source; the table, its values and the
+exact-value source for the table-first one), the state's buffers and, on
+a card, the CUDA graph captured over them.  A build copies its inputs
+into the buffers (the pipeline's Pearson kernel writes S there
+directly), resets the state in place to what ``_init_state`` gives and
+replays: one capture per shape instead of one per build, bitwise the
+same result.  A program that misses evicts the other programs on its
+device, so the cache holds one set of source buffers per device.
+Building a program counts in ``obs.trace.compile_stats``.
 
 The arithmetic that decides the result is the reference's: face gains
 summed in its order ((s0 + s1) + s2), ties to the lowest index
@@ -46,12 +60,17 @@ from the downloaded per-edge values.
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as obs_trace
+
+from . import jitcache
 
 NEG = float("-inf")
 
@@ -396,21 +415,15 @@ def capture(step, T: int, dev: torch.device) -> torch.cuda.CUDAGraph:
     return graph
 
 
-def run_loop(step, st: _State, n: int, T: Optional[int] = None, *,
-             graph: bool = True) -> int:
+def run_loop(step, st: _State, n: int, T: Optional[int] = None) -> int:
     """Call ``step()`` until all n vertices are inserted; T steps (default
     ``STEPS_PER_SYNC``) per read of the inserted count.  ``step`` must
-    be an exact no-op once the build is complete.
-
-    On a card, with ``graph``, the T steps are one replay of a captured
-    graph (:func:`capture`); otherwise the same step runs eagerly.
-    Returns the number of count reads (host syncs)."""
+    be an exact no-op once the build is complete (a graph's ``replay``
+    with T = 1 runs the captured steps).  Returns the number of count
+    reads (host syncs)."""
     T = STEPS_PER_SYNC if T is None else T
     if n <= 4:
         return 0
-    dev = st.n_inserted.device
-    if graph and dev.type == "cuda":
-        step, T = capture(step, T, dev).replay, 1
     syncs = 0
     while True:
         for _ in range(T):
@@ -451,15 +464,9 @@ def _finish(st: _State, n: int):
     return res, w, (pops, fallbacks, misses)
 
 
-def lazy_build(d: _Source, *, graph: bool = True):
-    """The lazy construction over any value source ``d``; ``graph=False``
-    steps eagerly on a card too (the captured loop's check).
-
-    Returns (TMFGResult, host syncs, per-edge values (3n-6,) float32 in
-    edge order, SparseCounters)."""
-    n = d.n
-    st = _init_state(d)
-    syncs = run_loop(lambda: lazy_step(st, d), st, n, graph=graph)
+def _lazy_result(st: _State, n: int, syncs: int):
+    """(TMFGResult, host syncs with the final download, per-edge values,
+    SparseCounters) of a finished lazy loop."""
     res, w, (pops, fallbacks, misses) = _finish(st, n)
     ins = n - 4
     counters = SparseCounters(
@@ -467,6 +474,152 @@ def lazy_build(d: _Source, *, graph: bool = True):
         pair_lookups=6 + 9 * 4 + 9 * (pops - ins) + (3 + 27) * ins,
         pair_misses=misses)
     return res, syncs + 1, w, counters
+
+
+def lazy_build(d: _Source):
+    """The lazy construction over any value source ``d``, uncached: a
+    fresh state and eager steps, on a card too (the loop program's
+    check).
+
+    Returns (TMFGResult, host syncs, per-edge values (3n-6,) float32 in
+    edge order, SparseCounters)."""
+    n = d.n
+    st = _init_state(d)
+    syncs = run_loop(lambda: lazy_step(st, d), st, n)
+    return _lazy_result(st, n, syncs)
+
+
+def _reset_state(st: _State, d: _Source) -> None:
+    """Set ``st`` back, in place, to what ``_init_state(d)`` gives for
+    the values now in the source's buffers."""
+    d.mask.zero_()
+    fresh = _init_state(d)
+    for mine, new in zip(st, fresh):
+        if mine is not None and mine is not new:
+            mine.copy_(new)
+
+
+def program_device(dev) -> torch.device:
+    """The device a program key names (``cuda`` with its index)."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class LoopProgram:
+    """One lazy loop as a reusable program: the value source ``d`` (its
+    buffers are the program's inputs), the state's buffers and, on a
+    card, the CUDA graph of T steps captured over both — the port's
+    counterpart of a cached XLA executable.
+
+    A caller holds ``lock`` from writing the inputs into ``d``'s buffers
+    until it is done with them (the results of :meth:`run` are copies,
+    so it may let go once it has them); a second caller waits.  The
+    first :meth:`run` initialises the state and captures the graph (one
+    eager step on a side stream, then T captured): the build, counted
+    once in ``obs.trace.compile_stats``.  Every later run resets the
+    state in place and replays."""
+
+    def __init__(self, d: _Source, T: int, alloc_s: float = 0.0):
+        self.d, self.T = d, T
+        self.lock = threading.RLock()
+        self.st: Optional[_State] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.alloc_s = alloc_s
+        self.build_s = 0.0
+        self.capture_s = 0.0
+        self.runs = 0
+
+    def nbytes(self) -> int:
+        """Bytes of the tensors the program holds (the graph's private
+        memory pool not included)."""
+        seen = {}
+        tensors = [t for t in vars(self.d).values()
+                   if isinstance(t, torch.Tensor)]
+        tensors += list(self.d._faces.values())
+        if self.st is not None:
+            tensors += [t for t in self.st if t is not None]
+        for t in tensors:
+            stor = t.untyped_storage()
+            seen[stor.data_ptr()] = stor.nbytes()
+        return int(sum(seen.values()))
+
+    def run(self):
+        """The lazy construction on the values in ``d``'s buffers:
+        (TMFGResult, host syncs, per-edge values, SparseCounters), as
+        :func:`lazy_build` returns them.  The caller holds ``lock``."""
+        d, n = self.d, self.d.n
+        if self.st is None:
+            t0 = time.perf_counter()
+            self.st = _init_state(d)
+            if n > 4 and d.device.type == "cuda":
+                st = self.st
+                t1 = time.perf_counter()
+                self.graph = capture(lambda: lazy_step(st, d), self.T,
+                                     d.device)
+                torch.cuda.current_stream(d.device).synchronize()
+                self.capture_s = time.perf_counter() - t1
+            self.build_s = self.alloc_s + time.perf_counter() - t0
+            obs_trace.record_compile(
+                self.build_s, what=f"tmfg.lazy n={n} T={self.T}")
+        else:
+            _reset_state(self.st, d)
+        self.runs += 1
+        st = self.st
+        if self.graph is not None:
+            syncs = run_loop(self.graph.replay, st, n, 1)
+        else:
+            syncs = run_loop(lambda: lazy_step(st, d), st, n, self.T)
+        return _lazy_result(st, n, syncs)
+
+
+def cached_program(key: tuple, dev: torch.device,
+                   make_source) -> LoopProgram:
+    """The program of ``key`` (the builder and its shapes) at
+    T = ``STEPS_PER_SYNC`` on ``dev`` from the shared bounded cache, made
+    on a miss from ``make_source()`` (a source over fresh buffers) after
+    the other programs on ``dev`` are evicted: a caller still running one
+    keeps it until it is done, and the cache holds one per device."""
+    T = STEPS_PER_SYNC
+    full = ("tmfg.lazy",) + key + (T, str(dev))
+
+    def make():
+        # one program's source buffers per device: the others go first
+        jitcache.evict(lambda k: k[0] == "tmfg.lazy" and k[-1] == full[-1])
+        t0 = time.perf_counter()
+        d = make_source()
+        return LoopProgram(d, T, time.perf_counter() - t0)
+    return jitcache.cached(full, make)
+
+
+def dense_program(n: int, k: int, dev) -> LoopProgram:
+    """The cached lazy program of the dense source for an (n, n) S and
+    an (n, k) candidate table (k = 0: full row scans), on ``dev``."""
+    dev = program_device(dev)
+
+    def make_source():
+        S = torch.empty((n, n), dtype=torch.float32, device=dev)
+        table = (torch.empty((n, k), dtype=torch.int64, device=dev)
+                 if k else None)
+        return _Device(S, table)
+    return cached_program(("dense", n, k), dev, make_source)
+
+
+def build_dense(prog: LoopProgram) -> Tuple[TMFGResult, int]:
+    """The lazy build on the similarity the caller has written into the
+    dense program's ``d.S`` (under ``prog.lock``): its diagonal is set to
+    -inf for the build (the candidate table is cut from it) and put back
+    afterwards, so S can go on to the DBHT stage.  Returns the result
+    and the host syncs."""
+    d = prog.d
+    diag = d.S.diagonal().clone()
+    d.S.fill_diagonal_(NEG)
+    if d.table is not None:
+        d.table.copy_(candidate_table(d.S, d.table.shape[1]))
+    res, syncs, _, _ = prog.run()
+    d.S.diagonal().copy_(diag)
+    return res, syncs
 
 
 def _all_face_pairs(S, maxcorr, faces, valid):
@@ -548,19 +701,27 @@ def orig_round(st: _State, d: _Device, slot: torch.Tensor, prefix: int,
     st.pops.add_(live)
 
 
+def table_width(topk: int, n: int) -> int:
+    """The candidate table's width for ``topk`` (0: no table)."""
+    return min(topk, n) if topk and topk > 0 else 0
+
+
 def _build(S: torch.Tensor, method: str = "lazy", prefix: int = 10,
            topk: int = 0, backend: str = "auto") -> Tuple[TMFGResult, int]:
-    """The construction on an (n, n) float32 S whose diagonal is -inf.
+    """The construction on an (n, n) similarity S, its diagonal ignored
+    (S is not changed): the lazy build copies S into its cached program,
+    the others into a -inf-diagonal copy.
 
     Returns the result and the number of device->host syncs it made."""
     n = S.shape[0]
     if method == "lazy":
-        table = candidate_table(S, min(topk, n)) if topk and topk > 0 \
-            else None
-        res, syncs, _, _ = lazy_build(_Device(S, table))
-        return res, syncs
+        prog = dense_program(n, table_width(topk, n), S.device)
+        with prog.lock:
+            prog.d.S.copy_(S)
+            return build_dense(prog)
     if method not in ("corr", "orig"):
         raise ValueError(f"unknown method {method!r}")
+    S = prepare_similarity(S)
     d = _Device(S, None)
     st = _init_state(d)
     slot = torch.arange(2 * n - 4, device=S.device)
@@ -576,7 +737,7 @@ def _build(S: torch.Tensor, method: str = "lazy", prefix: int = 10,
         p = min(prefix, 2 * n - 4)
         # eager: a captured round would count its kernel launches once
         syncs = run_loop(lambda: orig_round(st, d, slot, p, backend), st, n,
-                         ORIG_ROUNDS_PER_SYNC, graph=False)
+                         ORIG_ROUNDS_PER_SYNC)
     res, _, _ = _finish(st, n)
     return res, syncs + 1
 
@@ -603,7 +764,7 @@ def build_tmfg(S: torch.Tensor, *, method: str = "lazy", prefix: int = 10,
       backend: the masked-argmax dispatch of "corr" and "orig"
         (``ops.masked_argmax``: "auto" | "cuda" | "torch").
     """
-    res, _ = _build(prepare_similarity(S), method, prefix, topk, backend)
+    res, _ = _build(S, method, prefix, topk, backend)
     return res
 
 

@@ -18,7 +18,8 @@ Each C entry point takes its pointers and the stream as ``void*``, its
 sizes as ``int`` and its scalars as ``float``, launches on the given
 stream, allocates nothing, and returns ``cudaGetLastError()``;
 :meth:`Kernel.launch` raises if that is not ``cudaSuccess`` and counts
-the launch.
+the launch.  A build of the library (not a reuse) counts as one program
+in ``repro_torch.obs.trace.compile_stats``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
+
+from repro_torch.obs import trace as obs_trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 ROOT = Path(__file__).resolve().parents[3]
@@ -119,6 +122,8 @@ def build() -> Path:
     BUILD_INFO.update(path=str(lib_path), cached=False,
                       seconds=time.perf_counter() - t0,
                       ptxas=(out_dir / "ptxas.log").read_text())
+    # a build of the library counts as one program (obs.compile_stats)
+    obs_trace.record_compile(BUILD_INFO["seconds"], what=LIB_NAME)
     return lib_path
 
 

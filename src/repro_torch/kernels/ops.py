@@ -55,11 +55,14 @@ def minplus(A: torch.Tensor, B: torch.Tensor, *,
     return ref.minplus_ref(A, B)
 
 
-def pearson(X: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
-    """Pearson correlation matrix of the rows of X."""
+def pearson(X: torch.Tensor, *, backend: str = "auto",
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pearson correlation matrix of the rows of X, written into ``out``
+    ((n, n) float32) when given: the kernel writes it there directly."""
     if use_kernel(X, backend):
-        return pearson_mod.pearson_cuda(X.float().contiguous())
-    return ref.pearson_ref(X)
+        return pearson_mod.pearson_cuda(X.float().contiguous(), out=out)
+    S = ref.pearson_ref(X)
+    return S if out is None else out.copy_(S)
 
 
 def masked_argmax(S: torch.Tensor, mask: torch.Tensor, *,

@@ -179,15 +179,23 @@ def pearson_tiles_ref(X: torch.Tensor, eps: float = 1e-12, *,
     return S
 
 
-def pearson_cuda(X: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    """Pearson correlation of the rows of X (n, L) f32 -> (n, n) f32."""
+def pearson_cuda(X: torch.Tensor, eps: float = 1e-12, *,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pearson correlation of the rows of X (n, L) f32 -> (n, n) f32,
+    written into ``out`` (contiguous (n, n) f32 on X's device) when
+    given."""
     require_cuda("X", X, torch.float32, 2)
     n, L = X.shape
     require_int32_range(n=n, L=L, nL=n * L)
     pl = plan(n, L)
     mu, rs = row_stats(X, eps)
     zt = torch.empty((pl.Lp, pl.Np), dtype=torch.float32, device=X.device)
-    out = torch.empty((n, n), dtype=torch.float32, device=X.device)
+    if out is None:
+        out = torch.empty((n, n), dtype=torch.float32, device=X.device)
+    elif (out.shape != (n, n) or out.dtype != torch.float32
+          or out.device != X.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({n}, {n}) float32 "
+                         f"tensor on {X.device}")
     with torch.cuda.device(X.device):
         KERNEL.launch(X.data_ptr(), mu.data_ptr(), rs.data_ptr(),
                       zt.data_ptr(), out.data_ptr(), n, L, pl.Lp, pl.Np,

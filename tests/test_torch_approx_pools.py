@@ -2,10 +2,11 @@
 on the CPU: sketches, candidate pools, pool rescoring and the
 approx-against-dense harness.
 
-  * ``sketch``: JAX's ``PRNGKey`` stream is not reproduced, so the tests
-    carry the reference's projection R across in place of
-    ``project.projection``'s; given it, the sketch is within 1e-6 of the
-    reference's (the product rounds otherwise).
+  * ``projection``: from the seed alone, within 1e-6 of JAX's R (the
+    threefry2x32 stream and XLA's float32 erfinv in numpy), and
+    ``candidate_pools`` from the seed alone the reference's; given JAX's
+    R carried across, the sketch is within 1e-6 of the reference's (the
+    product rounds otherwise).
   * ``candidate_pools``: given JAX's own sketch, bitwise JAX's pools;
     seed-deterministic, free of self-candidates, and one seed's R is the
     same wherever it is used.
@@ -92,6 +93,35 @@ def test_candidate_pools_seeded_and_self_free():
     assert torch.equal(R, tproject.projection(40, 32, 3))
     assert R.shape == (40, 32) and R.device.type == "cpu"
     assert abs(float(R.std()) * 32 ** 0.5 - 1.0) < 0.1
+
+
+@pytest.mark.parametrize("L,dim,seed", [(64, 32, 3), (46, 64, 0),
+                                        (513, 64, 123456789),
+                                        (7, 9, 2 ** 31 + 5),
+                                        (31, 7, 2 ** 32 + 11)])
+def test_projection_is_the_reference_R(L, dim, seed):
+    """The seed alone gives JAX's R: threefry2x32 over PRNGKey(seed)
+    (seeds from 2^31 up as JAX takes them with 32-bit integers), an odd
+    L * dim included."""
+    got = tproject.projection(L, dim, seed)
+    assert got.dtype == torch.float32 and got.shape == (L, dim)
+    np.testing.assert_allclose(got.numpy(), _jax_R(L, dim, seed), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("n,pool,dim,seed", [(80, 16, 32, 0), (80, 24, 64, 5),
+                                             (60, 59, 16, 11)])
+def test_candidate_pools_from_the_seed_are_the_references(n, pool, dim, seed):
+    X, _ = make_dataset(n, 48, 4, noise=0.5, seed=2)
+    X = X.astype(np.float32)
+    want = np.asarray(jproject.candidate_pools(X, pool, dim=dim, seed=seed))
+    got = tproject.candidate_pools(torch.from_numpy(X), pool, dim=dim,
+                                   seed=seed)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_allclose(
+        tproject.sketch(torch.from_numpy(X), dim=dim, seed=seed).numpy(),
+        np.asarray(jproject.sketch(jnp.asarray(X), dim=dim, seed=seed)),
+        rtol=0, atol=1e-5)
 
 
 def test_rescore_pools_tie_order_is_index_ascending():

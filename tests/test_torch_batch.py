@@ -235,7 +235,12 @@ def test_unported_hooks_raise_with_their_roadmap_item():
     X, _ = make_dataset(24, 20, 2, seed=4)
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         tcore.cluster(X, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tcore.cluster(moments=object(), device="cpu")
+    # moments= is ported (ROADMAP item 12 closed): it now clusters the
+    # window's co-moment similarity instead of raising
+    from repro_torch.stream import window as twindow
+    st = twindow.window_push_block(twindow.window_init(24, 20), X)
+    got = tcore.cluster(moments=st, k=2, device="cpu")
+    want = tcore.cluster(S=twindow.window_similarity(st), k=2, device="cpu")
+    np.testing.assert_array_equal(got.linkage, want.linkage)
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         tcore.cluster_batch(X[None], mesh=object(), device="cpu")

@@ -598,20 +598,59 @@ def _tmfg_sources(cuda, kind):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["dense-0", "dense-64", "table-Z"])
 def test_cuda_lazy_graph_equals_eager_steps(cuda, kind):
-    """The captured lazy loop (T steps per CUDA graph replay) is bitwise
-    the same step run eagerly on the card, within ceil(pops / T) + 3
-    host syncs."""
+    """The lazy loop as a program (T steps captured in a CUDA graph,
+    replayed) is bitwise the same step run eagerly on the card, within
+    ceil(pops / T) + 3 host syncs."""
     import math
 
     from repro_torch.core import tmfg
 
-    got, syncs, w, c = tmfg.lazy_build(_tmfg_sources(cuda, kind))
-    want, _, w0, c0 = tmfg.lazy_build(_tmfg_sources(cuda, kind),
-                                      graph=False)
+    prog = tmfg.LoopProgram(_tmfg_sources(cuda, kind), tmfg.STEPS_PER_SYNC)
+    got, syncs, w, c = prog.run()
+    assert prog.graph is not None
+    want, _, w0, c0 = tmfg.lazy_build(_tmfg_sources(cuda, kind))
     for f in want._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert torch.equal(w, w0) and c == c0
     assert syncs <= math.ceil(int(got.pops) / tmfg.STEPS_PER_SYNC) + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense-64", "table-Z"])
+def test_cuda_cached_loop_program_equals_uncached_build(cuda, kind):
+    """The cached loop program (buffers and CUDA graph reused across
+    builds) is bitwise the uncached build (a fresh state, eager steps) at
+    n = 2000, on its first run and on a replay with other inputs, and
+    the replay builds nothing."""
+    from repro_torch.approx import knn, sparse_tmfg
+    from repro_torch.core import tmfg
+    from repro_torch.obs import trace as obs_trace
+
+    def run(seed):
+        X, _ = make_dataset(2000, 46, 8, noise=0.6, seed=seed)
+        Xd = torch.from_numpy(X).to(cuda)
+        if kind == "table-Z":
+            table, Z = knn.topk_pearson_and_z(Xd, 32, backend="cuda")
+            got, w, c = sparse_tmfg.sparse_lazy_tmfg(
+                table.values, table.indices, Z, from_x=True)
+            want, _, w0, c0 = tmfg.lazy_build(sparse_tmfg._TableSource(
+                table.values, table.indices, Z, True))
+            assert torch.equal(w, w0) and c == c0
+            return got, want
+        S = ops.pearson(Xd, backend="cuda")
+        got, _ = tmfg._build(S, "lazy", topk=64)
+        Sp = tmfg.prepare_similarity(S)
+        want, _, _, _ = tmfg.lazy_build(
+            tmfg._Device(Sp, tmfg.candidate_table(Sp, 64)))
+        return got, want
+
+    for seed in (21, 22):
+        with obs_trace.watch_recompiles() as w:
+            got, want = run(seed)
+        if seed == 22:
+            assert w.count == 0
+        for f in want._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (seed, f)
 
 
 @pytest.mark.cuda
