@@ -163,8 +163,31 @@ Phases (any failure exits non-zero; no phase is skipped):
    ``torch.cuda.synchronize`` call.  Phase 4 also logs the Crop loop
    program's bytes, its build and capture times, and the bytes the
    cache holds after the Crop calls.
+11. Multi-device funnel, on a world-1 NCCL group (``data_mesh()``): (a)
+   at full width, the top-K table of ``topk_pearson_sharded`` (a row
+   range per rank) bitwise the single-device kernel's, a quarter-rows
+   range launch bitwise those rows and timed, then ``cluster(X, k,
+   config=PipelineConfig.approx(sim_k=64), mesh=mesh)``, counts reset
+   just before and read just after: one top-K launch, one relaxation
+   launch per Bellman-Ford round, masked argmax in the per-cluster HAC,
+   no slot overflow, labels and linkage bitwise phase 5's fused run,
+   its seconds and peak bytes logged; (b) the dense funnel (``cluster(S=,
+   mesh=)``, the column-sharded lazy TMFG with its collectives inside the
+   captured steps, the row-sharded hub APSP) on the Pearson kernel's S,
+   bitwise phase 4's TMFG and linkage (at n = 2000, against a
+   single-device run there, where the projected finish passes 600 s),
+   counts reset just before and read just after, and the sharded loop's
+   host syncs and microseconds per pop (a replay of the cached program
+   the funnel built, which must build nothing) beside the single-device
+   loop's at that n; (c) at n = 2000, ``pearson_shardmap`` within 1e-5 of the
+   Pearson kernel, ``minplus_shardmap`` and ``masked_argmax_shardmap``
+   bitwise the kernels, ``apsp_hub_sharded`` bitwise ``apsp_hub``,
+   ``cluster_batch(mesh=)`` on 4 series sets with each entry bitwise
+   ``cluster(X[b])``, and ``cluster_sequences`` and ``expert_affinity``
+   equal to ``cluster()`` on the arrays they pool or transpose.
 
-The line before the last is the JSON object of per-kernel numbers; the
+The line before the last is the JSON object of per-kernel numbers (with
+each kernel's launches on phase 11's approx and dense funnels); the
 last line is ``{"ok": true, "device": {...}}``.  The script needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero
 without printing a result when either is missing.  It imports nothing
@@ -242,6 +265,16 @@ STREAM_W = 512
 STREAM_EVERY = 16
 STREAM_TICKS = 96
 ADMISSION_N = 256
+# phase 11 (the multi-device funnel on a world-1 NCCL group): its expected
+# seconds in all (the approx funnel at the dataset's size, about phase
+# 5's fused run, the dense funnel at n = PARITY_N and the n = PARITY_N
+# checks), not charged to the projections above, so that phase 11
+# shrinks no earlier phase; and the dense funnel's expected seconds at
+# the dataset's size beside phase 4's run: with the third of MESH_S that
+# follows it, it moves the dense funnel to n = PARITY_N where the
+# projected finish passes the budget
+MESH_S = 175.0
+MESH_DENSE_PER_DENSE = 1.3
 
 
 def fail(msg: str) -> None:
@@ -1040,6 +1073,7 @@ def main() -> None:
         Zr, lr = r0_.linkage, r0_.labels
         del r0_
     tm_crop = res.tmfg                         # phase 8's TMFG
+    tm4, Z4 = res.tmfg, Z                      # phase 11's reference
     del res
     res2 = cluster(Xr, k=len(np.unique(lr)), config=cfg, fused=False,
                    collect_timings=True)
@@ -1095,6 +1129,7 @@ def main() -> None:
         sync()
     finally:
         jitcache.evict = real_evict
+    Z5, labels5 = ra.linkage, ra.labels        # phase 11's reference
     total_a = time.perf_counter() - t0
     launches_a = ops.launch_counts()
     peaks_a.append(torch.cuda.max_memory_allocated())
@@ -2056,6 +2091,219 @@ def main() -> None:
     log(f"[time] stream phase done at {time.perf_counter() - t_start:.1f} s"
         f" ({stream_s:.1f} s)")
 
+    # ---- 11. the multi-device funnel (a world-1 NCCL group) -------------
+    import torch.distributed as tdist
+
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.core import integration
+    from repro_torch.core.apsp import apsp_hub, edge_lengths
+    from repro_torch.dist import sharding as dist_sh
+
+    t11 = time.perf_counter()
+    mesh = dist_sh.data_mesh()
+    check(tdist.get_backend() == "nccl" and tdist.get_world_size() == 1
+          and mesh.size() == 1, f"mesh: {mesh}, backend "
+          f"{tdist.get_backend()}, world {tdist.get_world_size()}")
+
+    # 11a. the approx funnel at full width: the row-range top-K table,
+    # then the single-device approx body after it
+    Xd = torch.from_numpy(X_np).to(dev)
+    tv1, ti1 = topk_pearson_cuda(Xd, K)
+    sv11, si11, z11 = dist_sh.topk_pearson_sharded(Xd, K, mesh)
+    check(bool(torch.equal(sv11.full_tensor(), tv1))
+          and bool(torch.equal(si11.full_tensor(), ti1)),
+          "mesh: the sharded top-K table differs from the single-device "
+          "kernel's")
+    del sv11, si11, z11
+    # a row range alone: a quarter of the rows, bitwise those rows
+    q0, qn = n // 4, n // 4
+    qv, qi = topk_pearson_cuda(Xd, K, row_range=(q0, qn))
+    check(bool(torch.equal(qv, tv1[q0:q0 + qn]))
+          and bool(torch.equal(qi, ti1[q0:q0 + qn])),
+          f"mesh: top-K rows {q0}..{q0 + qn} differ from the whole launch")
+    qb_ms, qb_by = bound(4 * (n * L + 2 * n) + 8 * qn * K, 2 * qn * n * L)
+    entries["topk"]["row_range"] = dict(
+        rows=[q0, qn], ms=cuda_ms(lambda: topk_pearson_cuda(
+            Xd, K, row_range=(q0, qn)), 5), bound_ms=qb_ms, bound_by=qb_by,
+        bitwise=True)
+    del qv, qi, tv1, ti1
+    torch.cuda.empty_cache()
+    sync()
+    base_m = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rm11 = cluster(X_np, k=k, config=cfg_a, mesh=mesh, collect_timings=True)
+    sync()
+    mesh_a_s = time.perf_counter() - t0
+    launches_m = ops.launch_counts()
+    peak_m = torch.cuda.max_memory_allocated() - base_m
+    tm11 = rm11.timings
+    check_syncs(tm11, "mesh approx")
+    check("tmfg" not in tm11 and rm11.dbht.hubs is not None,
+          "mesh approx: the fused run overflowed its slot caps")
+    check(launches_m["topk"] == 1, f"mesh approx: topk launches {launches_m}")
+    check(launches_m["sparse_relax"] == int(tm11["apsp_rounds"]) > 0,
+          f"mesh approx: sparse_relax launches {launches_m} != rounds "
+          f"{tm11['apsp_rounds']}")
+    check(launches_m["masked_argmax"] > 0 and launches_m["pearson"] == 0,
+          f"mesh approx: launches {launches_m}")
+    check(np.array_equal(rm11.linkage, Z5)
+          and np.array_equal(rm11.labels, labels5),
+          "mesh approx: linkage or labels differ from phase 5's fused run")
+    mesh_a = dict(n=n, sim_k=K, total_s=mesh_a_s, phase5_total_s=total_a,
+                  pops=int(tm11["tmfg_pops"]),
+                  tmfg_host_syncs=int(tm11["tmfg_host_syncs"]),
+                  bf_rounds=int(tm11["apsp_rounds"]), launches=launches_m,
+                  peak_bytes=peak_m, allocated_before=base_m,
+                  bitwise_table=True, bitwise_phase5=True)
+    log(f"[mesh] {name} approx funnel: {json.dumps(mesh_a)}")
+    del rm11, Xd
+    torch.cuda.empty_cache()
+
+    # 11b. the dense funnel on the Pearson kernel's S, at the dataset's
+    # size unless the projected finish passes the budget (then PARITY_N)
+    nb = n
+    projected = (time.perf_counter() - t_start
+                 + MESH_DENSE_PER_DENSE * total + MESH_S / 3)
+    if projected > STAGED_BUDGET_S:
+        nb = PARITY_N
+        log(f"[mesh] projected finish {projected:.1f} s > "
+            f"{STAGED_BUDGET_S} s: the dense funnel runs at n={nb}")
+    if nb == n:
+        Xb_np, kb = X_np, k
+    else:
+        Xb_np, _ = make_dataset(nb, 46, 8, noise=0.5, seed=args.seed + 1)
+        kb = 8
+    Sb = ops.pearson(torch.from_numpy(Xb_np).to(dev))
+    if nb == n:
+        Zb_ref, tmb_ref = Z4, tm4
+    else:
+        rb = cluster(S=Sb, k=kb, config=cfg)
+        Zb_ref, tmb_ref = rb.linkage, rb.tmfg
+        del rb
+    sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rd11 = cluster(S=Sb, k=kb, config=cfg, mesh=mesh, collect_timings=True)
+    sync()
+    mesh_b_s = time.perf_counter() - t0
+    launches_mb = ops.launch_counts()
+    check_syncs(rd11.timings, "mesh dense")
+    check(np.array_equal(rd11.linkage, Zb_ref),
+          f"mesh dense: linkage differs from the single-device run (n={nb})")
+    check(all(bool(torch.equal(a_, b_)) for a_, b_ in zip(rd11.tmfg,
+                                                         tmb_ref)),
+          f"mesh dense: TMFG differs from the single-device run (n={nb})")
+    check(launches_mb["pearson"] == 0 and launches_mb["minplus"] >= 2
+          and launches_mb["masked_argmax"] == nb - 1,
+          f"mesh dense: launches {launches_mb}")
+    del rd11
+    # the two TMFG loops at this n, one after the other: the sharded one
+    # (a column block, collectives inside the captured steps), a replay
+    # of the program the funnel built, and the single-device dense
+    # program (the top-64 table)
+    prog_sh = dist_mod.sharded_program(nb, mesh, dev=dev)
+    sync()
+    t0 = time.perf_counter()
+    with obs_trace.watch_recompiles() as w11:
+        tsh, syncs_sh = dist_mod.build_sharded(Sb, mesh)
+    sync()
+    sh_s = time.perf_counter() - t0
+    check(w11.count == 0 and prog_sh.runs >= 2,
+          f"mesh dense: the replayed sharded loop built {w11.count} "
+          f"programs ({prog_sh.runs} runs)")
+    t0 = time.perf_counter()
+    tsd, syncs_sd = tmfg_mod._build(Sb, "lazy", cfg.prefix, cfg.topk,
+                                    cfg.backend)
+    sync()
+    sd_s = time.perf_counter() - t0
+    check(bool(torch.equal(tsh.insert_order, tsd.insert_order))
+          and int(tsh.pops) == int(tsd.pops),
+          "mesh dense: the sharded loop's insertion order differs")
+    pops_b = int(tsd.pops)
+    for syncs_, what in ((syncs_sh, "sharded loop"), (syncs_sd, "loop")):
+        check_syncs(dict(tmfg_pops=pops_b, tmfg_host_syncs=syncs_), what)
+    mesh_b = dict(n=nb, total_s=mesh_b_s, launches=launches_mb,
+                  pops=pops_b, sharded_tmfg_s=sh_s,
+                  sharded_us_per_pop=1e6 * sh_s / pops_b,
+                  sharded_host_syncs=syncs_sh,
+                  sharded_build_s=prog_sh.build_s,
+                  sharded_capture_s=prog_sh.capture_s, single_tmfg_s=sd_s,
+                  single_us_per_pop=1e6 * sd_s / pops_b,
+                  single_host_syncs=syncs_sd,
+                  phase4_host_syncs=int(t["tmfg_host_syncs"]),
+                  phase4_staged_us_per_pop=us_pop, phase4_stages_n=int(
+                      Xr.shape[0]), bitwise_single=True)
+    log(f"[mesh] dense funnel: {json.dumps(mesh_b)}")
+    del tsh, tsd, prog_sh
+    torch.cuda.empty_cache()
+
+    # 11c. n = PARITY_N: the sharded entry points against the kernels
+    Xc_np, _ = make_dataset(PARITY_N, 46, 8, noise=0.5, seed=args.seed + 1)
+    Xc = torch.from_numpy(Xc_np).to(dev)
+    Sc = pearson_cuda(Xc)
+    err_p = float((dist_sh.pearson_shardmap(Xc, mesh).full_tensor()
+                   - Sc).abs().max())
+    check(err_p <= 1e-5, f"mesh: pearson_shardmap differs from the Pearson "
+          f"kernel by {err_p} > 1e-5")
+    Am, Bm = dist(PARITY_N, PARITY_N), dist(PARITY_N, PARITY_N)
+    check(bool(torch.equal(dist_sh.minplus_shardmap(Am, Bm, mesh)
+                           .full_tensor(), minplus_cuda(Am, Bm))),
+          "mesh: minplus_shardmap differs from the min-plus kernel")
+    mk = torch.rand(PARITY_N, generator=gen, device=dev) < 0.5
+    sv_, si_ = dist_sh.masked_argmax_shardmap(Sc, mk, mesh)
+    kv_, ki_ = masked_argmax_cuda(Sc, mk)
+    check(bool(torch.equal(sv_.full_tensor(), kv_))
+          and bool(torch.equal(si_.full_tensor(), ki_)),
+          "mesh: masked_argmax_shardmap differs from the kernel")
+    del Am, Bm, sv_, si_, kv_, ki_
+    tmc, _ = tmfg_mod._build(Sc, "lazy", cfg.prefix, cfg.topk, cfg.backend)
+    Wc = edge_lengths(PARITY_N, tmc.edges, Sc)
+    hs = {}
+    Dsh = dist_mod.apsp_hub_sharded(Wc, mesh, stats=hs).full_tensor()
+    hd = {}
+    Dsd = apsp_hub(Wc, stats=hd)
+    check(bool(torch.equal(Dsh, Dsd)) and hs == hd,
+          f"mesh: apsp_hub_sharded differs from apsp_hub ({hs} vs {hd} "
+          f"rounds)")
+    del Dsh, Dsd, Wc, tmc
+    Xbs = np.stack([make_dataset(PARITY_N, 46, 8, noise=0.5,
+                                 seed=args.seed + 60 + b)[0]
+                    for b in range(4)])
+    bm11 = cluster_batch(Xbs, k=8, config=cfg, mesh=mesh)
+    for b in range(4):
+        one = cluster(Xbs[b], k=8, config=cfg)
+        check(np.array_equal(bm11[b].linkage, one.linkage)
+              and np.array_equal(bm11.labels[b], one.labels),
+              f"mesh: cluster_batch entry {b} differs from cluster()")
+    del bm11, one
+    # the integration wrappers on the card, against cluster() on the
+    # arrays they pool (sequence embeddings) or transpose (router stats)
+    centers = torch.randn((8, 1, 64), generator=gen, device=dev)
+    emb = torch.randn((PARITY_N, 16, 64), generator=gen, device=dev) \
+        + centers[torch.arange(PARITY_N, device=dev) % 8]
+    lab_seq, _ = integration.cluster_sequences(emb, k=8)
+    want_seq = cluster(emb.mean(dim=1), k=8, config=cfg).labels
+    router = torch.softmax(torch.randn((4096, 64), generator=gen,
+                                       device=dev), dim=1)
+    lab_exp, _ = integration.expert_affinity(router, k=4)
+    want_exp = cluster(router.T.contiguous(), k=4, config=cfg).labels
+    check(np.array_equal(lab_seq, want_seq)
+          and np.array_equal(lab_exp, want_exp),
+          "mesh: cluster_sequences or expert_affinity differ from cluster()")
+    tdist.destroy_process_group()
+    mesh_s = time.perf_counter() - t11
+    mesh_c = dict(n=PARITY_N, pearson_shardmap_err=err_p,
+                  batch_entries=4, seq_clusters=int(len(np.unique(lab_seq))),
+                  expert_clusters=int(len(np.unique(lab_exp))),
+                  phase_s=mesh_s)
+    del Xc, Sc, Sb, emb, router, centers
+    torch.cuda.empty_cache()
+    log(f"[mesh] n={PARITY_N}: {json.dumps(mesh_c)}")
+    log(f"[time] mesh phase done at {time.perf_counter() - t_start:.1f} s"
+        f" ({mesh_s:.1f} s)")
+
     dense_kernels = ("pearson", "minplus", "masked_argmax")
     for e in entries.values():
         e["launches"] = (launches_s if e["name"] == "flash_attention_wgmma"
@@ -2064,16 +2312,20 @@ def main() -> None:
                          else launches_a)[e["name"]]
         e["filter_launches"] = {w: c[e["name"]]
                                 for w, c in filt_launches.items()}
+        e["mesh_launches"] = {"approx": launches_m[e["name"]],
+                              "dense": launches_mb[e["name"]]}
     main["seconds_in_all"] = time.perf_counter() - t_start
     main["sparse_phase_s"] = sparse_s
     main["filter_phase_s"] = filter_s
     main["stream_phase_s"] = stream_s
+    main["mesh_phase_s"] = mesh_s
     log(f"[main] {json.dumps(main)}")
     log(f"[approx] {json.dumps(approx)}")
     log(f"[serve] {json.dumps(serve)}")
     log(f"[fp32] {json.dumps(fp32_path)}")
     log(f"[filters] {json.dumps(filt_runs)}")
     log(f"[stream] {json.dumps(stream)}")
+    log(f"[mesh] {json.dumps(dict(approx=mesh_a, dense=mesh_b, parity=mesh_c))}")
     log(smi_line)
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -220,6 +220,53 @@ def _sparse_tail(cfg, n: int, tm: TMFGResult,
                 hubs=hubs.int(), overflow=False, bf_rounds=stats["bf_rounds"])
 
 
+def _check_n(n: int) -> None:
+    if n > FUSED_MAX_N:
+        raise ValueError(
+            f"fused approx path supports n <= {FUSED_MAX_N}; got n={n} — "
+            f"run staged (fused=False)")
+
+
+def fused_from_table(cfg, n: int, *, from_x: bool = True):
+    """The fused lazy top-K body starting after the candidate table (the
+    reference's ``fused_from_table``): for callers that build the (n, K)
+    table themselves, as the sharded funnel does
+    (``core/distributed.py``, DESIGN.md §17.4), and for :func:`fused_one`,
+    so both run one body.
+
+    Returns ``tail(table, src) -> dict`` with :func:`fused_one`'s keys;
+    ``table`` is the (values (n, K), indices (n, K)) pair and ``src`` the
+    standardized series (``from_x=True``) or the dense similarity, as
+    ``sparse_lazy_tmfg`` takes them.  The tail drops its reference to the
+    table once the TMFG is built, so a caller that passes it as a
+    temporary holds no table during the DBHT stage.  Raises for a config
+    other than lazy top-K and above ``FUSED_MAX_N``, as the reference."""
+    if cfg.similarity != "topk" or cfg.method != "lazy":
+        raise ValueError(
+            "fused_from_table is the lazy topk tail; got "
+            f"similarity={cfg.similarity!r} method={cfg.method!r}")
+    _check_n(n)
+    sparse = use_sparse_tail(cfg, n)
+
+    def tail(table, src: torch.Tensor):
+        st = {}
+        tm, w_sim, counters = sparse_tmfg_mod.sparse_lazy_tmfg(
+            table[0], table[1], src, from_x=from_x, stats=st)
+        del table
+        if sparse:
+            core = _sparse_tail(cfg, n, tm, w_sim)
+        else:
+            S = adjacency_from_weights(n, tm.edges, w_sim) if from_x \
+                else src
+            core, rounds = dbht_mod.dense_tail(S, tm, cfg)
+            core.update(hubs=None, overflow=False, bf_rounds=rounds)
+        core.update(tmfg=tm, counters=counters,
+                    tmfg_host_syncs=st["host_syncs"])
+        return core
+
+    return tail
+
+
 def fused_one(cfg, have_S: bool, n: int):
     """The single-matrix body for ``cfg`` (``similarity="topk"`` or
     ``apsp_method="sparse"``; see the module docstring).
@@ -228,11 +275,9 @@ def fused_one(cfg, have_S: bool, n: int):
     tmfg, hubs, overflow, counters (None off the lazy approx body),
     bf_rounds and tmfg_host_syncs (after an overflow all of these but
     hubs, and nothing else); ``arr`` is X (n, L) or, with ``have_S``,
-    S (n, n), on the run's device."""
-    if n > FUSED_MAX_N:
-        raise ValueError(
-            f"fused approx path supports n <= {FUSED_MAX_N}; got n={n} — "
-            f"run staged (fused=False)")
+    S (n, n), on the run's device.  The lazy top-K branch is
+    :func:`fused_from_table` after the table."""
+    _check_n(n)
     sparse = use_sparse_tail(cfg, n)
 
     def tail(S_full, tm, w_sim):
@@ -253,7 +298,7 @@ def fused_one(cfg, have_S: bool, n: int):
         return tm, S[e[:, 0], e[:, 1]]
 
     def one(arr: torch.Tensor):
-        st, counters = {}, None
+        st = {}
         if cfg.similarity != "topk":
             S = arr.float() if have_S else ops.pearson(arr,
                                                        backend=cfg.backend)
@@ -261,28 +306,26 @@ def fused_one(cfg, have_S: bool, n: int):
             core = _sparse_tail(cfg, n, tm, w_sim)
         else:
             kk = min(cfg.sim_k, n - 1)
+            if cfg.method == "lazy":
+                # the table is the tail's argument alone, freed once the
+                # TMFG is built
+                lazy = fused_from_table(cfg, n, from_x=not have_S)
+                if have_S:
+                    S = arr.float()
+                    return lazy(knn_mod.topk_from_similarity(S, kk), S)
+                return lazy(knn_mod.topk_pearson(arr, kk,
+                                                 backend=cfg.backend),
+                            standardize_rows(arr))
             if have_S:
-                S = arr.float()
-                table = knn_mod.topk_from_similarity(S, kk)
-                src, from_x = S, False
+                table = knn_mod.topk_from_similarity(arr.float(), kk)
             else:
                 table = knn_mod.topk_pearson(arr, kk, backend=cfg.backend)
-                src, from_x, S = standardize_rows(arr), True, None
-            if cfg.method == "lazy":
-                tm, w_sim, counters = sparse_tmfg_mod.sparse_lazy_tmfg(
-                    table.values, table.indices, src, from_x=from_x,
-                    stats=st)
-                del table
-                core = tail(lambda: S if S is not None else
-                            adjacency_from_weights(n, tm.edges, w_sim),
-                            tm, w_sim)
-            else:
-                # non-lazy methods run on the densified table (§13.3)
-                Sd = knn_mod.densify(table, n=n)
-                del table
-                tm, w_sim = built(Sd, st)
-                core = tail(lambda: Sd, tm, w_sim)
-        core.update(tmfg=tm, counters=counters,
+            # non-lazy methods run on the densified table (§13.3)
+            Sd = knn_mod.densify(table, n=n)
+            del table
+            tm, w_sim = built(Sd, st)
+            core = tail(lambda: Sd, tm, w_sim)
+        core.update(tmfg=tm, counters=None,
                     tmfg_host_syncs=st["host_syncs"])
         return core
 

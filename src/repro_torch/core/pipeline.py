@@ -32,6 +32,13 @@ run whose clusters overflow the reference's slot caps is rerun, and the
 only path for ``dbht_impl="host"`` (the numpy oracle) and
 ``reuse_tmfg=``.
 
+``mesh=`` (a ``DeviceMesh``, ``dist.sharding.data_mesh()``) runs the
+fused call through the multi-device funnel of ``core/distributed.py``
+(DESIGN.md §17.4): the top-K table from X with each rank's row range,
+or the column-sharded dense stages; every rank passes the same input
+and gets the same result.  ``cluster_batch(mesh=)`` shards a batch by
+whole entries and gathers their outputs.
+
 ``moments=`` (a ``repro_torch.stream.window.WindowState``) takes S from
 the rolling window's co-moments (``window_similarity``) in place of the
 Pearson pass, fused and staged.  :func:`run_pipeline_device` runs the
@@ -75,8 +82,10 @@ from repro_torch.obs import trace as obs_trace
 
 from repro_torch.approx import knn as knn_mod
 from repro_torch.approx import sparse_tmfg as sparse_tmfg_mod
+from repro_torch.dist import sharding as dist_sh
 
 from . import dbht as dbht_mod
+from . import distributed as dist_mod
 from . import fused_approx as fa_mod
 from . import hac as hac_mod
 from . import jitcache
@@ -231,18 +240,12 @@ def _needs_approx_body(cfg: PipelineConfig) -> bool:
                                      or cfg.apsp_method == "sparse")
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the multi-device funnel) is not ported to repro_torch "
-            "yet; see ROADMAP.md Queue 1 item 14")
-
-
 def _setup(cfg: PipelineConfig, fused: Optional[bool], can_fuse: bool,
            refusal: str, mesh, device):
     """The checks every entry point makes; returns (fused, device)."""
-    _no_mesh(mesh)
     dev = resolve_device(device)
+    if mesh is not None:
+        dist_sh.check_mesh(mesh, dev)
     if fused is None:
         fused = can_fuse
     elif fused and not can_fuse:
@@ -286,8 +289,17 @@ def cluster(X=None, *, S=None, moments=None, k: Optional[int] = None,
     paper's OPT-TDBHT); the loose ``method/prefix/topk/apsp_method/
     backend/variant/dbht_impl`` kwargs resolve through
     :meth:`PipelineConfig.resolve` instead (combining them with
-    ``config=`` raises ValueError).  ``mesh=`` raises
-    NotImplementedError.  ``reuse_tmfg`` (a ``TMFGResult``) skips the
+    ``config=`` raises ValueError).  ``mesh`` (a ``DeviceMesh``,
+    ``dist.sharding.data_mesh()``; anything else raises TypeError) runs
+    the fused call through the multi-device funnel over its ``"data"``
+    axis (``core/distributed.run_pipeline_sharded``): every rank passes the
+    same input and gets the same result.  The top-K table from X and the
+    dense TMFG stages are sharded (a non-lazy ``method`` there raises
+    ValueError); the top-K table cut from S, the sparse tail, a non-TMFG
+    filter and the RMT cleaning run the single-device program on every
+    rank, replicated and unsharded.  The staged path
+    (``fused=False``) is single-device and ignores it, as in the
+    reference.  ``reuse_tmfg`` (a ``TMFGResult``) skips the
     TMFG construction and reruns only the DBHT stage on it, staged; with
     ``similarity="topk"`` it needs ``S=`` or ``moments=``.
     ``clean="rmt"`` needs X, and ``filter="pmfg"`` runs staged only
@@ -334,9 +346,10 @@ def cluster(X=None, *, S=None, moments=None, k: Optional[int] = None,
     # fence=False: the linkage's download is the fused path's one sync,
     # and the span adds none (DESIGN.md §15.1)
     with obs_trace.span("pipeline.fused", fence=False) as sp:
-        with _watch_replay(cfg, have_S, arr.shape, dev, batched=False):
+        with _watch_replay(cfg, have_S, arr.shape, dev, batched=False,
+                           mesh=mesh):
             run = _run_one(arr, have_S, cfg, True, dev, None,
-                           collect_timings)
+                           collect_timings, mesh=mesh)
         out = _finish(run, k)
         _record_fused_stages([run])
     _observe_total("fused", sp.duration)
@@ -405,12 +418,14 @@ _seen_fused: set = set()
 
 @contextlib.contextmanager
 def _watch_replay(cfg: PipelineConfig, have_S: bool, shape, dev,
-                  batched: bool):
+                  batched: bool, mesh=None):
     """The recompile watchdog around one fused call (DESIGN.md §15.2): a
-    replay of a (config, input kind, shape, device) key it has seen that
-    builds a loop program anyway raises ``obs.trace.record_recompile``."""
+    replay of a (config, input kind, shape, device, process group) key
+    it has seen that builds a loop program anyway raises
+    ``obs.trace.record_recompile``."""
     key = ("fused", cfg, have_S, batched, tuple(shape),
-           str(tmfg_mod.program_device(dev)))
+           str(tmfg_mod.program_device(dev)),
+           None if mesh is None else id(dist_sh.group(mesh)))
     replay = key in _seen_fused
     _seen_fused.add(key)
     before = obs_trace.compile_stats()["programs"]
@@ -423,16 +438,22 @@ def _watch_replay(cfg: PipelineConfig, have_S: bool, shape, dev,
 
 def _run_one(arr: torch.Tensor, have_S: bool, cfg: PipelineConfig,
              fused: bool, dev: torch.device, reuse_tmfg,
-             collect_timings: bool) -> _Run:
+             collect_timings: bool, mesh=None) -> _Run:
     """One matrix (X, or S when ``have_S``, float32 on ``dev``) through
     the fused or the staged pipeline, up to the DBHT result on the
-    device."""
+    device.  A fused run with a ``mesh`` goes through the funnel
+    (``distributed.funnel``) where the config has sharded stages, and
+    through the single-device program on every rank otherwise."""
     n = arr.shape[0]
     t0 = time.perf_counter()
     if cfg.filter != "tmfg":
         return _run_filter(arr, have_S, cfg, fused, dev, collect_timings)
-    if fused and _needs_approx_body(cfg):
+    core = None
+    if fused and mesh is not None and dist_mod.shards(cfg, have_S):
+        core = dist_mod.funnel(arr, have_S, cfg, mesh)
+    elif fused and _needs_approx_body(cfg):
         core = fa_mod.fused_one(cfg, have_S, n)(arr)
+    if core is not None:
         if core["overflow"]:
             # the reference's slot caps cannot hold these clusters: the
             # staged path sizes its blocks per cluster, so rerun there
@@ -449,7 +470,7 @@ def _run_one(arr: torch.Tensor, have_S: bool, cfg: PipelineConfig,
             if core["counters"] is not None:
                 timings.update(_sim_counts(core["counters"]))
         return _Run(res, tm, timings, False, counters=core["counters"],
-                    overflow=False)
+                    overflow=core["overflow"])
 
     approx = cfg.similarity == "topk"
     if approx and reuse_tmfg is not None and not have_S:
@@ -670,9 +691,12 @@ def run_pipeline_device(X_or_S, config: PipelineConfig, *,
     ``ndim == 3`` (the entries run one after another).  Each call's
     (config, input kind, shape, device) is remembered by the recompile
     watchdog; a replay that builds a loop program is alarmed through
-    ``obs.trace.record_recompile``.  ``caps`` and ``mesh`` are
-    not ported (the fused approx body takes the reference's caps from
-    n) and raise NotImplementedError.  ``device`` defaults to CUDA."""
+    ``obs.trace.record_recompile``.  ``mesh`` (a ``DeviceMesh``) runs one
+    matrix through the multi-device funnel over its ``"data"`` axis
+    (``core/distributed.run_pipeline_sharded``; a batch raises
+    ValueError: ``cluster_batch(mesh=)`` shards a batch).  ``caps`` is
+    not ported (the fused approx body takes the reference's caps from n)
+    and raises NotImplementedError.  ``device`` defaults to CUDA."""
     if config.dbht_impl != "device":
         raise ValueError(
             "run_pipeline_device IS the device program; "
@@ -683,7 +707,6 @@ def run_pipeline_device(X_or_S, config: PipelineConfig, *,
             "filter='pmfg' has no fused form: greedy planarity-checked "
             "insertion is the host-orchestrated reference (DESIGN.md "
             "§18.3) — use cluster(..., fused=False)")
-    _no_mesh(mesh)
     if caps is not None:
         raise NotImplementedError(
             "caps= is not ported: the fused approx body takes the "
@@ -692,6 +715,12 @@ def run_pipeline_device(X_or_S, config: PipelineConfig, *,
     arr = _as_f32(X_or_S, dev)
     if batched is None:
         batched = arr.ndim == 3
+    if mesh is not None:
+        dist_sh.check_mesh(mesh, dev)
+        if batched or arr.ndim != 2:
+            raise ValueError(
+                f"the sharded funnel takes one matrix, got "
+                f"{tuple(arr.shape)}: cluster_batch(mesh=) shards a batch")
     square = arr.shape[-1] == arr.shape[-2]
     if config.clean == "rmt" and (is_similarity
                                   or (is_similarity is None and square)):
@@ -707,9 +736,10 @@ def run_pipeline_device(X_or_S, config: PipelineConfig, *,
                 f"square input {tuple(arr.shape)} is not symmetric, so it "
                 f"is ambiguous: pass is_similarity= explicitly")
     entries = list(arr) if batched else [arr]
-    with _watch_replay(config, is_similarity, arr.shape, dev, batched):
+    with _watch_replay(config, is_similarity, arr.shape, dev, batched,
+                       mesh):
         outs = [_device_outputs(_run_one(a, is_similarity, config, True,
-                                         dev, None, False))
+                                         dev, None, False, mesh=mesh))
                 for a in entries]
     return _stack(outs) if batched else outs[0]
 
@@ -743,7 +773,14 @@ def cluster_batch(X=None, *, S=None, k: Optional[int] = None,
 
     The entries run one after another on the device; the linkages of the
     first ``limit`` entries (all by default) come to the host in one
-    copy at the end, and only those are cut and returned.  Entries past
+    copy at the end, and only those are cut and returned.  With ``mesh``
+    (a ``DeviceMesh``) the batch is sharded over its ``"data"`` axis: each
+    rank
+    runs its own block of whole entries (``dist.sharding.block``; every
+    rank needs one) and the entries' outputs are all-gathered, so every
+    rank returns the whole batch, each entry still bitwise
+    ``cluster(X[b])``; each result's ``timings`` are those its rank
+    measured.  Entries past
     ``limit`` (the pads of a bucketed micro-batch) do device work only.
     Running the batch as one captured program is later performance work
     (ROADMAP Queue 1 item 6).  ``timings`` holds the batch's ``total``
@@ -768,6 +805,10 @@ def cluster_batch(X=None, *, S=None, k: Optional[int] = None,
         raise ValueError(f"limit must be >= 1, got {limit}")
     B = arr.shape[0]
     B_out = B if limit is None else min(limit, B)
+    mine = range(B)
+    if mesh is not None:
+        b0, nb = dist_sh.my_block(B, mesh)
+        mine = range(b0, b0 + nb)
     t0 = time.perf_counter()
     with (obs_trace.span("pipeline.fused", fence=False, batch=B) if fused
           else contextlib.nullcontext()) as sp:
@@ -775,8 +816,9 @@ def cluster_batch(X=None, *, S=None, k: Optional[int] = None,
               if fused else contextlib.nullcontext()):
             runs = [_run_one(arr[b], have_S, cfg, fused, dev, None,
                              collect_timings)
-                    for b in range(B)]
-        Z = torch.stack([r.res.linkage for r in runs[:B_out]]).cpu().numpy()
+                    for b in mine]
+        every = runs if mesh is None else _gather_runs(runs, B, mesh)
+        Z = torch.stack([r.res.linkage for r in every[:B_out]]).cpu().numpy()
         if fused:
             _record_fused_stages(runs)
     if fused:
@@ -786,10 +828,10 @@ def cluster_batch(X=None, *, S=None, k: Optional[int] = None,
                 _observe_counters(r.counters)
     else:
         _observe_staged(runs)
-    results = [_finish(runs[b], k, Z[b]) for b in range(B_out)]
+    results = [_finish(every[b], k, Z[b]) for b in range(B_out)]
     timings = {}
     if collect_timings:
-        for r in runs:
+        for r in every:
             for key, v in r.timings.items():
                 if key != "sim_fallback_rate":
                     timings[key] = timings.get(key, 0.0) + v
@@ -797,3 +839,27 @@ def cluster_batch(X=None, *, S=None, k: Optional[int] = None,
     return BatchClusterResult(
         labels=np.stack([r.labels for r in results]), results=results,
         timings=timings)
+
+
+def _gather_runs(runs: List[_Run], B: int, mesh) -> List[_Run]:
+    """Every entry's run on every rank, from this rank's block of them:
+    the device outputs all-gathered (``distributed.gather_entries``), the
+    timings as host objects."""
+    import torch.distributed as dist
+
+    outs = dist_mod.gather_entries([_device_outputs(r) for r in runs], B,
+                                   mesh)
+    timings = [None] * dist_sh.axis_size(mesh, "data")
+    dist.all_gather_object(timings, [r.timings for r in runs],
+                           group=dist_sh.group(mesh))
+    every = []
+    for o, t in zip(outs, [t for part in timings for t in part]):
+        res = dbht_mod.DBHTResult(
+            linkage=o.linkage, cluster_of=o.cluster_of,
+            bubble_of=o.bubble_of,
+            converging=torch.nonzero(o.conv_mask).reshape(-1),
+            direction=o.direction[1:], apsp=o.apsp, hubs=o.hubs)
+        every.append(_Run(res, o.tmfg, t, False, counters=o.counters,
+                          overflow=(None if o.overflow is None
+                                    else bool(o.overflow))))
+    return every

@@ -84,6 +84,11 @@
 //     whole panels, two per SM.
 //   * Ragged edges: rows past n, columns past n and the diagonal are
 //     masked in the few tiles that hold them; the padding of Zt is zero.
+//   * A row range (the sharded funnel's row panel, dist/sharding.py
+//     topk_pearson_sharded): the panels walk only rows row0 .. row0 +
+//     rows - 1, read from their own standardised copy, and the keys run
+//     over all n columns, so the range is bitwise those rows of the
+//     whole table (repro_topk below).
 //
 // On an NVIDIA H100 80GB HBM3 at 700 W it takes 2.03-2.04 ms at Crop's
 // (19412, 46, 64), 12.7% of the 0.259 ms bound (the first design 11.09-
@@ -275,7 +280,8 @@ __host__ __device__ constexpr long long smem_bytes(int shared_lists, int sc,
 
 struct Params {
   const float* zt;          // (Lp, Np) standardised series, l-major
-  float* vals;              // (n, k) out
+  const float* za;          // (Lp, Na) the rows' own: zt, or a row range's
+  float* vals;              // (rows, k) out
   int* idx;
   float* buf_v;             // lists in shared: (G + P, kR, k) pieces;
   int* buf_i;               //   else (G, kR, sc) staging
@@ -284,6 +290,7 @@ struct Params {
   int* tmp_i;
   void* probe;              // TOPK_PROBE 2: thresholds; 3: counters
   int n, k, Np, nk;         // nk = Lp / kBK steps per tile
+  int row0, rows, Na;       // the rows row0 .. row0 + rows - 1 of the table
   int C, P;                 // column tiles per panel, panels
   long long T;              // tiles, P * C
   int G;                    // blocks
@@ -347,7 +354,7 @@ topk_kernel(const Params p) {
       cnt[r] = 0;
       lcnt[r] = 0;
       float t_ = -INFINITY;
-      if (TOPK_PROBE == 2 && pan * kR + r < n)
+      if (TOPK_PROBE == 2 && pan * kR + r < p.rows)
         t_ = static_cast<const float*>(p.probe)[pan * kR + r];
       thr[r] = t_;
     }
@@ -515,6 +522,7 @@ topk_kernel(const Params p) {
   auto load = [&](int s) {
     const int i0 = ld_pan * kR, j0 = ld_col * kC;
     const float* src = p.zt + (int64_t)ld_kk * kBK * p.Np;
+    const float* srca = p.za + (int64_t)ld_kk * kBK * p.Na;
     float* As = ring + (s % kStages) * kStageFloats;
     float* Bs = As + kBK * kR;
     if (++ld_kk == p.nk) {
@@ -526,7 +534,7 @@ topk_kernel(const Params p) {
     }
     {
       const int l = t >> 4, c4 = (t & 15) * 4;
-      cp_async16(As + l * kR + c4, src + (int64_t)l * p.Np + i0 + c4);
+      cp_async16(As + l * kR + c4, srca + (int64_t)l * p.Na + i0 + c4);
     }
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
@@ -603,14 +611,16 @@ topk_kernel(const Params p) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         if (!(acc[i][j] <= th[i])) todo |= 1u << (8 * i + j);
-    if (i0 + kR > n || j0 + kC > n || (i0 < j0 + kC && j0 < i0 + kR)) {
+    const int g0 = p.row0 + i0;   // the panel's first row in the table
+    if (i0 + kR > p.rows || j0 + kC > n || (g0 < j0 + kC && j0 < g0 + kR)) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int gi = i0 + r0 + i;
           const int gj = j0 + c0 + (j & 3) + 16 * (j >> 2);
-          if (gi >= n || gj >= n || gi == gj) todo &= ~(1u << (8 * i + j));
+          if (gi >= p.rows || gj >= n || p.row0 + gi == gj)
+            todo &= ~(1u << (8 * i + j));
         }
     }
     for (;;) {
@@ -724,7 +734,7 @@ __global__ void __launch_bounds__(256)
 merge_kernel(const Params p) {
   const int row = (int)((blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
-  if (row >= p.n) return;
+  if (row >= p.rows) return;
   const int pan = row / kR, r = row % kR, k = p.k;
   const long long x0 = (long long)pan * p.C, x1 = x0 + p.C;
   // blocks b whose run [b T / G, (b + 1) T / G) meets [x0, x1)
@@ -763,20 +773,35 @@ extern "C" void repro_topk_probe_buffer(void* buf) { g_probe = buf; }
 
 // The wrapper (kernels/topk.py) plans grid, staging and where the lists
 // live with the same formulas and allocates the buffers:
-//   zt (Lp, Np) f32; lists in shared (shared_lists = 1, sc = 64): buf_v,
-//   buf_i (G + P, 64, k), buf_c (G + P, 64), tmp_* unused; lists in
-//   memory (sc = 1024): buf_v, buf_i (G, 64, sc), tmp_v, tmp_i (G, 8, k),
-//   buf_c unused.  smem must be this file's smem_bytes for the plan.
+//   zt (Lp, Np) f32; za the same pointer for the whole table, else
+//   (Lp, Na) f32 with Na = P * 64 for the row range; lists in shared
+//   (shared_lists = 1, sc = 64): buf_v, buf_i (G + P, 64, k), buf_c
+//   (G + P, 64), tmp_* unused; lists in memory (sc = 1024): buf_v, buf_i
+//   (G, 64, sc), tmp_v, tmp_i (G, 8, k), buf_c unused.  P counts the
+//   panels of the range's rows.  smem must be this file's smem_bytes for
+//   the plan.
+//
+// A row range (row0, rows) writes rows row0 .. row0 + rows - 1 of the
+// table into vals and idx (rows, k), each row's keys over all n columns.
+// The range's rows are standardised into their own copy za, starting at
+// column 0, so every 16-byte copy stays aligned whatever row0 is; each
+// element is the same fmaf chain on the same operands as in the whole
+// table, so a range is bitwise those rows of it.
 extern "C" int repro_topk(const void* X, const void* mu, const void* rs,
-                          void* vals, void* idx, void* zt, void* buf_v,
-                          void* buf_i, void* buf_c, void* tmp_v, void* tmp_i,
-                          int n, int L, int k, int grid, int sc,
-                          int shared_lists, int smem, void* stream) {
+                          void* vals, void* idx, void* zt, void* za,
+                          void* buf_v, void* buf_i, void* buf_c, void* tmp_v,
+                          void* tmp_i, int n, int L, int k, int row0,
+                          int rows, int grid, int sc, int shared_lists,
+                          int smem, void* stream) {
   if (n <= 1 || L <= 0 || k < 1 || k > n - 1) return (int)cudaErrorInvalidValue;
+  if (row0 < 0 || rows < 1 || row0 + rows > n) return (int)cudaErrorInvalidValue;
+  const bool whole = za == zt;
+  if (whole && (row0 != 0 || rows != n)) return (int)cudaErrorInvalidValue;
   const int Lp = (L + kBK - 1) / kBK * kBK;
   const int Np = (n + kC - 1) / kC * kC;
   Params p;
   p.zt = (const float*)zt;
+  p.za = (const float*)za;
   p.vals = (float*)vals;
   p.idx = (int*)idx;
   p.buf_v = (float*)buf_v;
@@ -793,8 +818,11 @@ extern "C" int repro_topk(const void* X, const void* mu, const void* rs,
   p.k = k;
   p.Np = Np;
   p.nk = Lp / kBK;
+  p.row0 = row0;
+  p.rows = rows;
   p.C = Np / kC;
-  p.P = (n + kR - 1) / kR;
+  p.P = (rows + kR - 1) / kR;
+  p.Na = whole ? Np : p.P * kR;
   p.T = (long long)p.P * p.C;
   p.G = grid;
   p.sc = sc;
@@ -807,11 +835,15 @@ extern "C" int repro_topk(const void* X, const void* mu, const void* rs,
   cudaStream_t st = (cudaStream_t)stream;
   launch_standardize((const float*)X, (const float*)mu, (const float*)rs,
                      (float*)zt, n, L, Lp, Np, st);
+  if (!whole)
+    launch_standardize((const float*)X + (int64_t)row0 * L,
+                       (const float*)mu + row0, (const float*)rs + row0,
+                       (float*)za, rows, L, Lp, p.Na, st);
   cudaError_t err = cudaFuncSetAttribute(
       topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   topk_kernel<<<grid, kThreads, smem, st>>>(p);
   if (shared_lists && TOPK_PROBE != 1)
-    merge_kernel<<<(int)(((int64_t)n * 32 + 255) / 256), 256, 0, st>>>(p);
+    merge_kernel<<<(int)(((int64_t)rows * 32 + 255) / 256), 256, 0, st>>>(p);
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,7 @@ version.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -73,12 +73,15 @@ def masked_argmax(S: torch.Tensor, mask: torch.Tensor, *,
     return ref.masked_argmax_ref(S, mask)
 
 
-def topk(X: torch.Tensor, k: int, *, backend: str = "auto"):
+def topk(X: torch.Tensor, k: int, *, backend: str = "auto",
+         row_range: Optional[Tuple[int, int]] = None):
     """Top-k Pearson partners of each row of X, the diagonal excluded:
-    (values (n, k) f32, indices (n, k) int32), value desc, index asc."""
+    (values (n, k) f32, indices (n, k) int32), value desc, index asc.
+    ``row_range=(row0, count)``: only those rows of the table, bitwise."""
     if use_kernel(X, backend):
-        return topk_mod.topk_pearson_cuda(X.float().contiguous(), k)
-    return ref.topk_pearson_ref(X, k)
+        return topk_mod.topk_pearson_cuda(X.float().contiguous(), k,
+                                          row_range=row_range)
+    return ref.topk_pearson_ref(X, k, row_range=row_range)
 
 
 def sparse_relax(D: torch.Tensor, graph, *, backend: str = "auto"):

@@ -11,7 +11,7 @@ against its twin on the card.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -84,7 +84,8 @@ def masked_argmax_ref(S: torch.Tensor, mask: torch.Tensor):
     return vals, idx.int()
 
 
-def topk_pearson_ref(X: torch.Tensor, k: int, *, bm: int = 128):
+def topk_pearson_ref(X: torch.Tensor, k: int, *, bm: int = 128,
+                     row_range: Optional[Tuple[int, int]] = None):
     """Top-k Pearson partners of each row of X (n, L), the diagonal
     excluded: (values (n, k) f32, indices (n, k) int32), ordered by value
     descending, then index ascending.
@@ -93,19 +94,28 @@ def topk_pearson_ref(X: torch.Tensor, k: int, *, bm: int = 128):
     row panels, ``clip(Z[panel] @ Z.T)`` with the diagonal set to -inf,
     and keeps the first k of a stable descending sort, so the (n, n)
     matrix never exists.
+
+    ``row_range=(row0, count)`` returns only rows row0 .. row0 + count - 1
+    of that table: the panels that hold them are the whole table's
+    panels (the same products on the same operands), so the range is
+    bitwise those rows of it.
     """
     n = X.shape[0]
     if not 1 <= k <= n - 1:
         raise ValueError(f"need 1 <= k <= n-1, got k={k} for n={n}")
+    row0, count = (0, n) if row_range is None else row_range
+    if row0 < 0 or count < 1 or row0 + count > n:
+        raise ValueError(f"row range ({row0}, {count}) outside 0..{n}")
     Z = standardize_rows(X)
     vals, idxs = [], []
-    for r0 in range(0, n, bm):
+    for r0 in range(row0 // bm * bm, row0 + count, bm):
         s = torch.clamp(Z[r0:r0 + bm] @ Z.T, -1.0, 1.0)
         rows = torch.arange(s.shape[0], device=s.device)
         s[rows, rows + r0] = NEG
         v, i = torch.sort(s, dim=1, descending=True, stable=True)
-        vals.append(v[:, :k].contiguous())
-        idxs.append(i[:, :k].int())
+        a, b = max(row0 - r0, 0), min(row0 + count - r0, s.shape[0])
+        vals.append(v[a:b, :k].contiguous())
+        idxs.append(i[a:b, :k].int())
     return torch.cat(vals), torch.cat(idxs)
 
 

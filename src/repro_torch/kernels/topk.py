@@ -16,7 +16,7 @@ held against the plain top-K on the CPU.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -25,7 +25,7 @@ from ._checks import require_cuda, require_int32_range, stream_of
 from .pearson import row_stats
 from .ref import standardize_rows
 
-KERNEL = _build.Kernel("repro_topk", "pppppppppppiiiiiii")
+KERNEL = _build.Kernel("repro_topk", "ppppppppppppiiiiiiiii")
 
 # shared memory of one SM on Hopper (228 KB), and what one block may use
 SM_SMEM = 233472
@@ -69,8 +69,10 @@ class TopKPlan(NamedTuple):
         return self.panels * self.col_tiles
 
 
-def plan(n: int, L: int, k: int, sms: int = H100_SMS) -> TopKPlan:
-    """The kernel's launch for X (n, L) and k.
+def plan(n: int, L: int, k: int, sms: int = H100_SMS,
+         rows: Optional[int] = None) -> TopKPlan:
+    """The kernel's launch for X (n, L) and k, over ``rows`` rows of the
+    table (default all n; the panels are those rows').
 
     Two blocks fit on an SM in either case.  For k up to 64 the lists
     sit in shared memory beside the staging and are merged in a warp's
@@ -80,7 +82,7 @@ def plan(n: int, L: int, k: int, sms: int = H100_SMS) -> TopKPlan:
     each block walks whole panels."""
     Lp = -(-L // STEP) * STEP
     Np = -(-n // COLS) * COLS
-    panels = -(-n // ROWS)
+    panels = -(-(n if rows is None else rows) // ROWS)
     col_tiles = Np // COLS
     slots = BLOCKS_PER_SM * sms
     if k <= SHARED_K and n <= SHARED_MAX_N:
@@ -122,18 +124,25 @@ def merge_pieces_ref(values: List[torch.Tensor], indices: List[torch.Tensor],
 
 
 def topk_split_ref(X: torch.Tensor, k: int, *, rows: int = ROWS,
-                   cols: int = COLS, grid: Optional[int] = None):
+                   cols: int = COLS, grid: Optional[int] = None,
+                   row_range: Optional[Tuple[int, int]] = None):
     """The plain twin of the split kernel: the rows' values
     (``clip(Z @ Z.T)``, the diagonal at -inf), each (block, panel) piece's
     stable top-k of its columns, and each row's merge of its pieces.  It
-    equals ``ref.topk_pearson_ref`` for any tile shape and grid."""
+    equals ``ref.topk_pearson_ref`` for any tile shape and grid.
+
+    ``row_range=(row0, count)`` is the kernel's row range: the panels and
+    the split walk only those rows, whose keys run over all n columns,
+    and the result is those rows of the whole table."""
     n = X.shape[0]
     if not 1 <= k <= n - 1:
         raise ValueError(f"need 1 <= k <= n-1, got k={k} for n={n}")
+    row0, count = _check_range(row_range, n)
     Z = standardize_rows(X)
     S = torch.clamp(Z @ Z.T, -1.0, 1.0)
     S.fill_diagonal_(float("-inf"))
-    panels, col_tiles = -(-n // rows), -(-n // cols)
+    S = S[row0:row0 + count]
+    panels, col_tiles = -(-count // rows), -(-n // cols)
     if grid is None:
         grid = min(BLOCKS_PER_SM * H100_SMS, panels * col_tiles)
     parts = {}
@@ -152,22 +161,41 @@ def topk_split_ref(X: torch.Tensor, k: int, *, rows: int = ROWS,
     return torch.cat(vals), torch.cat(idxs)
 
 
-def topk_pearson_cuda(X: torch.Tensor, k: int, eps: float = 1e-12):
+def _check_range(row_range: Optional[Tuple[int, int]], n: int):
+    """(row0, count) of a row range of an n-row table (default: all)."""
+    if row_range is None:
+        return 0, n
+    row0, count = (int(v) for v in row_range)
+    if row0 < 0 or count < 1 or row0 + count > n:
+        raise ValueError(f"row range ({row0}, {count}) outside 0..{n}")
+    return row0, count
+
+
+def topk_pearson_cuda(X: torch.Tensor, k: int, eps: float = 1e-12,
+                      row_range: Optional[Tuple[int, int]] = None):
     """Top-k Pearson partners of each row of X (n, L) f32, the diagonal
     excluded: (values (n, k) f32, indices (n, k) int32), ordered by value
-    descending, then index ascending."""
+    descending, then index ascending.
+
+    ``row_range=(row0, count)`` computes only rows row0 .. row0 + count - 1
+    of that table ((count, k) each), their keys over all n rows of X:
+    bitwise those rows of the whole launch."""
     require_cuda("X", X, torch.float32, 2)
     n, L = X.shape
     if not 1 <= k <= n - 1:
         raise ValueError(f"need 1 <= k <= n-1, got k={k} for n={n}")
+    row0, count = _check_range(row_range, n)
     require_int32_range(n=n, L=L, nL=n * L, nk=n * k)
     sms = torch.cuda.get_device_properties(X.device).multi_processor_count
-    pl = plan(n, L, k, sms)
+    pl = plan(n, L, k, sms, rows=count)
     mu, rs = row_stats(X, eps)
     dev = X.device
-    vals = torch.empty((n, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((n, k), dtype=torch.int32, device=dev)
+    vals = torch.empty((count, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((count, k), dtype=torch.int32, device=dev)
     zt = torch.empty((pl.Lp, pl.Np), dtype=torch.float32, device=dev)
+    # the whole table reads its rows from zt; a range from its own copy
+    za = zt if count == n else torch.empty(
+        (pl.Lp, pl.panels * ROWS), dtype=torch.float32, device=dev)
     if pl.shared_lists:
         pieces = (pl.grid + pl.panels) * ROWS
         buf_v = torch.empty(pieces * k, dtype=torch.float32, device=dev)
@@ -187,7 +215,8 @@ def topk_pearson_cuda(X: torch.Tensor, k: int, eps: float = 1e-12):
            for t in (buf_v, buf_i, buf_c, tmp_v, tmp_i)]
     with torch.cuda.device(dev):
         KERNEL.launch(X.data_ptr(), mu.data_ptr(), rs.data_ptr(),
-                      vals.data_ptr(), idx.data_ptr(), zt.data_ptr(), *ptr,
-                      n, L, k, pl.grid, pl.sc, int(pl.shared_lists), pl.smem,
+                      vals.data_ptr(), idx.data_ptr(), zt.data_ptr(),
+                      za.data_ptr(), *ptr, n, L, k, row0, count, pl.grid,
+                      pl.sc, int(pl.shared_lists), pl.smem,
                       stream=stream_of(X))
     return vals, idx

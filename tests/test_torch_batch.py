@@ -233,7 +233,9 @@ def test_loose_kwargs_shim_and_resolve_variant():
 
 def test_unported_hooks_raise_with_their_roadmap_item():
     X, _ = make_dataset(24, 20, 2, seed=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    # mesh= is ported (ROADMAP item 14 closed): an object that is not a
+    # DeviceMesh now raises TypeError instead of NotImplementedError
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tcore.cluster(X, mesh=object(), device="cpu")
     # moments= is ported (ROADMAP item 12 closed): it now clusters the
     # window's co-moment similarity instead of raising
@@ -242,5 +244,5 @@ def test_unported_hooks_raise_with_their_roadmap_item():
     got = tcore.cluster(moments=st, k=2, device="cpu")
     want = tcore.cluster(S=twindow.window_similarity(st), k=2, device="cpu")
     np.testing.assert_array_equal(got.linkage, want.linkage)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tcore.cluster_batch(X[None], mesh=object(), device="cpu")

@@ -233,6 +233,53 @@ def test_cuda_topk_streams_long_series(cuda, n, L):
     _check_topk(cuda, n, L, 64, L * 2.0 ** -24)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,row0,count", [
+    (3001, 64, 0, 751), (3001, 64, 751, 751), (3001, 64, 2999, 2),
+    (3001, 64, 17, 1000),    # a range not on a 4-row boundary
+    (2909, 65, 5, 1500),     # lists in device memory
+    (77, 76, 40, 37),        # k = n - 1
+])
+def test_cuda_topk_row_range_is_those_rows(cuda, n, k, row0, count):
+    """A row range (the sharded funnel's row panel) is bitwise those rows
+    of the whole launch, and of the plain version's row range."""
+    X = torch.from_numpy(_rng(n + k).normal(size=(n, 46)).astype(
+        np.float32)).to(cuda)
+    before = ops.KERNELS["topk"].launches
+    fv, fi = ops.topk(X, k, backend="cuda")
+    v, i = ops.topk(X, k, backend="cuda", row_range=(row0, count))
+    assert ops.KERNELS["topk"].launches == before + 2
+    assert v.shape == (count, k) and i.shape == (count, k)
+    assert torch.equal(v, fv[row0:row0 + count])
+    assert torch.equal(i, fi[row0:row0 + count])
+    pv, _ = ops.topk(X, k, backend="torch", row_range=(row0, count))
+    assert float((pv - v).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_world1_funnel_is_the_single_card_run(cuda):
+    """``mesh=`` on a world-1 NCCL group: the dense funnel on one S and
+    the approx funnel from X are bitwise the runs without it."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import data_mesh
+
+    assert not dist.is_initialized()
+    X, _ = make_dataset(600, 46, 6, noise=0.5, seed=3)
+    S = ops.pearson(torch.from_numpy(X).to(cuda))
+    mesh = data_mesh()
+    try:
+        for arr, cfg in ((S, PipelineConfig.opt()),
+                         (X, PipelineConfig.approx(sim_k=32))):
+            kw = dict(S=arr) if arr is S else dict(X=arr)
+            want = cluster(k=6, config=cfg, **kw)
+            got = cluster(k=6, config=cfg, mesh=mesh, **kw)
+            np.testing.assert_array_equal(got.linkage, want.linkage)
+            assert torch.equal(got.tmfg.insert_order, want.tmfg.insert_order)
+    finally:
+        dist.destroy_process_group()
+
+
 def _random_csr(rng, n, m, dev):
     e = rng.integers(0, n, (m, 2))
     e = e[e[:, 0] != e[:, 1]]

@@ -266,7 +266,8 @@ def test_run_pipeline_device_refusals():
     asym = np.arange(16 * 16, dtype=np.float32).reshape(16, 16)
     with pytest.raises(ValueError, match="ambiguous"):
         tcore.run_pipeline_device(asym, PipelineConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # mesh= is ported (ROADMAP item 14): a non-mesh object is a TypeError
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tcore.run_pipeline_device(S, PipelineConfig(), mesh=object(),
                                   device="cpu")
 
