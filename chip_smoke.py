@@ -30,12 +30,15 @@ Phases (any failure exits non-zero; no phase is skipped):
    Apollonian network (a TMFG's degree shape, the hubs by strength), NaN
    entries included, the round timed on each; no LDL or STL in the SASS
    of the Pearson, top-K, relaxation and fp32 flash kernels; flash
-   attention in bf16, the wgmma kernel, at granite-3-8b's prefill shape
-   and gemma3-4b's local layer, and in fp32, the CUDA-core kernel, at an
+   attention in bf16, the wgmma kernel, at granite-3-8b's prefill shape,
+   gemma3-4b's local layer and the serving zoo's prefills (zamba2-2.7b's
+   shared block at hd 80 and window 4096, seamless-m4t's encoder
+   non-causal at hd 64, deepseek-moe-16b's MHA and qwen2-vl-72b's GQA
+   64/8), and in fp32, the CUDA-core kernel, at an
    MQA shape with ragged T and at the fp32 prefill path's shape
    (granite-3-8b, 1024 tokens), the bf16 cases under ``bf16_gate``'s
-   three gates and granite's
-   shape also in the serve path's form, q scaled in bf16 and scale 1;
+   three gates and those without a window shorter than T
+   also in the serve path's form, q scaled in bf16 and scale 1;
    SDPA beside each, the window as a boolean mask), with times from
    CUDA events; the count of HGMMA and UTMALDG instructions in the SASS
    of every instance of the wgmma kernel (``cuobjdump -sass``), none of
@@ -170,8 +173,10 @@ Phases (any failure exits non-zero; no phase is skipped):
    config=PipelineConfig.approx(sim_k=64), mesh=mesh)``, counts reset
    just before and read just after: one top-K launch, one relaxation
    launch per Bellman-Ford round, masked argmax in the per-cluster HAC,
-   no slot overflow, labels and linkage bitwise phase 5's fused run,
-   its seconds and peak bytes logged; (b) the dense funnel (``cluster(S=,
+   no slot overflow, labels and linkage bitwise phase 5's fused run (at
+   n = 2000, bitwise a single-device run there, where the projected
+   finish with phases 11 and 12 passes 600 s; at world size 1 the funnel
+   is the single-device program), its seconds and peak bytes logged; (b) the dense funnel (``cluster(S=,
    mesh=)``, the column-sharded lazy TMFG with its collectives inside the
    captured steps, the row-sharded hub APSP) on the Pearson kernel's S,
    bitwise phase 4's TMFG and linkage (at n = 2000, against a
@@ -185,9 +190,45 @@ Phases (any failure exits non-zero; no phase is skipped):
    ``cluster_batch(mesh=)`` on 4 series sets with each entry bitwise
    ``cluster(X[b])``, and ``cluster_sequences`` and ``expert_affinity``
    equal to ``cluster()`` on the arrays they pool or transpose.
+12. The serving zoo (``ZOO_MODELS``), each model in bf16 with its
+   weights drawn on the card from a seeded ``torch.Generator`` and freed
+   before the next, a ``ServeEngine`` over it, counts reset just before
+   the engine run and read just after: exactly the bf16 flash launches
+   per prefill the model's attention makes and no other kernel, every
+   request done with its new tokens below the vocabulary, each first
+   token the argmax of its prefill's logits, all logits finite; peak
+   bytes, prefill seconds per length and ms per decode step logged.
+   (a) deepseek-moe-16b at full width and depth (28 layers, 64 routed
+   experts top-6 and 2 shared, about 16.7e9 parameters): 4 slots serve
+   prompts of 128, 512, 2048 and 4096 tokens (the last in two dispatch
+   groups), 8 new tokens each, 28 flash launches a prefill; the
+   4096-token prompt with ``backend="cuda"`` against ``"torch"``: the
+   last position's cosine >= 0.999 with the plain run given the kernel
+   run's expert routing, and with free routing its distance from 1 at
+   most MOE_FREE_FACTOR times that of two rounding witnesses (the plain
+   run with its attention output moved by one bf16 ulp, and with SDPA),
+   whose routing flips are logged beside the kernel's, as are the pairs
+   the dispatches drop by capacity; then the same requests and weights
+   through ``build_model(cfg, kv_quant=True)``: the same first tokens,
+   the int8 caches at most 0.55x the bf16 caches' bytes, the first
+   decode step's logits at cosine >= 0.99 of the bf16 cache's under the
+   bf16 run's routing and >= KVQ_FREE_COSINE with free routing.
+   (b) mixtral-8x7b at
+   full width, 4 of 32 layers: a 4096-token prompt and 16 new tokens
+   (the decode passes the 4096-slot window's ring).  (c) qwen2-vl-72b at
+   full width, 8 of 80 layers: two requests of 256 patch embeddings and
+   768 tokens, 8 new tokens each, M-RoPE, the cosine gate.  (d)
+   zamba2-2.7b at full width and depth: 4 slots, prompts of 128 to 2048
+   tokens, 9 shared-block flash launches (hd 80) a prefill, the cosine
+   gate at 2048.  (e) xlstm-125m at full width and depth: 4 prompts of
+   64 to 512 tokens and no flash launch.  (f) seamless-m4t-large-v2 at
+   full width and depth: two requests of 1024 frame embeddings and 128
+   tokens, 24 non-causal (the encoder) and 24 causal flash launches a
+   prefill, the cosine gate.
 
 The line before the last is the JSON object of per-kernel numbers (with
-each kernel's launches on phase 11's approx and dense funnels); the
+each kernel's launches on phase 11's approx and dense funnels and on
+each of phase 12's engine runs); the
 last line is ``{"ok": true, "device": {...}}``.  The script needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero
 without printing a result when either is missing.  It imports nothing
@@ -226,6 +267,33 @@ FP32_LAYERS = 2
 FP32_TOKENS = 1024
 
 PARITY_N = 2000
+
+# phase 12, the serving zoo: each model in bf16, its depth (None: full),
+# its prompts (one request each), new tokens per request, engine slots,
+# bf16 flash launches per prefill (non-causal ones among them), the
+# prompt held against backend="torch" (cos_T) and whether the int8 KV
+# cache serves the same requests again
+ZOO_MODELS = {
+    "deepseek-moe-16b": dict(layers=None, lengths=(128, 512, 2048, 4096),
+                             new=8, slots=4, flash=28, cos_T=4096,
+                             kv_quant=True),
+    # 46.7e9 parameters whole: full width, 4 of 32 layers; the decode
+    # passes the 4096-slot window's ring
+    "mixtral-8x7b": dict(layers=4, lengths=(4096,), new=16, slots=1,
+                         flash=4),
+    # 72e9 parameters whole: full width, 8 of 80 layers; each prompt 256
+    # patch embeddings and 768 tokens
+    "qwen2-vl-72b": dict(layers=8, lengths=(768, 768), new=8, slots=2,
+                         flash=8, cos_T=768),
+    "zamba2-2.7b": dict(layers=None, lengths=(128, 512, 1024, 2048), new=8,
+                        slots=4, flash=9, cos_T=2048),
+    "xlstm-125m": dict(layers=None, lengths=(64, 128, 256, 512), new=8,
+                       slots=4, flash=0),
+    # each prompt 1024 frame embeddings (the encoder) and 128 tokens
+    "seamless-m4t-large-v2": dict(layers=None, lengths=(128, 128), new=8,
+                                  slots=2, flash=48, non_causal=24,
+                                  cos_T=128),
+}
 
 # The fused=False repeats run at the main dataset's size unless the
 # script would then pass half its 1200 s limit: the projection adds 1.1x
@@ -266,15 +334,32 @@ STREAM_EVERY = 16
 STREAM_TICKS = 96
 ADMISSION_N = 256
 # phase 11 (the multi-device funnel on a world-1 NCCL group): its expected
-# seconds in all (the approx funnel at the dataset's size, about phase
-# 5's fused run, the dense funnel at n = PARITY_N and the n = PARITY_N
-# checks), not charged to the projections above, so that phase 11
-# shrinks no earlier phase; and the dense funnel's expected seconds at
-# the dataset's size beside phase 4's run: with the third of MESH_S that
-# follows it, it moves the dense funnel to n = PARITY_N where the
-# projected finish passes the budget
+# seconds in all with the approx funnel at the dataset's size (about
+# phase 5's fused run), the dense funnel at n = PARITY_N and the
+# n = PARITY_N checks (163.9-179.1 s on an H100 at 700 W; 82.2-85.8 s
+# with the approx funnel at n = PARITY_N), not charged to the
+# projections above, so that phase 11 shrinks no earlier phase; and the
+# dense funnel's expected seconds at the dataset's size beside phase 4's
+# run: with the third of MESH_S that follows it, it moves the dense
+# funnel to n = PARITY_N where the projected finish passes the budget
 MESH_S = 175.0
 MESH_DENSE_PER_DENSE = 1.3
+# phase 12 (the serving zoo): its expected seconds (12.1-16.8 s on an
+# H100 at 700 W, and about 4 s more for deepseek's rounding witnesses),
+# charged to no earlier projection but phase 11a's: past the budget its
+# approx funnel runs at n = PARITY_N against a single-device run there
+ZOO_S = 30.0
+# phase 12's MoE gates with free routing, beside those taken under one
+# routing (the top-k flips under rounding).  The cuda-against-torch
+# cosine's distance from 1 is at most MOE_FREE_FACTOR times the larger
+# of the rounding witnesses' (``_rounding_witnesses``): on an H100 at
+# 700 W, deepseek-moe-16b at 4096 tokens, seeds 0 and 1, the kernel's
+# distance was 0.95 and 0.85 of the witnesses' larger one, and the
+# witnesses flipped 27.6-33.7% of routes against the kernel's 27.1-29.7%.
+# The int8 caches' first decode step with free routing is at least
+# KVQ_FREE_COSINE of the bf16 cache's (0.9707-0.9996 there)
+MOE_FREE_FACTOR = 2.0
+KVQ_FREE_COSINE = 0.95
 
 
 def fail(msg: str) -> None:
@@ -352,6 +437,385 @@ def same_nan(a, b) -> bool:
     na, nb = torch.isnan(a), torch.isnan(b)
     return bool(torch.equal(na, nb)) and bool(torch.equal(
         torch.where(na, 0.0, a), torch.where(nb, 0.0, b)))
+
+
+def _nbytes(tree) -> int:
+    """Bytes of every tensor in a (nested) cache or parameter tree."""
+    from repro_torch.serve.engine import _leaves
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _cosine(a, b) -> float:
+    import torch
+    return float(torch.nn.functional.cosine_similarity(
+        a.double(), b.double(), dim=0))
+
+
+def _recording_route(moe_mod, into: list):
+    """``moe.route`` that appends each call's top-k experts to ``into``."""
+    real = moe_mod.route
+
+    def route(p, xf, cfg):
+        out = real(p, xf, cfg)
+        into.append(out[2])
+        return out
+    return route
+
+
+def _replayed_route(moe_mod, recorded: list):
+    """``moe.route`` whose calls take the recorded top-k experts in turn,
+    their weights this call's probabilities renormalised."""
+    import torch
+    real, it = moe_mod.route, iter(recorded)
+
+    def route(p, xf, cfg):
+        probs, _, _ = real(p, xf, cfg)
+        topi = next(it)
+        topv = probs.gather(1, topi)
+        return probs, topv / torch.clamp(topv.sum(-1, keepdim=True),
+                                         min=1e-9), topi
+    return route
+
+
+def _rounding_witnesses(real_flash, seed: int):
+    """(name, flash_attention) pairs that differ from the plain attention
+    by rounding alone: its output moved by one bf16 ulp with a seeded
+    sign per element, and SDPA (the library's attention)."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+
+    def ulp(q, k, v, **kw):
+        o = real_flash(q, k, v, **kw)
+        of = o.float()
+        step = of.abs().clamp_min(2.0 ** -126).log2().floor().sub(7).exp2()
+        sign = torch.randint(0, 2, o.shape, generator=gen,
+                             device=o.device).mul(2).sub(1)
+        return (of + sign * step).to(o.dtype)
+
+    def sdpa(q, k, v, *, causal=True, window=0, scale=None, backend="auto"):
+        check(window == 0, "the SDPA witness takes no window")
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, scale=scale,
+            enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
+
+    return (("plain_one_ulp", ulp), ("sdpa", sdpa))
+
+
+def serve_zoo(seed: int) -> dict:
+    """Phase 12: each model of ZOO_MODELS served on the card in bf16, its
+    weights drawn there from a seeded generator, freed before the next.
+    Returns the per-model numbers, each with its bf16 flash launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import engine
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    real_route = moe_mod.route
+    real_flash = ops.flash_attention
+    out = {}
+    for arch, spec in ZOO_MODELS.items():
+        t_model = time.perf_counter()
+        cfg = get_config(arch)
+        if spec.get("layers"):
+            cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+        lengths, new = spec["lengths"], spec["new"]
+        Fl = cfg.frontend_len if cfg.frontend != "none" else 0
+        # a decoder-only model's frontend comes before its tokens
+        extra = 0 if cfg.is_encdec else Fl
+        max_len = max(lengths) + extra + new
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = model.init(gen)
+        sync()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in engine._leaves(params))
+        check(params["embed"].dtype == torch.bfloat16,
+              f"zoo {arch}: weights not bf16")
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(0, cfg.vocab, T_, dtype=np.int32)
+                   for T_ in lengths]
+        frontends = [rng.normal(size=(Fl, cfg.d_model)).astype(np.float32)
+                     if Fl else None for _ in lengths]
+
+        def fe_of(i):
+            f = frontends[i]
+            return None if f is None else torch.as_tensor(f, device=dev)[None]
+
+        # warm-up (cuBLAS handles, first-call allocations): not counted
+        model.prefill(params, torch.as_tensor(prompts[0][:64], device=dev)
+                      [None], fe_of(0), max_len=max_len)
+        sync()
+
+        def serve(m, label, before_first_decode=None, first_route=None):
+            """The requests through a ServeEngine over ``m``, counts reset
+            just before and read just after: (engine, requests, launches,
+            seconds, prefill log, decode ms, first decode step's logits).
+            ``before_first_decode(decode_step, args)`` runs, untimed, just
+            before the first decode step, and ``first_route`` stands in
+            for ``moe.route`` during that step."""
+            plog, dms, first = [], [], []
+            pf, ds = m.prefill, m.decode_step
+
+            def timed_prefill(*a, **kw):
+                sync()
+                t_ = time.perf_counter()
+                o = pf(*a, **kw)
+                sync()
+                plog.append((int(a[1].shape[1]), time.perf_counter() - t_,
+                             bool(torch.isfinite(o[0]).all()),
+                             int(torch.argmax(o[0], -1)[0])))
+                return o
+
+            def timed_decode(*a, **kw):
+                if not first and before_first_decode is not None:
+                    before_first_decode(ds, a)
+                if not first and first_route is not None:
+                    moe_mod.route = first_route
+                sync()
+                t_ = time.perf_counter()
+                try:
+                    o = ds(*a, **kw)
+                    sync()
+                finally:
+                    moe_mod.route = real_route
+                dms.append((time.perf_counter() - t_) * 1e3)
+                check(bool(torch.isfinite(o[0]).all()),
+                      f"zoo {label}: decode logits not finite")
+                if not first:
+                    first.append(o[0].float().clone())
+                return o
+
+            # the attention calls that launch the flash kernels, by their
+            # causal flag (the kernel's own count is the launch count)
+            calls = {True: 0, False: 0}
+
+            def flash_by_flag(*a, **kw):
+                calls[bool(kw.get("causal", True))] += 1
+                return real_flash(*a, **kw)
+
+            m.prefill, m.decode_step = timed_prefill, timed_decode
+            ops.flash_attention = flash_by_flag
+            try:
+                eng = ServeEngine(m, params, n_slots=spec["slots"],
+                                  max_len=max_len)
+                reqs = [Request(uid=i, prompt=p_, max_new_tokens=new,
+                                frontend=frontends[i])
+                        for i, p_ in enumerate(prompts)]
+                for r_ in reqs:
+                    eng.submit(r_)
+                sync()
+                ops.reset_launch_counts()
+                t_ = time.perf_counter()
+                eng.run()
+                sync()
+                run_s = time.perf_counter() - t_
+                launches = ops.launch_counts()
+            finally:
+                m.prefill, m.decode_step = pf, ds
+                ops.flash_attention = real_flash
+            launches["non_causal_calls"] = calls[False]
+            check(calls[False] == spec.get("non_causal", 0) * len(prompts)
+                  and calls[True] + calls[False] == spec["flash"]
+                  * len(prompts), f"zoo {label}: flash calls by causal "
+                  f"flag {calls}")
+            check(all(r_.done and len(r_.output) == new
+                      and all(0 <= t_ < cfg.vocab for t_ in r_.output)
+                      for r_ in reqs),
+                  f"zoo {label}: a request is not done with {new} tokens "
+                  f"below the vocabulary")
+            check([e_[0] for e_ in plog] == [len(p_) for p_ in prompts]
+                  and all(e_[2] for e_ in plog),
+                  f"zoo {label}: prefills {plog}")
+            check(all(r_.output[0] == e_[3] for r_, e_ in zip(reqs, plog)),
+                  f"zoo {label}: a first token is not the argmax of its "
+                  f"prefill's logits")
+            want = spec["flash"] * len(reqs)
+            check(launches["flash_attention_wgmma"] == want
+                  and sum(v_ for k_, v_ in launches.items()
+                          if k_ != "non_causal_calls") == want,
+                  f"zoo {label}: launches {launches}, want {want} bf16 "
+                  f"flash launches and no other kernel")
+            return eng, reqs, launches, run_s, plog, dms, first[0]
+
+        # an MoE model's routing in its first decode step, kept for the
+        # int8 cache's comparison under the same routing
+        first_routes = []
+        eng, reqs, launches, run_s, plog, dms, first = serve(
+            model, arch, first_route=_recording_route(moe_mod, first_routes)
+            if cfg.n_experts else None)
+        row = dict(arch=arch, n_layers=cfg.n_layers,
+                   full_depth=cfg.n_layers == get_config(arch).n_layers,
+                   params=n_params, param_bytes=_nbytes(params),
+                   init_s=init_s, slots=spec["slots"], max_len=max_len,
+                   prompt_lengths=list(lengths), frontend_len=Fl,
+                   new_tokens=new, run_s=run_s, engine_steps=eng.steps,
+                   prefill_s=[[e_[0], e_[1]] for e_ in plog],
+                   decode_ms_mean=float(np.mean(dms)),
+                   decode_ms_median=float(np.median(dms)),
+                   decode_steps=len(dms), launches=launches,
+                   cache_bytes=_nbytes(eng.caches))
+
+        if spec.get("cos_T"):
+            # the longest prompt through the kernels and through the plain
+            # attention.  An MoE model routes each token to its top-k
+            # experts, a discrete choice that the kernel's last-bit
+            # differences flip for near-tied tokens (and a flip moves other
+            # pairs past an expert's capacity): its gate is taken with the
+            # plain run given the kernel run's routing, and the free run's
+            # cosine, the flips and the pairs dropped by capacity are logged
+            i = lengths.index(spec["cos_T"])
+            tok = torch.as_tensor(prompts[i], device=dev)[None]
+            drops, routes = [], {"cuda": [], "torch": []}
+            real_dispatch = moe_mod.dispatch
+
+            def counting_dispatch(topi, C, E):
+                o = real_dispatch(topi, C, E)
+                drops.append(int((~o[2]).sum()))
+                return o
+
+            def last_logits(backend, route_fn=None):
+                if route_fn is not None:
+                    moe_mod.route = route_fn
+                try:
+                    lo = model.forward(params, tok, fe_of(i), backend=backend)
+                finally:
+                    moe_mod.route = real_route
+                lo = lo if torch.is_tensor(lo) else lo[0]
+                return lo[0, -1, :cfg.vocab].clone()
+
+            moe_mod.dispatch = counting_dispatch
+            try:
+                lc = last_logits("cuda", _recording_route(moe_mod,
+                                                          routes["cuda"]))
+            finally:
+                moe_mod.dispatch = real_dispatch
+            lt = last_logits("torch", _recording_route(moe_mod,
+                                                       routes["torch"]))
+
+            cos = _cosine(lc, lt)
+            row["cuda_vs_torch"] = dict(prompt=spec["cos_T"],
+                                        last_cosine=cos, max_abs_dlogit=float(
+                                            (lc - lt).abs().max()))
+            gate = cos
+            if cfg.n_experts:
+                def flips_of(ra, rb):
+                    return [float((a_.sort(-1).values != b_.sort(-1).values)
+                                  .any(-1).float().mean())
+                            for a_, b_ in zip(ra, rb)]
+
+                flips = flips_of(routes["cuda"], routes["torch"])
+                ls = last_logits("torch", _replayed_route(moe_mod,
+                                                          routes["cuda"]))
+                gate = _cosine(lc, ls)
+                # the rounding witnesses: the plain run again with its
+                # attention output moved by one bf16 ulp (a seeded sign
+                # per element), and with SDPA in place of the plain
+                # attention; each free, against the plain run
+                wit = {}
+                for name, fn in _rounding_witnesses(real_flash, seed):
+                    rw = []
+                    ops.flash_attention = fn
+                    try:
+                        lw = last_logits("torch",
+                                         _recording_route(moe_mod, rw))
+                    finally:
+                        ops.flash_attention = real_flash
+                    fw = flips_of(rw, routes["torch"])
+                    wit[name] = dict(last_cosine=_cosine(lw, lt),
+                                     flip_share_mean=float(np.mean(fw)),
+                                     routing_flip_share_per_dispatch=fw)
+                    del lw, rw
+                worst = min(w_["last_cosine"] for w_ in wit.values())
+                free_lim = 1.0 - MOE_FREE_FACTOR * (1.0 - worst)
+                row["cuda_vs_torch"].update(
+                    shared_routing_cosine=gate,
+                    flip_share_mean=float(np.mean(flips)),
+                    routing_flip_share_per_dispatch=flips,
+                    rounding_witnesses=wit, free_cosine_limit=free_lim)
+                check(cos >= free_lim, f"zoo {arch}: cuda vs torch at "
+                      f"T={spec['cos_T']} with free routing: last-position "
+                      f"cosine {cos} < {free_lim}, {MOE_FREE_FACTOR}x the "
+                      f"rounding witnesses' distance from 1 "
+                      f"({row['cuda_vs_torch']})")
+                pairs = spec["cos_T"] * cfg.moe_top_k * cfg.n_layers
+                row["moe_dropped_pairs"] = dict(
+                    prompt=spec["cos_T"], dispatches=len(drops),
+                    pairs=pairs, dropped=sum(drops),
+                    dropped_share=sum(drops) / pairs, per_dispatch=drops)
+                del ls
+            check(bool(torch.isfinite(lc).all()) and gate >= 0.999,
+                  f"zoo {arch}: cuda vs torch at T={spec['cos_T']}: "
+                  f"last-position cosine {gate} < 0.999 "
+                  f"({row['cuda_vs_torch']})")
+            del lc, lt, tok, routes
+
+        if spec.get("kv_quant"):
+            # the same requests and weights through int8 KV caches
+            qmodel = build_model(cfg, kv_quant=True)
+            shared = []
+
+            def shared_first_step(ds_, a_):
+                # the first decode step on a copy of the int8 caches, with
+                # the bf16 run's routing (untimed; the engine's own step
+                # then routes freely)
+                moe_mod.route = _replayed_route(moe_mod, first_routes)
+                try:
+                    o_ = ds_(a_[0], engine._map(a_[1], torch.Tensor.clone),
+                             *a_[2:])
+                finally:
+                    moe_mod.route = real_route
+                shared.append(o_[0].float().clone())
+
+            qeng, qreqs, qlaunch, qrun_s, qplog, qdms, qfirst = serve(
+                qmodel, f"{arch} kv_quant", before_first_decode=(
+                    shared_first_step if cfg.n_experts else None))
+            check([r_.output[0] for r_ in qreqs]
+                  == [r_.output[0] for r_ in reqs],
+                  f"zoo {arch} kv_quant: first tokens differ from the bf16 "
+                  f"cache's")
+            ratio = _nbytes(qeng.caches) / _nbytes(eng.caches)
+            check(ratio <= 0.55, f"zoo {arch} kv_quant: the int8 caches "
+                  f"hold {ratio:.4f} of the bf16 caches' bytes > 0.55")
+            qcos = [_cosine(a_, b_) for a_, b_ in zip(qfirst, first)]
+            gate = [_cosine(a_, b_) for a_, b_ in zip(shared[0], first)] \
+                if shared else qcos
+            check(min(gate) >= 0.99, f"zoo {arch} kv_quant: first decode "
+                  f"step's logits at cosine {gate} of the bf16 cache's "
+                  f"(free routing: {qcos})")
+            check(min(qcos) >= KVQ_FREE_COSINE, f"zoo {arch} kv_quant: "
+                  f"first decode step's logits with free routing at cosine "
+                  f"{qcos} of the bf16 cache's < {KVQ_FREE_COSINE}")
+            row["kv_quant"] = dict(
+                cache_bytes=_nbytes(qeng.caches), bytes_ratio=ratio,
+                first_decode_cosine=gate, first_decode_cosine_free=qcos,
+                run_s=qrun_s,
+                prefill_s=[[e_[0], e_[1]] for e_ in qplog],
+                decode_ms_mean=float(np.mean(qdms)),
+                decode_ms_median=float(np.median(qdms)),
+                launches=qlaunch, same_first_tokens=True)
+            del qeng, qreqs, qmodel, qfirst
+        row["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        del eng, reqs, params, model, first
+        torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t_model
+        log(f"[zoo] {json.dumps(row)}")
+        out[arch] = row
+    return out
 
 
 def main() -> None:
@@ -746,20 +1210,34 @@ def main() -> None:
     # flash attention: granite-3-8b's per-sequence prefill (the serve
     # path's shape) and gemma3-4b's local layer in bf16 (the wgmma kernel),
     # and MQA in fp32 with ragged T (the CUDA-core kernel)
+    # and the serving zoo's prefills (phase 12) in bf16: zamba2's shared
+    # block (hd 80, window 4096), seamless's encoder (non-causal),
+    # deepseek (MHA) and qwen2-vl (GQA 64/8)
     flash_cases = [
-        ("granite-3-8b causal", (1, 4096, 32, 8, 128), 0, torch.bfloat16),
-        ("gemma3-4b local", (1, 4096, 8, 4, 256), 1024, torch.bfloat16),
-        ("MQA ragged", (1, 1000, 48, 1, 128), 0, torch.float32),
-        ("granite-3-8b fp32 prefill", (1, FP32_TOKENS, 32, 8, 128), 0,
+        ("granite-3-8b causal", (1, 4096, 32, 8, 128), 0, True,
+         torch.bfloat16),
+        ("gemma3-4b local", (1, 4096, 8, 4, 256), 1024, True,
+         torch.bfloat16),
+        ("zamba2-2.7b shared block", (1, 2048, 32, 32, 80), 4096, True,
+         torch.bfloat16),
+        ("seamless-m4t encoder", (1, 1024, 16, 16, 64), 0, False,
+         torch.bfloat16),
+        ("deepseek-moe-16b causal", (1, 4096, 16, 16, 128), 0, True,
+         torch.bfloat16),
+        ("qwen2-vl-72b causal", (1, 1024, 64, 8, 128), 0, True,
+         torch.bfloat16),
+        ("MQA ragged", (1, 1000, 48, 1, 128), 0, True, torch.float32),
+        ("granite-3-8b fp32 prefill", (1, FP32_TOKENS, 32, 8, 128), 0, True,
          torch.float32),
     ]
     fcases = []
-    for label, (B, T, H, KV, hd), win, dt in flash_cases:
+    for label, (B, T, H, KV, hd), win, causal, dt in flash_cases:
         fq = torch.randn((B, T, H, hd), generator=gen, device=dev).to(dt)
         fk = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(dt)
         fv = torch.randn((B, T, KV, hd), generator=gen, device=dev).to(dt)
-        got = flash_attention_cuda(fq, fk, fv, causal=True, window=win)
-        want = ref.flash_attention_ref(fq, fk, fv, causal=True, window=win)
+        got = flash_attention_cuda(fq, fk, fv, causal=causal, window=win)
+        want = ref.flash_attention_ref(fq, fk, fv, causal=causal,
+                                       window=win)
         sync()
         gates = {}
         if dt == torch.float32:
@@ -772,17 +1250,18 @@ def main() -> None:
               f"flash kernel vs plain at {label}: max abs err {err} "
               f"(tol {tol}), {gates}")
         del got, want
-        if dt == torch.bfloat16 and win == 0:
+        if dt == torch.bfloat16 and (win == 0 or win >= T):
             # the serve path's form: q scaled in bf16 first, scale = 1
             qs = fq * torch.tensor(hd ** -0.5, dtype=dt, device=dev)
-            got = flash_attention_cuda(qs, fk, fv, causal=True, scale=1.0)
-            want = ref.flash_attention_ref(qs, fk, fv, causal=True,
-                                           scale=1.0)
+            got = flash_attention_cuda(qs, fk, fv, causal=causal,
+                                       window=win, scale=1.0)
+            want = ref.flash_attention_ref(qs, fk, fv, causal=causal,
+                                           window=win, scale=1.0)
             ok, gates["prescaled"] = bf16_gate(got, want)
             check(ok, f"flash kernel vs plain at {label}, q pre-scaled, "
                       f"scale 1: {gates['prescaled']}")
             del got, want, qs
-        pairs = B * H * causal_pairs(T, win)
+        pairs = B * H * (causal_pairs(T, win) if causal else T * T)
         elem = fq.element_size()
         b_ms, b_by = bound(elem * (2 * fq.numel() + 2 * fk.numel()),
                            4 * hd * pairs,
@@ -791,10 +1270,10 @@ def main() -> None:
         # one PyTorch call computes the same function: SDPA, causal, or
         # with the window as a boolean mask built outside the timed call
         qt, kt_, vt = (x.transpose(1, 2) for x in (fq, fk, fv))
-        if win == 0:
+        if win == 0 or (causal and win >= T):
             lib_ms = cuda_ms(lambda: torch.nn.functional.
                              scaled_dot_product_attention(
-                                 qt, kt_, vt, is_causal=True,
+                                 qt, kt_, vt, is_causal=causal,
                                  enable_gqa=True), 10)
         else:
             ti = torch.arange(T, device=dev)
@@ -806,13 +1285,13 @@ def main() -> None:
                                  enable_gqa=True), 10)
             del live
         fcases.append(dict(
-            case=label, shape=[B, T, H, KV, hd], window=win,
+            case=label, shape=[B, T, H, KV, hd], window=win, causal=causal,
             dtype=str(dt).replace("torch.", ""), max_abs_err=err, tol=tol,
             gates=gates,
             ms=cuda_ms(lambda: flash_attention_cuda(
-                fq, fk, fv, causal=True, window=win), 20),
+                fq, fk, fv, causal=causal, window=win), 20),
             plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
-                fq, fk, fv, causal=True, window=win), 2),
+                fq, fk, fv, causal=causal, window=win), 2),
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
         log(f"[kernel] flash_attention ok at {label}: {fcases[-1]}")
         del fq, fk, fv, qt, kt_, vt
@@ -825,8 +1304,9 @@ def main() -> None:
     check(len(sass) > 0 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
                                 for c in sass.values()),
           f"flash_wgmma_kernel SASS lacks HGMMA or UTMALDG: {sass}")
-    for kname, cases in (("flash_attention_wgmma", fcases[:2]),
-                         ("flash_attention", fcases[2:])):
+    for kname, dtn in (("flash_attention_wgmma", "bfloat16"),
+                       ("flash_attention", "float32")):
+        cases = [c_ for c_ in fcases if c_["dtype"] == dtn]
         head = cases[0]
         entries[kname] = dict(
             name=kname, route="cuda",
@@ -2126,14 +2606,30 @@ def main() -> None:
         rows=[q0, qn], ms=cuda_ms(lambda: topk_pearson_cuda(
             Xd, K, row_range=(q0, qn)), 5), bound_ms=qb_ms, bound_by=qb_by,
         bitwise=True)
-    del qv, qi, tv1, ti1
+    del qv, qi, tv1, ti1, Xd
     torch.cuda.empty_cache()
+    # the funnel itself at the dataset's size, bitwise phase 5's fused run,
+    # unless the projected finish (phase 11 and phase 12 still to come)
+    # passes the budget: then at n = PARITY_N, bitwise a single-device run
+    # there (at world size 1 the two calls are the same program)
+    na, Xa_np, ka = n, X_np, k
+    Za_ref, labels_a_ref = Z5, labels5
+    projected = time.perf_counter() - t_start + MESH_S + ZOO_S
+    if projected > STAGED_BUDGET_S:
+        na, ka = PARITY_N, 8
+        Xa_np, _ = make_dataset(na, 46, 8, noise=0.5, seed=args.seed + 1)
+        log(f"[mesh] projected finish {projected:.1f} s > "
+            f"{STAGED_BUDGET_S} s: the approx funnel runs at n={na}")
+        ra_ref = cluster(Xa_np, k=ka, config=cfg_a)
+        Za_ref, labels_a_ref = ra_ref.linkage, ra_ref.labels
+        del ra_ref
     sync()
     base_m = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    rm11 = cluster(X_np, k=k, config=cfg_a, mesh=mesh, collect_timings=True)
+    rm11 = cluster(Xa_np, k=ka, config=cfg_a, mesh=mesh,
+                   collect_timings=True)
     sync()
     mesh_a_s = time.perf_counter() - t0
     launches_m = ops.launch_counts()
@@ -2148,17 +2644,20 @@ def main() -> None:
           f"{tm11['apsp_rounds']}")
     check(launches_m["masked_argmax"] > 0 and launches_m["pearson"] == 0,
           f"mesh approx: launches {launches_m}")
-    check(np.array_equal(rm11.linkage, Z5)
-          and np.array_equal(rm11.labels, labels5),
-          "mesh approx: linkage or labels differ from phase 5's fused run")
-    mesh_a = dict(n=n, sim_k=K, total_s=mesh_a_s, phase5_total_s=total_a,
+    check(np.array_equal(rm11.linkage, Za_ref)
+          and np.array_equal(rm11.labels, labels_a_ref),
+          f"mesh approx: linkage or labels differ from the single-device "
+          f"fused run (n={na})")
+    mesh_a = dict(n=na, sim_k=K, total_s=mesh_a_s, phase5_total_s=total_a,
                   pops=int(tm11["tmfg_pops"]),
                   tmfg_host_syncs=int(tm11["tmfg_host_syncs"]),
                   bf_rounds=int(tm11["apsp_rounds"]), launches=launches_m,
                   peak_bytes=peak_m, allocated_before=base_m,
-                  bitwise_table=True, bitwise_phase5=True)
-    log(f"[mesh] {name} approx funnel: {json.dumps(mesh_a)}")
-    del rm11, Xd
+                  bitwise_table=True, bitwise_single=True)
+    log(f"[mesh] approx funnel: {json.dumps(mesh_a)}")
+    log(f"[time] mesh 11a done at {time.perf_counter() - t_start:.1f} s"
+        f" ({time.perf_counter() - t11:.1f} s into phase 11)")
+    del rm11, Xa_np
     torch.cuda.empty_cache()
 
     # 11b. the dense funnel on the Pearson kernel's S, at the dataset's
@@ -2236,6 +2735,8 @@ def main() -> None:
                   phase4_staged_us_per_pop=us_pop, phase4_stages_n=int(
                       Xr.shape[0]), bitwise_single=True)
     log(f"[mesh] dense funnel: {json.dumps(mesh_b)}")
+    log(f"[time] mesh 11b done at {time.perf_counter() - t_start:.1f} s"
+        f" ({time.perf_counter() - t11:.1f} s into phase 11)")
     del tsh, tsd, prog_sh
     torch.cuda.empty_cache()
 
@@ -2304,6 +2805,16 @@ def main() -> None:
     log(f"[time] mesh phase done at {time.perf_counter() - t_start:.1f} s"
         f" ({mesh_s:.1f} s)")
 
+    # ---- 12. the serving zoo ---------------------------------------------
+    clear_compiled()
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    log(f"[zoo] {torch.cuda.memory_allocated()} B allocated before phase 12")
+    zoo = serve_zoo(args.seed)
+    zoo_s = time.perf_counter() - t12
+    log(f"[time] zoo phase done at {time.perf_counter() - t_start:.1f} s"
+        f" ({zoo_s:.1f} s)")
+
     dense_kernels = ("pearson", "minplus", "masked_argmax")
     for e in entries.values():
         e["launches"] = (launches_s if e["name"] == "flash_attention_wgmma"
@@ -2314,11 +2825,17 @@ def main() -> None:
                                 for w, c in filt_launches.items()}
         e["mesh_launches"] = {"approx": launches_m[e["name"]],
                               "dense": launches_mb[e["name"]]}
+        e["zoo_launches"] = {a_: r_["launches"][e["name"]]
+                             for a_, r_ in zoo.items()}
+        e["zoo_kv_quant_launches"] = {
+            a_: r_["kv_quant"]["launches"][e["name"]]
+            for a_, r_ in zoo.items() if "kv_quant" in r_}
     main["seconds_in_all"] = time.perf_counter() - t_start
     main["sparse_phase_s"] = sparse_s
     main["filter_phase_s"] = filter_s
     main["stream_phase_s"] = stream_s
     main["mesh_phase_s"] = mesh_s
+    main["zoo_phase_s"] = zoo_s
     log(f"[main] {json.dumps(main)}")
     log(f"[approx] {json.dumps(approx)}")
     log(f"[serve] {json.dumps(serve)}")
@@ -2326,6 +2843,7 @@ def main() -> None:
     log(f"[filters] {json.dumps(filt_runs)}")
     log(f"[stream] {json.dumps(stream)}")
     log(f"[mesh] {json.dumps(dict(approx=mesh_a, dense=mesh_b, parity=mesh_c))}")
+    log(f"[zoo] {json.dumps(zoo)}")
     log(smi_line)
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {

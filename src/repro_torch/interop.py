@@ -58,17 +58,33 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 
 def params_from_jax(params, device="cpu") -> dict:
-    """The port's ``DecoderModel`` parameters from the JAX model's nested
-    dict: every leaf converted with :func:`tensor_from_numpy`, and the
-    stacked ``layers`` (a leading (L, ...) axis on every leaf) split into
-    a list of L per-layer dicts."""
+    """The port's model parameters from a JAX model's nested dict, for
+    every family: each leaf converted with :func:`tensor_from_numpy`, and
+    each stack of layers (``layers``, ``enc_layers``, ``dec_layers``: a
+    leading (L, ...) axis on every leaf) split into a list of L per-layer
+    dicts.  xLSTM's ``layers`` is a list already and is converted layer
+    by layer."""
     def convert(tree, index=None):
         if isinstance(tree, dict):
             return {k: convert(v, index) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [convert(v, index) for v in tree]
         a = np.asarray(tree)
         return tensor_from_numpy(a if index is None else a[index], device)
 
-    out = {k: convert(v) for k, v in params.items() if k != "layers"}
-    n_layers = len(np.asarray(params["layers"]["ln1"]["scale"]))
-    out["layers"] = [convert(params["layers"], i) for i in range(n_layers)]
+    def depth(tree):
+        while isinstance(tree, dict):
+            tree = next(iter(tree.values()))
+        return len(np.asarray(tree))
+
+    out = {}
+    for k, v in params.items():
+        if k in _STACKS and isinstance(v, dict):
+            out[k] = [convert(v, i) for i in range(depth(v))]
+        else:
+            out[k] = convert(v)
     return out
+
+
+# the keys whose dicts hold layers stacked on a leading axis
+_STACKS = ("layers", "enc_layers", "dec_layers")

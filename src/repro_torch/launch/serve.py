@@ -1,10 +1,12 @@
-"""Serving driver: the continuous-batching engine over a dense zoo arch.
+"""Serving driver: the continuous-batching engine over any zoo arch.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
         --reduced --device cpu
 
-The port of ``repro.launch.serve``.  The weights are initialised on the
+The port of ``repro.launch.serve``.  Archs with a frontend (qwen2-vl's
+patches, seamless-m4t's frames) get seeded stub embeddings, (F, d) per
+request, as the reference makes them.  The weights are initialised on the
 device from a ``torch.Generator`` seeded with 0; the model runs
 on CUDA unless ``--device cpu`` is given, and the driver raises when
 there is no card and no ``--device cpu``.
@@ -31,6 +33,8 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="int8 KV caches (decoder-only transformers)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
@@ -38,7 +42,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = build_model(cfg, device=args.device)
+    model = build_model(cfg, kv_quant=args.kv_quant, device=args.device)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(0)
     params = model.init(gen)
@@ -51,6 +55,9 @@ def main(argv=None):
                     prompt=rng.integers(0, cfg.vocab, args.prompt_len,
                                         dtype=np.int32),
                     max_new_tokens=args.max_new)
+        if cfg.frontend != "none":
+            r.frontend = rng.normal(
+                size=(cfg.frontend_len, cfg.d_model)).astype(np.float32)
         reqs.append(r)
         engine.submit(r)
 

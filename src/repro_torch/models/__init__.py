@@ -1,2 +1,4 @@
-"""The decoder zoo of the port: layers, attention, the dense decoder and
-the model registry (``repro.models``' dense paths)."""
+"""The model zoo of the port (``repro.models``' serving paths): layers,
+attention and the int8 KV cache, MoE, Mamba2 and xLSTM blocks, the
+decoder-only, hybrid, recurrent and encoder-decoder assemblies, and the
+model registry."""

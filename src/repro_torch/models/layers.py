@@ -76,6 +76,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                theta: float = 10_000.0,
+                sections=(0.25, 0.375, 0.375)) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the frequencies of hd/2 are split into
+    (temporal, h, w) sections, each rotated by its own position stream
+    (the last section takes the remainder).
+
+    x: (B, T, H, hd); positions3: (3, B, T).  For text all three streams
+    are equal and M-RoPE is RoPE exactly."""
+    half = x.shape[-1] // 2
+    secs = [int(round(s * half)) for s in sections]
+    secs[-1] = half - secs[0] - secs[1]
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (half,)
+    sec_id = torch.cat([torch.full((n,), i, dtype=torch.long,
+                                   device=x.device)
+                        for i, n in enumerate(secs)])         # (half,)
+    pos_bt3 = positions3.movedim(0, -1).float()               # (B, T, 3)
+    angles = pos_bt3[..., sec_id] * freqs                     # (B, T, half)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------

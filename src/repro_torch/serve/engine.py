@@ -10,8 +10,14 @@ model's (prefill, decode_step) pair.
   * every engine step is one batched ``decode_step``, with a (B,) vector
     of per-slot positions, so sequences at different depths share it.
 
-Caches are lists of ``KVCache`` tuples on the model's device; splicing
-copies a batch-1 cache into one slot of the batched tensors in place.
+The engine is model-agnostic: a cache is any tree of tensors (lists,
+tuples, NamedTuples and dicts: attention ``KVCache``s, Mamba2 and xLSTM
+states, the encoder-decoder's ``{"self", "cross"}``).  Splicing copies a
+batch-1 tree into one slot of the batched tensors in place; as in the
+reference, a batch axis is recognised only in front, so a leaf whose
+batch axis is not the first (zamba2's stacked ``mamba_S``) stays as the
+first request left it, until a decode step broadcasts it to the batch,
+and later admissions do not overwrite it.
 Each step reads the next tokens back to the host once (the reference's
 ``np.asarray``), which is where the engine waits for the card.
 """
@@ -30,6 +36,7 @@ class Request:
     uid: int
     prompt: np.ndarray           # (T,) int32
     max_new_tokens: int = 16
+    frontend: Optional[np.ndarray] = None   # (F, d) frontend embeddings
     # filled by the engine
     output: List[int] = field(default_factory=list)
     done: bool = False
@@ -38,12 +45,15 @@ class Request:
 def _leaves(tree: Any) -> List[torch.Tensor]:
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if isinstance(tree, dict):
+        tree = tree.values()
     return [t for sub in tree for t in _leaves(sub)]
 
 
 def _splice(batch_tree: Any, single_tree: Any, slot: int) -> Any:
     """Write a batch-1 cache tree into slot ``slot`` of a batched one, in
-    place; leaves whose shapes do not match (batch-free) are kept."""
+    place; leaves whose shapes do not match (batch-free, or batched on
+    another axis) are kept."""
     for b, s in zip(_leaves(batch_tree), _leaves(single_tree)):
         if b.dim() >= 1 and s.dim() == b.dim() and s.shape[0] == 1 \
                 and b.shape[1:] == s.shape[1:]:
@@ -51,14 +61,22 @@ def _splice(batch_tree: Any, single_tree: Any, slot: int) -> Any:
     return batch_tree
 
 
+def _map(tree: Any, fn) -> Any:
+    """The cache tree with ``fn`` applied to each tensor."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_map(t, fn) for t in tree))
+    return type(tree)(_map(t, fn) for t in tree)
+
+
 def _tile(tree: Any, n: int) -> Any:
     """A batch-n copy of a batch-1 cache tree (the first request's cache,
-    repeated over every slot)."""
-    if isinstance(tree, torch.Tensor):
-        return torch.cat([tree] * n, dim=0) \
-            if tree.dim() >= 1 and tree.shape[0] == 1 else tree
-    return type(tree)(*(_tile(t, n) for t in tree)) \
-        if hasattr(tree, "_fields") else [_tile(t, n) for t in tree]
+    repeated over every slot); a leaf whose first axis is not 1 is kept."""
+    return _map(tree, lambda t: torch.cat([t] * n, dim=0)
+                if t.dim() >= 1 and t.shape[0] == 1 else t)
 
 
 class ServeEngine:
@@ -83,10 +101,13 @@ class ServeEngine:
         self.queue.append(req)
 
     def _prefill_one(self, req: Request):
-        tokens = torch.as_tensor(np.asarray(req.prompt),
-                                 device=self.model.device)[None]
-        logits, cache, pos = self.model.prefill(self.params, tokens,
-                                                max_len=self.max_len)
+        dev = self.model.device
+        args = (self.params,
+                torch.as_tensor(np.asarray(req.prompt), device=dev)[None])
+        if req.frontend is not None:
+            args += (torch.as_tensor(np.asarray(req.frontend),
+                                     device=dev)[None],)
+        logits, cache, pos = self.model.prefill(*args, max_len=self.max_len)
         next_tok = torch.argmax(logits[:, :self.cfg.vocab], -1)[0]
         return int(next_tok), cache, int(pos)
 

@@ -556,6 +556,14 @@ def _check_wgmma(q, k, v, causal, window, scale):
     (1, 1200, 300, 16, 4, 128, True, 100, False),
     (1, 1200, 300, 16, 4, 72, False, 100, True),     # non-causal
     (1, 900, 200, 20, 4, 256, True, 64, False),      # hd 256, BK 64
+    # the serving zoo's prefill shapes, in the model's form (q scaled in
+    # bf16, scale 1): zamba2's shared block (hd 80, padded to 128, window
+    # 4096 past T), seamless's encoder (non-causal, hd 64), deepseek (MHA)
+    # and qwen2-vl (GQA 64/8)
+    (1, 2048, 2048, 32, 32, 80, True, 4096, True),
+    (1, 1024, 1024, 16, 16, 64, False, 0, True),
+    (1, 4096, 4096, 16, 16, 128, True, 0, True),
+    (1, 1024, 1024, 64, 8, 128, True, 0, True),
 ])
 def test_cuda_flash_wgmma_matches_plain(cuda, B, Tq, Tk, H, KV, hd, causal,
                                         window, prescaled):
@@ -620,6 +628,45 @@ def test_cuda_prefill_goes_through_the_kernel(cuda):
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers
     assert float((lc - lt).abs().max()) <= 1e-4
     assert pos == 40 and len(caches) == cfg.n_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,flash_per_prefill", [
+    ("deepseek-moe-16b", 4), ("mixtral-8x7b", 4), ("qwen2-vl-72b", 4),
+    ("zamba2-2.7b", 2), ("xlstm-125m", 0), ("seamless-m4t-large-v2", 6)])
+def test_cuda_zoo_prefill_goes_through_the_kernel(cuda, arch,
+                                                  flash_per_prefill):
+    """Each family's prefill on the card (reduced, fp32) launches the
+    fp32 flash kernel once per attention (zamba2: once per shared-block
+    group of two Mamba2 layers; seamless: its 2 encoder layers non-causal
+    and 4 decoder layers causal; xLSTM: never) and no other kernel, and agrees with
+    backend='torch' within 1e-4; two batched decode steps stay finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = model.init(gen)
+    rng = _rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40))).to(cuda)
+    fe = None
+    if cfg.frontend != "none":
+        fe = torch.from_numpy(rng.normal(
+            size=(2, cfg.frontend_len, cfg.d_model)).astype(np.float32)) \
+            .to(cuda)
+    ops.reset_launch_counts()
+    lc, caches, pos = model.prefill(params, toks, fe, max_len=64)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == flash_per_prefill
+    assert sum(counts.values()) == flash_per_prefill, counts
+    lt, _, _ = model.prefill(params, toks, fe, max_len=64, backend="torch")
+    assert float((lc - lt).abs().max()) <= 1e-4
+    for _ in range(2):
+        tok = torch.argmax(lc, -1)
+        lc, caches = model.decode_step(params, caches, tok, pos)
+        assert bool(torch.isfinite(lc).all())
+        pos += 1
 
 
 # ---------------------------------------------------------------------------

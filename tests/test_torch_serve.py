@@ -37,6 +37,13 @@ def setup():
     jcfg = jax_get_config("granite-3-8b").reduced(n_layers=2)
     jm = jax_build(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
+    # the JAX engine's prefill and decode step under jax.jit, wrapped on
+    # the instance: eagerly every prefill retraces the reference's
+    # lax.scan bodies (the staggered case took 19 s that way)
+    opts = {"xla_backend_optimization_level": 0}
+    jm.prefill = jax.jit(jm.prefill, static_argnames=("max_len",),
+                         compiler_options=opts)
+    jm.decode_step = jax.jit(jm.decode_step, compiler_options=opts)
     cfg = get_config("granite-3-8b").reduced(n_layers=2)
     return cfg, build_model(cfg, device="cpu"), params_from_jax(jp), jm, jp
 
@@ -107,4 +114,18 @@ def test_launcher_runs_on_the_cpu():
         capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
     assert out.returncode == 0, out.stderr
     assert "served 8 requests, 64 tokens" in out.stdout
+    assert "on cpu" in out.stdout
+
+
+def test_serve_lm_torch_example_runs_on_the_cpu():
+    """``examples/serve_lm_torch.py``, the twin of ``serve_lm.py``,
+    reduced on the CPU: 6 requests of 6 new tokens through 3 slots, for
+    qwen2-vl (the launcher's seeded stub frontend embeddings)."""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "serve_lm_torch.py"),
+         "--arch", "qwen2-vl-72b", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "served 6 requests, 36 tokens" in out.stdout
     assert "on cpu" in out.stdout
