@@ -225,10 +225,38 @@ Phases (any failure exits non-zero; no phase is skipped):
    full width and depth: two requests of 1024 frame embeddings and 128
    tokens, 24 non-causal (the encoder) and 24 causal flash launches a
    prefill, the cosine gate.
+13. Training (``train_phase``, TRAIN_S).  (a) The flash backward
+   kernel, ``flash_attention_bwd.cu`` (three launches: the rows' lse and
+   D, dK and dV, dQ), against the plain ``ref.flash_attention_bwd_ref``
+   on the same inputs at BWD_CASES (granite-3-8b causal, gemma3-4b's
+   local layer, zamba2-2.7b's shared block, seamless-m4t's encoder), in
+   fp32 (each gradient within 1e-5 of its largest magnitude) and bf16
+   (within 2^-7 of it, cosine >= 0.9999), a second run bitwise the first;
+   each launch and the whole timed by CUDA events beside the bound (10
+   hd flops per unmasked pair and head at the bf16 tensor or fp32 peak,
+   against q, k, v, o, dO read and dQ, dK, dV written once), the plain
+   backward and SDPA's backward (``torch.autograd.grad`` of
+   ``scaled_dot_product_attention`` with ``enable_gqa=True``, its forward
+   excluded).  (b) granite-3-8b at full width cut to TRAIN_LAYERS layers
+   (``reduced``: the fp32 AdamW moments of 40 layers do not fit one
+   card), in bf16, one step's loss and per-leaf gradients against
+   ``backend="torch"`` (loss within 1e-2, cosine >= 0.999), then
+   TRAIN_STEPS steps of ``make_train_step`` on ``TokenPipeline``
+   batches of one TRAIN_SEQ-token sequence, counts reset just before and
+   read just after: per step two bf16 flash launches a layer (the
+   forward and its recomputation) and one of each backward kernel a
+   layer, and no other kernel; every loss finite and the last below the
+   first; s/step, tokens/s and peak bytes logged.  (c)
+   ``launch.train.main`` on xlstm-125m at full width and depth (batch 8,
+   256 tokens) to TRAIN_CLI_STEPS steps with a checkpoint every
+   TRAIN_CLI_EVERY, then the same call to TRAIN_CLI_MORE steps, which
+   must resume from the last checkpoint.
 
 The line before the last is the JSON object of per-kernel numbers (with
-each kernel's launches on phase 11's approx and dense funnels and on
-each of phase 12's engine runs); the
+each kernel's launches on phase 11's approx and dense funnels, on
+each of phase 12's engine runs and on phase 13b's training steps;
+``flash_attention_bwd``'s launches are its three kernels' on phase
+13b); the
 last line is ``{"ok": true, "device": {...}}``.  The script needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero
 without printing a result when either is missing.  It imports nothing
@@ -360,6 +388,29 @@ ZOO_S = 30.0
 # KVQ_FREE_COSINE of the bf16 cache's (0.9707-0.9996 there)
 MOE_FREE_FACTOR = 2.0
 KVQ_FREE_COSINE = 0.95
+# phase 13 (training): its expected seconds in all, with the backward
+# kernel's share of the build, charged with ZOO_S to phase 11a's
+# projection (95.0 s on an H100 at 700 W with launch.train run to 4 steps
+# and resumed to 6, at about 9 s a step; 13a about 10 s, 13b about 9 s); the backward kernel's shapes (13a); granite-3-8b at full
+# width cut to TRAIN_LAYERS layers, trained in bf16 on one sequence of
+# TRAIN_SEQ tokens for TRAIN_STEPS steps (13b); launch.train.main on
+# xlstm-125m at full width and depth, TRAIN_CLI_STEPS steps with a
+# checkpoint every TRAIN_CLI_EVERY, then resumed to TRAIN_CLI_MORE (13c)
+TRAIN_S = 75.0
+BWD_CASES = [
+    ("granite-3-8b causal", (1, 4096, 32, 8, 128), 0, True),
+    ("gemma3-4b local", (1, 4096, 8, 4, 256), 1024, True),
+    ("zamba2-2.7b shared block", (1, 2048, 32, 32, 80), 4096, True),
+    ("seamless-m4t encoder", (1, 1024, 16, 16, 64), 0, False),
+]
+TRAIN_ARCH = "granite-3-8b"
+TRAIN_LAYERS = 4
+TRAIN_SEQ = 4096
+TRAIN_STEPS = 8
+TRAIN_CLI_ARCH = "xlstm-125m"
+TRAIN_CLI_STEPS = 2
+TRAIN_CLI_EVERY = 1
+TRAIN_CLI_MORE = 3
 
 
 def fail(msg: str) -> None:
@@ -818,6 +869,260 @@ def serve_zoo(seed: int) -> dict:
     return out
 
 
+def _bwd_sizes(B, T, H, KV, hd, win, causal, elem):
+    """(unmasked pairs, bytes moved) of one causal or unwindowed
+    attention backward: q, k, v, o and dO read once, dQ, dK and dV
+    written once."""
+    check(causal or not win, "a non-causal window has no pair count here")
+    pairs = B * H * (causal_pairs(T, win) if causal else T * T)
+    return pairs, elem * (4 * B * T * H * hd + 4 * B * T * KV * hd)
+
+
+def _device_time_by_class(prof, classes) -> dict:
+    """Device microseconds of the kernels in a ``torch.profiler`` run,
+    summed per class (the first (class, name fragments) whose fragment is
+    in the kernel's name; "other" else), with the ten longest kernels.
+    Empty when the profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    sums, top = {c_: 0.0 for c_, _ in classes}, []
+    sums["other"] = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = float(getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0.0)))
+        cls = next((c_ for c_, frags in classes
+                    if any(f_ in ev.key for f_ in frags)), "other")
+        sums[cls] += us
+        top.append((us, ev.key[:120], ev.count))
+    if not top:
+        return {}
+    top.sort(reverse=True)
+    return {"us": sums, "top": [dict(us=u_, name=n_, count=c_)
+                                for u_, n_, c_ in top[:10]]}
+
+
+def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
+    """Phase 13: (a) the backward kernel against its plain twin at
+    BWD_CASES in fp32 and bf16, bitwise repeatable, timed per launch,
+    beside its bound, the plain backward and SDPA's backward; (b)
+    TRAIN_ARCH at full width, TRAIN_LAYERS layers, trained in bf16
+    through make_train_step on TokenPipeline batches, the counts reset
+    just before and read just after, one step against backend="torch";
+    (c) launch.train.main on TRAIN_CLI_ARCH, then resumed.  ``device``
+    is the card's (a CPU rehearsal passes "cpu")."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import checkpoint, optimizer
+    from repro_torch.train.train_step import make_train_step, value_and_grad
+    from repro_torch.train.tree import leaves
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+    out = {"bwd_cases": []}
+
+    # 13a. the backward kernel at the zoo's attention shapes
+    for label, (B, T, H, KV, hd), win, causal in BWD_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(s_, generator=gen, device=dev).to(dt)
+                       for s_ in ((B, T, H, hd), (B, T, KV, hd),
+                                  (B, T, KV, hd)))
+            o = fa.flash_attention_cuda(q, k, v, causal=causal, window=win)
+            do = torch.randn(o.shape, generator=gen, device=dev).to(dt)
+            kw = dict(causal=causal, window=win)
+            got, launches = fa.bwd_launches(q, k, v, o, do, **kw)
+            for _, launch in launches:
+                launch()
+            again = fa.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+            sync()
+            errs, abs_errs, coss = [], [], []
+            for name, g_, a_, w_ in zip(("dq", "dk", "dv"), got, again,
+                                        want):
+                check(bool(torch.equal(g_, a_)), f"train: backward {name} "
+                      f"at {label} {dt} differs between two runs")
+                d_ = float((g_.float() - w_.float()).abs().max())
+                abs_errs.append(d_)
+                errs.append(d_ / float(w_.float().abs().max()))
+                coss.append(_cosine(g_.flatten(), w_.flatten()))
+            if dt == torch.float32:
+                ok = max(errs) <= 1e-5
+            else:
+                ok = max(errs) <= 2.0 ** -7 and min(coss) >= 0.9999
+            check(ok, f"train: backward kernel vs plain at {label} {dt}: "
+                  f"max |d| / max |g| {errs}, cosine {coss}")
+            del again, want
+            reps = 3 if T * T * H >= 2 ** 28 else 10
+            per = {n_: cuda_ms(l_, reps) for n_, l_ in launches}
+            ms = cuda_ms(lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, o, do, **kw), reps)
+            plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(
+                q, k, v, o, do, **kw), 2)
+            # SDPA's backward, its forward excluded: the window as a
+            # boolean mask built outside the timed call
+            qt, kt_, vt = (x_.transpose(1, 2).detach().requires_grad_()
+                           for x_ in (q, k, v))
+            mask = None
+            if win and win < T:
+                ti = torch.arange(T, device=dev)
+                mask = (ti[:, None] - ti[None, :] < win)
+                if causal:
+                    mask &= ti[:, None] >= ti[None, :]
+            ot = F.scaled_dot_product_attention(
+                qt, kt_, vt, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+            dot = do.transpose(1, 2)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                ot, (qt, kt_, vt), dot, retain_graph=True), reps)
+            del ot, qt, kt_, vt, dot, mask
+            pairs, nbytes = _bwd_sizes(B, T, H, KV, hd, win, causal,
+                                       q.element_size())
+            b_ms, b_by = bound(nbytes, 10 * hd * pairs,
+                               BF16_TENSOR_OPS_PER_S
+                               if dt == torch.bfloat16 else FP32_OPS_PER_S)
+            row = dict(case=label, shape=[B, T, H, KV, hd], window=win,
+                       causal=causal, dtype=str(dt).replace("torch.", ""),
+                       max_abs_err=max(abs_errs), max_rel_err=errs,
+                       cosine=coss, bitwise_repeat=True,
+                       ms=ms, launch_ms=per, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                       pairs=pairs)
+            out["bwd_cases"].append(row)
+            log(f"[train] backward kernel ok: {json.dumps(row)}")
+            del q, k, v, o, do, got, launches
+            torch.cuda.empty_cache()
+
+    # 13b. granite-3-8b at full width, TRAIN_LAYERS layers, in bf16
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    opt = optimizer.init(params)
+    # one domain, so that the losses of successive one-sequence batches
+    # are comparable (a batch of one draws a single domain of the
+    # pipeline's mixture); lr 3e-5: at d 4096 a coherent AdamW step of
+    # 1e-4 per element already moves the loss by several nats
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1, n_domains=1,
+        seed=seed), device=dev)
+    step_fn = make_train_step(model, RunConfig(
+        lr=3e-5, warmup_steps=1, total_steps=TRAIN_STEPS))
+    n_params = sum(p_.numel() for p_ in leaves(params))
+    # the one-step comparison first, on the initial weights and batch 0
+    batch0 = pipe.batch(0)
+    lk, _, gk = value_and_grad(model, params, batch0)
+    lt, _, gt = value_and_grad(model, params, batch0, {"backend": "torch"})
+    sync()
+    cos = [_cosine(a_.flatten(), b_.flatten())
+           for a_, b_ in zip(leaves(gk), leaves(gt))]
+    check(abs(float(lk) - float(lt)) <= 1e-2 and min(cos) >= 0.999,
+          f"train: {TRAIN_ARCH} cuda vs torch: loss {float(lk)} vs "
+          f"{float(lt)}, least per-leaf gradient cosine {min(cos)}")
+    del gk, gt
+    torch.cuda.empty_cache()
+    step_fn(params, opt, batch0)          # warm: kernels, allocator
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for s_ in range(TRAIN_STEPS):
+        batch = pipe.batch(s_)
+        t1 = time.perf_counter()
+        params, opt, met = step_fn(params, opt, batch)
+        losses.append(float(met["loss"]))     # waits for the step
+        times.append(time.perf_counter() - t1)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    check(all(math.isfinite(l_) for l_ in losses) and losses[-1] < losses[0],
+          f"train: {TRAIN_ARCH} losses {losses}")
+    L = cfg.n_layers
+    want = {"flash_attention_wgmma": 2 * L * TRAIN_STEPS,
+            "flash_attention_bwd_rows": L * TRAIN_STEPS,
+            "flash_attention_bwd_dkdv": L * TRAIN_STEPS,
+            "flash_attention_bwd_dq": L * TRAIN_STEPS}
+    check(all(launches[n_] == c_ for n_, c_ in want.items())
+          and sum(launches.values()) == sum(want.values()),
+          f"train: {TRAIN_ARCH} launches {launches}, want {want}")
+    s_step = float(sorted(times)[len(times) // 2])
+    # one more step under torch.profiler: device time by kernel class and
+    # the device's busy share of the step
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    sync()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        params, opt, met = step_fn(params, opt, pipe.batch(TRAIN_STEPS))
+        float(met["loss"])
+        prof_wall = time.perf_counter() - t1
+    split = _device_time_by_class(prof, (
+        ("flash_bwd", ("bwd_rows_kernel", "bwd_dkdv_kernel",
+                       "bwd_dq_kernel")),
+        ("flash_fwd", ("flash_wgmma_kernel",)),
+        ("gemm", ("gemm", "Gemm", "sm90_xmma", "cutlass", "nvjet"))))
+    if split:
+        split["step_s"] = prof_wall
+        split["device_busy_share"] = sum(split["us"].values()) / 1e6 \
+            / prof_wall
+    del prof
+    out["granite"] = dict(
+        arch=TRAIN_ARCH, layers=L, reduced={"n_layers": [40, L]},
+        params=n_params, dtype="bfloat16", seq=TRAIN_SEQ, batch=1,
+        steps=TRAIN_STEPS, losses=losses, s_per_step=times,
+        s_per_step_median=s_step, tokens_per_s=TRAIN_SEQ / s_step,
+        peak_bytes=peak, allocated_before=base, launches=launches,
+        launches_per_step={n_: c_ / TRAIN_STEPS for n_, c_ in
+                           launches.items() if c_},
+        cuda_vs_torch=dict(loss=[float(lk), float(lt)],
+                           min_leaf_grad_cosine=min(cos)),
+        profiled_step=split or "not measured: no device time in the "
+                               "profiler",
+        seconds=time.perf_counter() - t0)
+    log(f"[train] {TRAIN_ARCH}: {json.dumps(out['granite'])}")
+    del params, opt, model, met, batch, batch0
+    torch.cuda.empty_cache()
+
+    # 13c. launch.train.main at full width and depth, resumed
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as ck:
+        args = ["--arch", TRAIN_CLI_ARCH, "--batch", "8", "--seq", "256",
+                "--ckpt-dir", ck, "--ckpt-every", str(TRAIN_CLI_EVERY),
+                "--log-every", "1", "--device", device]
+        runs = []
+        for steps in (TRAIN_CLI_STEPS, TRAIN_CLI_MORE):
+            buf = io.StringIO()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                met = train_cli.main(args + ["--steps", str(steps)])
+            runs.append(dict(steps=steps, seconds=time.perf_counter() - t1,
+                             metrics=met, log=buf.getvalue().splitlines()))
+            log(f"[train] {TRAIN_CLI_ARCH} to {steps} steps: "
+                f"{json.dumps(runs[-1])}")
+        check(all(math.isfinite(r_["metrics"]["loss"]) for r_ in runs)
+              and f"resumed from step {TRAIN_CLI_STEPS}" in runs[1]["log"]
+              and checkpoint.latest_step(ck) == TRAIN_CLI_MORE,
+              f"train: {TRAIN_CLI_ARCH} did not resume from step "
+              f"{TRAIN_CLI_STEPS}: {runs[1]['log']}")
+    resumed = TRAIN_CLI_MORE - TRAIN_CLI_STEPS
+    out["cli"] = dict(arch=TRAIN_CLI_ARCH, batch=8, seq=256, runs=runs,
+                      s_per_step_resumed=runs[1]["seconds"] / resumed,
+                      seconds=time.perf_counter() - t0)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dataset", default="Crop",
@@ -886,8 +1191,9 @@ def main() -> None:
         f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     _build.library()
+    build_s = time.perf_counter() - t0
     log(f"[build] {_build.BUILD_INFO['path']} in "
-        f"{time.perf_counter() - t0:.2f} s (cached={_build.BUILD_INFO['cached']})")
+        f"{build_s:.2f} s (cached={_build.BUILD_INFO['cached']})")
     for line in str(_build.BUILD_INFO.get("ptxas", "")).splitlines():
         if "registers" in line or "spill" in line:
             log(f"[ptxas] {line.strip()}")
@@ -2614,7 +2920,7 @@ def main() -> None:
     # there (at world size 1 the two calls are the same program)
     na, Xa_np, ka = n, X_np, k
     Za_ref, labels_a_ref = Z5, labels5
-    projected = time.perf_counter() - t_start + MESH_S + ZOO_S
+    projected = time.perf_counter() - t_start + MESH_S + ZOO_S + TRAIN_S
     if projected > STAGED_BUDGET_S:
         na, ka = PARITY_N, 8
         Xa_np, _ = make_dataset(na, 46, 8, noise=0.5, seed=args.seed + 1)
@@ -2815,8 +3121,40 @@ def main() -> None:
     log(f"[time] zoo phase done at {time.perf_counter() - t_start:.1f} s"
         f" ({zoo_s:.1f} s)")
 
+    # ---- 13. training ----------------------------------------------------
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    train = train_phase(args.seed, cuda_ms)
+    train_s = time.perf_counter() - t13
+    log(f"[time] train phase done at {time.perf_counter() - t_start:.1f} s"
+        f" ({train_s:.1f} s)")
+    head = train["bwd_cases"][1]          # granite-3-8b, bf16
+    per_step = train["granite"]["launches_per_step"]
+    bwd_names = ("flash_attention_bwd_rows", "flash_attention_bwd_dkdv",
+                 "flash_attention_bwd_dq")
+    entries["flash_attention_bwd"] = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="none: the gradient of src/repro/kernels/flash_attention"
+                 ".py:87, which the JAX package takes by XLA autodiff of "
+                 "src/repro/models/attention.py:_flash",
+        shape=head["shape"], dtype=head["dtype"],
+        max_abs_err=head["max_abs_err"], max_rel_err=head["max_rel_err"],
+        ms=head["ms"], launch_ms=head["launch_ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        library_ms=head["library_ms"], cases=train["bwd_cases"],
+        launches_by_kernel={n_: train["granite"]["launches"][n_]
+                            for n_ in bwd_names},
+        launches_per_step={n_: per_step[n_] for n_ in bwd_names})
+
     dense_kernels = ("pearson", "minplus", "masked_argmax")
+    train_launches = train["granite"]["launches"]
     for e in entries.values():
+        if e["name"] == "flash_attention_bwd":
+            # the training step's launches of its three kernels
+            e["launches"] = sum(e["launches_by_kernel"].values())
+            continue
+        e["train_launches"] = train_launches[e["name"]]
         e["launches"] = (launches_s if e["name"] == "flash_attention_wgmma"
                          else launches_32 if e["name"] == "flash_attention"
                          else launches if e["name"] in dense_kernels
@@ -2836,6 +3174,8 @@ def main() -> None:
     main["stream_phase_s"] = stream_s
     main["mesh_phase_s"] = mesh_s
     main["zoo_phase_s"] = zoo_s
+    main["train_phase_s"] = train_s
+    main["build_s"] = build_s
     log(f"[main] {json.dumps(main)}")
     log(f"[approx] {json.dumps(approx)}")
     log(f"[serve] {json.dumps(serve)}")
@@ -2844,6 +3184,7 @@ def main() -> None:
     log(f"[stream] {json.dumps(stream)}")
     log(f"[mesh] {json.dumps(dict(approx=mesh_a, dense=mesh_b, parity=mesh_c))}")
     log(f"[zoo] {json.dumps(zoo)}")
+    log(f"[train] {json.dumps(train)}")
     log(smi_line)
     log(json.dumps({"kernels": list(entries.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -1,1 +1,2 @@
-"""Datasets for the port (copies of ``repro.data``)."""
+"""Datasets for the port (copies of ``repro.data``: the time series and
+the LM token pipeline)."""

@@ -6,10 +6,14 @@ of ``repro.dist`` over ``torch.distributed``.
   of world size 1 when the caller has none), and the sharded Pearson,
   top-K, masked-argmax and min-plus entry points.
 
-The LM half (parameter and batch placement, gradient compression,
-layout hints) is not ported yet: ROADMAP Queue 1 item 15.
+* :mod:`repro_torch.dist.compression` -- int8 error-feedback gradient
+  compression, the value half (the train step's ``compress_grads``).
+
+The LM half of the sharding rules (parameter and batch placement over
+DTensor), ``psum_compressed`` and the layout hints are not ported yet:
+ROADMAP Queue 1 item 15.6b.
 """
 
-from . import sharding  # noqa: F401
+from . import compression, sharding  # noqa: F401
 
-__all__ = ["sharding"]
+__all__ = ["compression", "sharding"]

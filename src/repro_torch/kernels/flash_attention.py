@@ -13,6 +13,12 @@ The route is chosen by dtype alone, with no fallback between them:
   * float32  -> ``csrc/flash_attention.cu``: fp32 FMAs on the CUDA cores
     (the port keeps fp32 off the tensor cores: no TF32).
 
+The backward, ``csrc/flash_attention_bwd.cu``, takes both dtypes and
+computes in fp32 on the CUDA cores: three launches (each row's lse and
+D, then dK and dV per key tile, then dQ per query tile), each with its
+own ``_build.Kernel``; :func:`flash_attention_bwd_cuda` runs them and
+``ops.flash_attention`` binds it to autograd.
+
 Each has its own ``_build.Kernel`` and launch count; see each source
 note for its bound and design.  :func:`plan` repeats the fp32 kernel's
 tiling (rows per block, heads of a GQA group per block, positions per
@@ -39,6 +45,14 @@ from ._checks import require_cuda, require_int32_range, stream_of
 # (q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window, scale, stream)
 KERNEL = _build.Kernel("repro_flash_attention", "ppppiiiiiiiif")
 KERNEL_WGMMA = _build.Kernel("repro_flash_attention_wgmma", "ppppiiiiiiiif")
+# the backward's three launches (csrc/flash_attention_bwd.cu), each with
+# its pointers, then (B, Tq, Tk, H, KV, hd, causal, window, scale, bf16)
+KERNEL_BWD_ROWS = _build.Kernel("repro_flash_attention_bwd_rows",
+                                "ppppppiiiiiiiifi")
+KERNEL_BWD_DKDV = _build.Kernel("repro_flash_attention_bwd_dkdv",
+                                "ppppppppiiiiiiiifi")
+KERNEL_BWD_DQ = _build.Kernel("repro_flash_attention_bwd_dq",
+                              "pppppppiiiiiiiifi")
 
 ROUTES = {torch.float32: KERNEL, torch.bfloat16: KERNEL_WGMMA}
 MAX_HEAD_DIM = 256
@@ -233,3 +247,67 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       1.0 / math.sqrt(hd) if scale is None else float(scale),
                       stream=stream_of(q))
     return o
+
+
+def bwd_launches(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+                 window: int = 0, scale: Optional[float] = None):
+    """The backward's outputs and its three launches, unlaunched: ((dq,
+    dk, dv), [(name, launch)]) with ``launch()`` running one kernel on
+    the current stream, in order rows (lse and D into fp32 scratch),
+    dkdv, dq.  Raises on inputs the kernels do not take."""
+    if q.dtype not in ROUTES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        require_cuda(name, t, q.dtype, 4)
+        if t.device != q.device:
+            raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
+    B, Tq, Tk, H, KV, hd = check_shapes(q, k, v, int(window))
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"be q's shape {tuple(q.shape)}")
+    require_int32_range(batch_heads=B * H, Tq=Tq, Tk=Tk)
+    if -(-max(Tq, Tk) // 32) > MAX_Q_TILES:
+        raise ValueError(f"T={max(Tq, Tk)} needs more than {MAX_Q_TILES} "
+                         f"tiles")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, Tq), **f32)
+    D = torch.empty((B, H, Tq), **f32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    sizes = (B, Tq, Tk, H, KV, hd, int(bool(causal)), int(window),
+             1.0 / math.sqrt(hd) if scale is None else float(scale),
+             int(q.dtype == torch.bfloat16))
+    p = [t.data_ptr() for t in (q, k, v, o, do, lse, D, dq, dk, dv)]
+    s = stream_of(q)
+
+    def launcher(kernel, *ptrs):
+        def launch():
+            with torch.cuda.device(q.device):
+                kernel.launch(*ptrs, *sizes, stream=s)
+        return launch
+
+    return (dq, dk, dv), [
+        ("rows", launcher(KERNEL_BWD_ROWS, p[0], p[1], p[3], p[4], p[5],
+                          p[6])),
+        ("dkdv", launcher(KERNEL_BWD_DKDV, p[0], p[1], p[2], p[4], p[5],
+                          p[6], p[8], p[9])),
+        ("dq", launcher(KERNEL_BWD_DQ, p[0], p[1], p[2], p[4], p[5], p[6],
+                        p[7]))]
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, *, causal: bool = True,
+                             window: int = 0,
+                             scale: Optional[float] = None):
+    """(dq, dk, dv) of ``flash_attention_cuda(q, k, v, ...)`` whose output
+    was ``o``, given the output's gradient ``do``: q, o, do (B, Tq, H,
+    hd) and k, v (B, Tk, KV, hd), all float32 or all bfloat16, on the
+    card.  Three launches on the current stream (the rows' lse and D in
+    fp32 scratch, then dK and dV, then dQ); the gradients come back in
+    the inputs' dtype.  The plain twin is ``ref.flash_attention_bwd_ref``."""
+    grads, launches = bwd_launches(q, k, v, o, do, causal=causal,
+                                   window=window, scale=scale)
+    for _, launch in launches:
+        launch()
+    return grads

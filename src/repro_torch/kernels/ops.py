@@ -9,7 +9,9 @@ Backends (``PipelineConfig.backend``):
     which picks Pallas on a TPU and jnp elsewhere).
 
 A failed build or launch raises; nothing falls back to the plain
-version.
+version.  On the card, attention that autograd must differentiate goes
+through :class:`FlashAttentionFn`, whose backward is the hand-written
+backward kernel; everything else runs without autograd's bookkeeping.
 """
 
 from __future__ import annotations
@@ -33,6 +35,9 @@ KERNELS = {
     "sparse_relax": sparse_mod.KERNEL,
     "flash_attention": flash_mod.KERNEL,
     "flash_attention_wgmma": flash_mod.KERNEL_WGMMA,
+    "flash_attention_bwd_rows": flash_mod.KERNEL_BWD_ROWS,
+    "flash_attention_bwd_dkdv": flash_mod.KERNEL_BWD_DKDV,
+    "flash_attention_bwd_dq": flash_mod.KERNEL_BWD_DQ,
 }
 
 
@@ -117,6 +122,30 @@ def sparse_relax_t(Dt: torch.Tensor, s: int, graph, *, plan=None,
     return out, (out < Dt).any().view(1)
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """The flash kernels as one differentiable function: the forward is
+    ``flash_attention_cuda`` (by dtype, unchanged), the backward the
+    hand-written ``flash_attention_bwd_cuda``; q, k, v and the output
+    are saved.  A failed backward launch raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o = flash_mod.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.attn = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        causal, window, scale = ctx.attn
+        dq, dk, dv = flash_mod.flash_attention_bwd_cuda(
+            q, k, v, o, do.contiguous(), causal=causal, window=window,
+            scale=scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None,
@@ -125,8 +154,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     h // (H // KV) for query head h, causal and/or within a sliding
     window (0 = none), the fp32 scores times ``scale`` (None:
     1 / sqrt(hd)); (B, Tq, H, hd) in q's dtype.  On the card bfloat16
-    goes to the wgmma kernel and float32 to the CUDA-core one."""
+    goes to the wgmma kernel and float32 to the CUDA-core one; where
+    autograd records and q, k or v needs a gradient, through
+    :class:`FlashAttentionFn`, whose backward is the backward kernel.
+    The plain version is differentiated by autograd itself."""
     if use_kernel(q, backend):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttentionFn.apply(q, k, v, causal, window, scale)
         return flash_mod.flash_attention_cuda(q, k, v, causal=causal,
                                               window=window, scale=scale)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,

@@ -178,3 +178,41 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bKgqs,bsKh->bKgqh", w, v.float())
     return o.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, hd).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = True,
+                            window: int = 0, scale: Optional[float] = None):
+    """The plain fp32 backward of :func:`flash_attention_ref`: (dq, dk,
+    dv) in the inputs' dtypes, given the forward's output ``o`` (B, Tq,
+    H, hd) and its gradient ``do``.  It recomputes the scores s and the
+    probabilities p, then D = rowsum(dO o), dV = p^T dO, dS = p (dO v^T
+    - D), dQ = scale dS k and dK = scale dS^T q, dK and dV summed over
+    the G query heads of each KV head.  The backward kernel's oracle
+    (``flash_attention.flash_attention_bwd_cuda``)."""
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    mul = 1.0 / math.sqrt(hd) if scale is None else scale
+    qh = q.reshape(B, Tq, KV, G, hd).float()
+    qh = qh / math.sqrt(hd) if scale is None else qh * scale
+    s = torch.einsum("bqKgh,bsKh->bKgqs", qh, k.float())
+    qi = torch.arange(Tq, device=q.device)[:, None]
+    ki = torch.arange(Tk, device=q.device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qi >= ki
+    if window > 0:
+        mask &= (qi - ki) < window
+    p = torch.softmax(torch.where(mask, s, ATTN_NEG), dim=-1)
+    doh = do.reshape(B, Tq, KV, G, hd).float()
+    D = torch.einsum("bqKgh,bqKgh->bKgq", doh,
+                     o.reshape(B, Tq, KV, G, hd).float())
+    dv = torch.einsum("bKgqs,bqKgh->bsKh", p, doh)
+    dp = torch.einsum("bqKgh,bsKh->bKgqs", doh, v.float())
+    ds = p * (dp - D[..., None])
+    dq = torch.einsum("bKgqs,bsKh->bqKgh", ds, k.float()) * mul
+    dk = torch.einsum("bKgqs,bqKgh->bsKh", ds, qh)
+    return (dq.reshape(B, Tq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

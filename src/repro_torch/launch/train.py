@@ -1,0 +1,123 @@
+"""End-to-end training entry point of the PyTorch/CUDA port.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+        --steps 200 --batch 8 --seq 256 --ckpt-dir build/ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --device cpu --steps 4 --batch 4 --seq 64
+
+The port of ``repro.launch.train``, with its CLI and defaults: the model
+is built on one device (CUDA unless ``--device cpu``; the reference's
+replicated layout on one device), its weights drawn from a
+``torch.Generator`` seeded with 0, and trained by ``make_train_step`` on
+``synthetic_batch`` tokens (seeded per (host, step), bitwise the
+reference's, so a restarted run sees the same data).  It checkpoints
+asynchronously every ``--ckpt-every`` steps and at the end, and resumes
+from the latest checkpoint under ``--ckpt-dir``.  A checkpoint is named
+by the number of steps done; the reference names its mid-run ones by the
+index of the step just run, so that resuming from one runs that step
+twice.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import RunConfig, get_config
+from repro_torch.core.pipeline import resolve_device
+from repro_torch.models.registry import build_model
+from repro_torch.train import checkpoint, optimizer
+from repro_torch.train.elastic import StragglerMonitor
+from repro_torch.train.train_step import make_train_step
+
+
+def synthetic_batch(cfg, step: int, batch: int, seq: int, host: int = 0,
+                    device=None):
+    """Deterministic per-(host, step) token batch: the reference's
+    numbers as int32 (fp32 frontend embeddings) tensors on ``device``
+    (CUDA unless the caller asks for another)."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(hash((host, step)) % (2 ** 31))
+    F = cfg.frontend_len if (cfg.frontend != "none"
+                             and not cfg.is_encdec) else 0
+    tokens = rng.integers(0, cfg.vocab, (batch, seq - F), dtype=np.int32)
+    tokens = torch.from_numpy(tokens).to(device)
+    out = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    if cfg.frontend != "none":
+        out["frontend"] = torch.from_numpy(
+            rng.normal(size=(batch, cfg.frontend_len, cfg.d_model))
+            .astype(np.float32)).to(device)
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="xlstm-125m")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the smoke-scale config")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = build_model(cfg, device=args.device)
+    run_cfg = RunConfig(lr=args.lr, microbatches=args.microbatches,
+                        total_steps=args.steps,
+                        warmup_steps=max(1, args.steps // 10))
+    params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    opt_state = optimizer.init(params)
+
+    start_step = 0
+    ckpt = checkpoint.AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir \
+        else None
+    if ckpt and checkpoint.latest_step(args.ckpt_dir) is not None:
+        (params, opt_state), start_step, _ = checkpoint.restore(
+            (params, opt_state), args.ckpt_dir)
+        print(f"resumed from step {start_step}")
+
+    step_fn = make_train_step(model, run_cfg)
+    monitor = StragglerMonitor()
+
+    metrics = {}
+    t_start = time.time()
+    try:
+        for step in range(start_step, args.steps):
+            batch = synthetic_batch(cfg, step, args.batch, args.seq,
+                                    device=model.device)
+            t0 = time.time()
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            monitor.record(0, time.time() - t0)
+            if step % args.log_every == 0 or step == args.steps - 1:
+                print(f"step {step:5d} loss {metrics['loss']:.4f} "
+                      f"gnorm {metrics['grad_norm']:.3f} "
+                      f"lr {metrics['lr']:.2e} "
+                      f"({time.time() - t0:.2f}s/step)")
+            done = step + 1
+            if ckpt and done % args.ckpt_every == 0 and done < args.steps:
+                ckpt.save((params, opt_state), done)
+        if ckpt:
+            ckpt.save((params, opt_state), args.steps)
+    finally:
+        if ckpt:
+            ckpt.wait()
+    print(f"done: {args.steps - start_step} steps in "
+          f"{time.time() - t_start:.1f}s")
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

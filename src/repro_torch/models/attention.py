@@ -2,8 +2,8 @@
 
 The port of the dense paths of ``repro.models.attention``:
 
-  * ``attention_full``   -- full-sequence (prefill) attention, causal
-    or not (the encoder's), through
+  * ``attention_full``   -- full-sequence (training and prefill)
+    attention, causal or not (the encoder's), through
     ``ops.flash_attention``: the hand-written kernels
     (``kernels/csrc/flash_attention_wgmma.cu`` in bf16,
     ``flash_attention.cu`` in fp32) for tensors on the card, the
@@ -75,11 +75,15 @@ def _project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):
 
 
 def attention_full(p, x: torch.Tensor, positions: torch.Tensor, *, cfg,
-                   window: int, causal: bool = True, backend: str = "auto"):
+                   window: int, causal: bool = True, backend: str = "auto",
+                   **_chunks):
     """Full-sequence attention of x (B, T, d) at positions (B, T) (or
     M-RoPE's (3, B, T)), causal unless ``causal=False`` (the encoder);
     returns (out (B, T, d), (k, v)) with k, v (B, T, KV, hd) for the
-    cache."""
+    cache.  Differentiable: on the card through the flash kernels'
+    ``ops.FlashAttentionFn``.  The reference's ``q_chunk``, ``kv_chunk``,
+    ``block_skip`` and ``unroll_q`` are taken and ignored: they change
+    only the order in which XLA sums."""
     q, k, v = _project_qkv(p, x, cfg, positions)
     # q scaled in its own dtype before the kernel's fp32 products, as the
     # reference's _flash scales it: the scale is rounded to that dtype (a

@@ -19,12 +19,16 @@ import torch
 from ..core.pipeline import resolve_device
 from . import attention as attn
 from .layers import (dense_init, dtype_of, embed_init, mlp_apply, mlp_init,
-                     rmsnorm, rmsnorm_init)
+                     remat as remat_call, rmsnorm, rmsnorm_init, token_ce)
 from .transformer import check_generator
 
 
 class EncDecModel:
     """Encoder-decoder LM on one device (CUDA unless ``device="cpu"``)."""
+
+    # the keys whose per-layer lists the reference stacks into (L, ...)
+    # arrays (gradient compression takes one scale across their layers)
+    stacked = ("enc_layers", "dec_layers")
 
     def __init__(self, cfg, *, device=None):
         if not cfg.enc_layers > 0:
@@ -62,51 +66,77 @@ class EncDecModel:
                             device=self.device)[None].expand(B, T)
 
     # -- encoder -------------------------------------------------------------
-    @torch.no_grad()
-    def encode(self, params, frames, *, backend: str = "auto"):
+    def _enc_layer(self, p, x, pos, backend):
+        a, _ = attn.attention_full(p["attn"], rmsnorm(p["ln1"], x), pos,
+                                   cfg=self.cfg, window=0, causal=False,
+                                   backend=backend)
+        x = x + a
+        return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), self.cfg.mlp)
+
+    def encode(self, params, frames, *, remat: bool = True,
+               backend: str = "auto", for_grad: bool = True, **_chunks):
         """frames: (B, Te, d) precomputed frontend embeddings (the stub)
-        -> the encoder memory (B, Te, d)."""
-        cfg = self.cfg
-        frames = torch.as_tensor(frames, device=self.device)
-        x = frames.to(self.dtype) @ params["frontend_proj"]
-        pos = self._positions(x.shape[0], x.shape[1])
-        for p in params["enc_layers"]:
-            a, _ = attn.attention_full(p["attn"], rmsnorm(p["ln1"], x), pos,
-                                       cfg=cfg, window=0, causal=False,
-                                       backend=backend)
-            x = x + a
-            x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.mlp)
-        return rmsnorm(params["enc_ln_f"], x)
+        -> the encoder memory (B, Te, d).  ``remat``: each layer
+        recomputed in the backward; ``for_grad=False`` records no
+        gradient."""
+        with torch.set_grad_enabled(for_grad and torch.is_grad_enabled()):
+            frames = torch.as_tensor(frames, device=self.device)
+            x = frames.to(self.dtype) @ params["frontend_proj"]
+            pos = self._positions(x.shape[0], x.shape[1])
+            for p in params["enc_layers"]:
+                x = remat_call(self._enc_layer, p, x, pos, backend,
+                               enabled=remat)
+            return rmsnorm(params["enc_ln_f"], x)
 
     # -- decoder -------------------------------------------------------------
-    def _decode_stack(self, params, tokens, enc_out, backend):
+    def _dec_layer(self, p, x, pos, enc_out, backend):
+        cfg = self.cfg
+        a, kv = attn.attention_full(p["attn"], rmsnorm(p["ln1"], x), pos,
+                                    cfg=cfg, window=cfg.window,
+                                    backend=backend)
+        x = x + a
+        enc_kv = attn.encoder_kv(p["xattn"], enc_out, cfg)
+        x = x + attn.cross_attention(p["xattn"], rmsnorm(p["lnx"], x),
+                                     enc_kv, cfg=cfg)
+        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.mlp)
+        return x, kv, enc_kv
+
+    def _decode_stack(self, params, tokens, enc_out, backend,
+                      remat: bool = False):
         """The decoder over the whole prompt: (final hidden states, per
         layer the self-attention (k, v) and the cross (k, v))."""
-        cfg = self.cfg
         x = params["embed"][torch.as_tensor(tokens, device=self.device)
                             .long()]
         pos = self._positions(x.shape[0], x.shape[1])
         kvs, cross = [], []
         for p in params["dec_layers"]:
-            a, kv = attn.attention_full(p["attn"], rmsnorm(p["ln1"], x), pos,
-                                        cfg=cfg, window=cfg.window,
-                                        backend=backend)
-            x = x + a
-            enc_kv = attn.encoder_kv(p["xattn"], enc_out, cfg)
-            x = x + attn.cross_attention(p["xattn"], rmsnorm(p["lnx"], x),
-                                         enc_kv, cfg=cfg)
-            x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x), cfg.mlp)
+            x, kv, enc_kv = remat_call(self._dec_layer, p, x, pos, enc_out,
+                                       backend, enabled=remat)
             kvs.append(kv)
             cross.append(enc_kv)
         return rmsnorm(params["ln_f"], x), kvs, cross
 
-    @torch.no_grad()
-    def forward(self, params, tokens, frames, *, backend: str = "auto"):
+    def forward(self, params, tokens, frames, *, remat: bool = True,
+                backend: str = "auto", for_grad: bool = True, **_chunks):
         """Logits (B, T, vocab_padded) f32 of the decoder over tokens
         (B, T), given the frames (B, Te, d)."""
-        enc_out = self.encode(params, frames, backend=backend)
-        x, _, _ = self._decode_stack(params, tokens, enc_out, backend)
-        return (x @ params["embed"].T).float()
+        with torch.set_grad_enabled(for_grad and torch.is_grad_enabled()):
+            enc_out = self.encode(params, frames, remat=remat,
+                                  backend=backend)
+            x, _, _ = self._decode_stack(params, tokens, enc_out, backend,
+                                         remat=remat)
+            return (x @ params["embed"].T).float()
+
+    def loss(self, params, batch, *, remat: bool = True,
+             backend: str = "auto", **_chunks):
+        """Mean next-token cross entropy of batch {"tokens", "targets",
+        "frontend": the frames}: (ce, {"ce", "aux": 0}), as the
+        reference's."""
+        logits = self.forward(params, batch["tokens"], batch["frontend"],
+                              remat=remat, backend=backend)
+        ce = token_ce(logits, batch["targets"], self.cfg.vocab)
+        return ce, {"ce": ce.detach(),
+                    "aux": torch.zeros((), device=ce.device)}
 
     # -- serving ---------------------------------------------------------------
     @torch.no_grad()
@@ -117,7 +147,7 @@ class EncDecModel:
         cross (k, v).  Returns (last-token logits (B, vocab), caches,
         next_pos)."""
         cfg = self.cfg
-        enc_out = self.encode(params, frames, backend=backend)
+        enc_out = self.encode(params, frames, remat=False, backend=backend)
         x, kvs, cross = self._decode_stack(params, tokens, enc_out, backend)
         B, T = x.shape[0], x.shape[1]
         logits = (x[:, -1] @ params["embed"].T).float()[:, :cfg.vocab]

@@ -31,13 +31,17 @@ import torch
 from ..core.pipeline import resolve_device
 from . import attention as attn
 from . import ssm
-from .layers import (dtype_of, embed_init, mlp_apply, mlp_init, rmsnorm,
-                     rmsnorm_init)
+from .layers import (dtype_of, embed_init, mlp_apply, mlp_init,
+                     remat as remat_call, rmsnorm, rmsnorm_init, token_ce)
 from .transformer import check_generator
 
 
 class Zamba2Model:
     """zamba2 on one device (CUDA unless ``device="cpu"``)."""
+
+    # the keys whose per-layer lists the reference stacks into (L, ...)
+    # arrays (gradient compression takes one scale across their layers)
+    stacked = ("layers",)
 
     def __init__(self, cfg, *, device=None):
         if not (cfg.attn_every > 0 and cfg.ssm_state > 0):
@@ -87,9 +91,15 @@ class Zamba2Model:
         return x + mlp_apply(sp["mlp"], rmsnorm(sp["ln2"], x),
                              self.cfg.mlp), kv
 
-    def _run(self, params, tokens, backend):
+    def _mamba_layer(self, p, x):
+        h, S = ssm.mamba2_forward(p["mamba"], rmsnorm(p["ln"], x), self.cfg)
+        return x + h, S
+
+    def _run(self, params, tokens, backend, remat: bool = False):
         """The full-sequence pass: (final hidden states, per group the
-        stacked last Mamba2 states and the shared block's (k, v))."""
+        stacked last Mamba2 states and the shared block's (k, v)).
+        ``remat``: each Mamba2 layer recomputed in the backward (the
+        reference rematerialises its Mamba2 scan body only)."""
         x = params["embed"][torch.as_tensor(tokens, device=self.device)
                             .long()]
         B, T, _ = x.shape
@@ -99,22 +109,32 @@ class Zamba2Model:
         for g in range(self.n_groups):
             Ss = []
             for p in self._group(params, g):
-                h, S = ssm.mamba2_forward(p["mamba"], rmsnorm(p["ln"], x),
-                                          self.cfg)
-                x = x + h
+                x, S = remat_call(self._mamba_layer, p, x, enabled=remat)
                 Ss.append(S)
             x, kv = self._shared_block(params["shared"], x, pos, backend)
             groups.append((torch.stack(Ss), kv))
         return rmsnorm(params["ln_f"], x), groups
 
-    @torch.no_grad()
     def forward(self, params, tokens, extra_embeds=None, *,
-                collect_kv: bool = False, backend: str = "auto"):
+                remat: bool = True, collect_kv: bool = False,
+                backend: str = "auto", for_grad: bool = True, **_chunks):
         """tokens: (B, T).  Returns (logits (B, T, vocab_padded) f32,
-        [(k, v) per group] or [], 0.0), as the reference's."""
-        x, groups = self._run(params, tokens, backend)
-        logits = (x @ params["embed"].T).float()
+        [(k, v) per group] or [], 0.0), as the reference's;
+        ``for_grad=False`` records no gradient."""
+        with torch.set_grad_enabled(for_grad and torch.is_grad_enabled()):
+            x, groups = self._run(params, tokens, backend, remat=remat)
+            logits = (x @ params["embed"].T).float()
         return logits, [kv for _, kv in groups] if collect_kv else [], 0.0
+
+    def loss(self, params, batch, *, remat: bool = True,
+             backend: str = "auto", **_chunks):
+        """Mean next-token cross entropy of batch {"tokens", "targets"}:
+        (ce, {"ce", "aux": 0}), as the reference's."""
+        logits, _, _ = self.forward(params, batch["tokens"], remat=remat,
+                                    backend=backend)
+        ce = token_ce(logits, batch["targets"], self.cfg.vocab)
+        return ce, {"ce": ce.detach(),
+                    "aux": torch.zeros((), device=ce.device)}
 
     # -- serving -----------------------------------------------------------
     def _conv_zeros(self, batch: int) -> list:
@@ -195,6 +215,10 @@ class Zamba2Model:
 class XLSTMModel:
     """xLSTM on one device (CUDA unless ``device="cpu"``)."""
 
+    # the keys whose per-layer lists the reference stacks into (L, ...)
+    # arrays (gradient compression takes one scale across their layers)
+    stacked = ()
+
     def __init__(self, cfg, *, device=None):
         if not cfg.block_pattern:
             raise ValueError(f"{cfg.name}: xLSTM needs a block pattern")
@@ -247,21 +271,31 @@ class XLSTMModel:
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
-    @torch.no_grad()
-    def forward(self, params, tokens, extra_embeds=None, **_):
+    def forward(self, params, tokens, extra_embeds=None, *,
+                remat: bool = True, **_):
         """tokens: (B, T).  Returns (logits (B, T, vocab_padded) f32, the
-        per-layer states, 0.0), as the reference's."""
+        per-layer states, 0.0), as the reference's.  ``remat``: each
+        block recomputed in the backward (the reference keeps them)."""
         x = params["embed"][self._tokens(tokens)]
         states = []
         for p, kind in zip(params["layers"], self.pattern):
-            x, st = self._apply_layer(p, kind, x)
+            x, st = remat_call(self._apply_layer, p, kind, x, enabled=remat)
             states.append(st)
         x = rmsnorm(params["ln_f"], x)
         return (x @ params["embed"].T).float(), states, 0.0
 
+    def loss(self, params, batch, *, remat: bool = True, **_):
+        """Mean next-token cross entropy of batch {"tokens", "targets"}:
+        (ce, {"ce", "aux": 0}), as the reference's."""
+        logits, _, _ = self.forward(params, batch["tokens"], remat=remat)
+        ce = token_ce(logits, batch["targets"], self.cfg.vocab)
+        return ce, {"ce": ce.detach(),
+                    "aux": torch.zeros((), device=ce.device)}
+
+    @torch.no_grad()
     def prefill(self, params, tokens, extra_embeds=None, *, max_len: int,
                 **_):
-        logits, states, _ = self.forward(params, tokens)
+        logits, states, _ = self.forward(params, tokens, remat=False)
         return logits[:, -1, :self.cfg.vocab], states, int(logits.shape[1])
 
     def decode_state(self, batch: int, max_len: int) -> list:

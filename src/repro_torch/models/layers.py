@@ -14,6 +14,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 MLP_KINDS = ("swiglu", "relu2", "gelu")
 
@@ -135,3 +136,22 @@ def mask_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
         return logits
     keep = torch.arange(V, device=logits.device) < vocab
     return torch.where(keep, logits, -1e30)
+
+
+def token_ce(logits: torch.Tensor, targets, vocab: int) -> torch.Tensor:
+    """Mean next-token cross entropy of fp32 logits (..., vocab_padded)
+    against integer targets (...), the padded vocab masked: the
+    reference's logsumexp minus the gold logit, averaged."""
+    logits = mask_vocab(logits, vocab)
+    targets = torch.as_tensor(targets, device=logits.device).long()
+    gold = logits.gather(-1, targets[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).mean()
+
+
+def remat(fn, *args, enabled: bool = True):
+    """``fn(*args)``, its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant) where ``enabled`` and
+    autograd records: the port's ``jax.checkpoint`` of one layer."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)

@@ -14,9 +14,10 @@ and rotates with M-RoPE's stub (t, h, w) streams.
 The reference's ``dist.hints.constrain`` calls and its ``_onehot_embed``
 lookup do nothing without a device mesh and the ``onehot_embed`` hint,
 which a single card never has, so the port takes the plain gather
-``embed[tokens]`` and no layout constraint.  ``forward`` is the prefill
-form (no remat, no gradient): training waits for its own slice
-(ROADMAP Queue 1 item 15).
+``embed[tokens]`` and no layout constraint.  ``forward`` is the training
+form (each layer rematerialised in the backward, ``remat=True``) unless
+``for_grad=False``, the reference's prefill form, which records no
+gradient; ``loss`` is the training objective.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from ..core.pipeline import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
 from .layers import (dense_init, dtype_of, embed_init, mlp_apply, mlp_init,
-                     rmsnorm, rmsnorm_init)
+                     remat as remat_call, rmsnorm, rmsnorm_init, token_ce)
 
 
 def layer_windows(cfg) -> list:
@@ -52,6 +53,10 @@ class DecoderModel:
     and ``frontend_proj`` where the config has a frontend.
     ``kv_quant=True`` serves from int8 KV caches.
     """
+
+    # the keys whose per-layer lists the reference stacks into (L, ...)
+    # arrays (gradient compression takes one scale across their layers)
+    stacked = ("layers",)
 
     def __init__(self, cfg, *, kv_quant: bool = False, device=None):
         if cfg.family not in ("dense", "moe", "vlm") or cfg.is_encdec:
@@ -128,29 +133,50 @@ class DecoderModel:
             x = torch.cat([fe, x], dim=1)
         return x
 
-    # -- full-sequence forward (prefill) -------------------------------------
-    @torch.no_grad()
+    # -- full-sequence forward (train / prefill) -----------------------------
     def forward(self, params, tokens, extra_embeds=None, *,
-                collect_kv: bool = False, backend: str = "auto"):
+                remat: bool = True, collect_kv: bool = False,
+                backend: str = "auto", for_grad: bool = True, **_chunks):
         """tokens: (B, T) integers; ``extra_embeds``: (B, F, d) frontend
         embeddings, prepended (VLM).  Returns (logits (B, F + T,
         vocab_padded) f32, [(k, v) per layer] or None, aux), as the
         reference's (logits, stacked_kv, aux) with the layer axis as a
         list; aux is the MoE layers' summed load-balance loss (0.0 for a
-        dense model)."""
-        x = self._embed(params, tokens, extra_embeds)
-        B, T, _ = x.shape
-        positions = self._positions(B, T)
-        kvs: Optional[List] = [] if collect_kv else None
-        aux_total = 0.0
-        for p, w in zip(params["layers"], self.windows):
-            x, kv, aux = self._block(p, x, positions, w, backend)
-            aux_total = aux_total + aux
-            if collect_kv:
-                kvs.append(kv)
-        x = rmsnorm(params["ln_f"], x)
-        logits = (x @ params["embed"].T).float()         # tied head
+        dense model).  ``remat``: each layer's activations recomputed in
+        the backward; ``for_grad=False``: no gradient recorded (prefill).
+        The reference's chunk sizes are taken and ignored."""
+        with torch.set_grad_enabled(for_grad and torch.is_grad_enabled()):
+            x = self._embed(params, tokens, extra_embeds)
+            B, T, _ = x.shape
+            positions = self._positions(B, T)
+            kvs: Optional[List] = [] if collect_kv else None
+            aux_total = 0.0
+            for p, w in zip(params["layers"], self.windows):
+                x, kv, aux = remat_call(self._block, p, x, positions, w,
+                                        backend, enabled=remat)
+                aux_total = aux_total + aux
+                if collect_kv:
+                    kvs.append(kv)
+            x = rmsnorm(params["ln_f"], x)
+            logits = (x @ params["embed"].T).float()     # tied head
         return logits, kvs, aux_total
+
+    def loss(self, params, batch, *, remat: bool = True,
+             aux_weight: float = 0.01, backend: str = "auto", **_chunks):
+        """batch: {"tokens": (B, T), "targets": (B, T), optional
+        "frontend": (B, F, d)}.  Returns (ce + aux_weight * aux, {"ce",
+        "aux"}), 0-d fp32 tensors; the frontend positions are left out
+        of the loss."""
+        cfg = self.cfg
+        logits, _, aux = self.forward(params, batch["tokens"],
+                                      batch.get("frontend"), remat=remat,
+                                      backend=backend)
+        F = cfg.frontend_len if (cfg.frontend != "none"
+                                 and "frontend" in batch) else 0
+        ce = token_ce(logits[:, F:], batch["targets"], cfg.vocab)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+        return ce + aux_weight * aux, {"ce": ce.detach(),
+                                       "aux": aux.detach()}
 
     # -- serving --------------------------------------------------------------
     def cache_capacities(self, max_len: int) -> list:
@@ -170,7 +196,8 @@ class DecoderModel:
         build per-layer caches sized for max_len.  Returns (last-token
         logits (B, vocab), caches, next_pos)."""
         logits, kvs, _ = self.forward(params, tokens, extra_embeds,
-                                      collect_kv=True, backend=backend)
+                                      collect_kv=True, backend=backend,
+                                      for_grad=False)
         B, T = logits.shape[0], logits.shape[1]
         positions = torch.arange(T, dtype=torch.int32,
                                  device=self.device)[None]

@@ -17,7 +17,9 @@ the same places), and within
 of the plain version in fp32 (another summation order of the online
 softmax) and, in bf16 (the wgmma kernel), within one bf16 ulp of the
 plain output's largest magnitude (both round nearly equal fp32 values to
-bf16 once; the kernel also rounds P to bf16 before the PV product).
+bf16 once; the kernel also rounds P to bf16 before the PV product); the
+flash backward within 1e-5 (fp32) and 2^-7 (bf16) of each gradient's
+largest magnitude, and bitwise repeatable.
 """
 
 import numpy as np
@@ -578,6 +580,52 @@ def test_cuda_flash_wgmma_matches_plain(cuda, B, Tq, Tk, H, KV, hd, causal,
         q = q * torch.tensor(hd ** -0.5, dtype=torch.bfloat16, device=cuda)
         scale = 1.0
     _check_wgmma(q, k, v, causal, window, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H,KV,hd,causal,window", [
+    (1, 200, 8, 2, 64, True, 70),       # GQA 4, window, ragged tiles
+    (2, 130, 4, 4, 80, False, 0),       # MHA, bidirectional, hd 80
+    (1, 150, 4, 1, 256, True, 0),       # MQA at hd 256 (32-key tiles)
+    (1, 100, 6, 2, 128, True, 30),      # G = 3, a window under a tile
+])
+def test_cuda_flash_backward_matches_plain(cuda, B, T, H, KV, hd, causal,
+                                           window, dtype):
+    """The backward kernel (three launches, each counted once) against
+    the plain backward on the same inputs: fp32 within 1e-5 of each
+    gradient's largest magnitude (another summation order), bf16 within
+    2^-7 of it (the gradients are rounded to bf16 once, from fp32 sums
+    of bf16 inputs); a second run bitwise the first (no atomics); and
+    the same gradients through ``ops.flash_attention``'s autograd."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    rng = _rng(T + hd + H)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   .to(cuda, dt) for s in ((B, T, H, hd), (B, T, KV, hd),
+                                           (B, T, KV, hd), (B, T, H, hd)))
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    ops.reset_launch_counts()
+    got = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
+                                   window=window)
+    counts = ops.launch_counts()
+    assert all(counts[f"flash_attention_bwd_{x}"] == 1
+               for x in ("rows", "dkdv", "dq"))
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                       window=window)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
+                                     window=window)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(
+        ops.flash_attention(*leaves, causal=causal, window=window), leaves,
+        do)
+    torch.cuda.synchronize()
+    rel = 1e-5 if dtype == "float32" else 2.0 ** -7
+    for g, w, a, b in zip(got, want, again, auto):
+        assert g.dtype == dt and g.shape == w.shape
+        assert torch.equal(g, a) and torch.equal(g, b)
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= rel * float(w.float().abs().max()), err
 
 
 @pytest.mark.cuda

@@ -263,7 +263,7 @@ def test_every_kernel_has_a_matching_c_entry_point():
     assert {p.name for p in _build.sources()} == {
         "pearson.cu", "minplus.cu", "masked_argmax.cu", "topk.cu",
         "sparse_relax.cu", "flash_attention.cu",
-        "flash_attention_wgmma.cu"}
+        "flash_attention_wgmma.cu", "flash_attention_bwd.cu"}
     for kname, kern in ops.KERNELS.items():
         assert entries[kern.symbol] == kern.signature + "p", kname
 
@@ -282,7 +282,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     from repro_torch.kernels.pearson import pearson_cuda
     from repro_torch.kernels.sparse_apsp import sparse_relax_cuda
     from repro_torch.kernels.topk import topk_pearson_cuda
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
     x = torch.zeros(4, 4)
     with pytest.raises(ValueError, match="CUDA device"):
         pearson_cuda(x)
@@ -301,12 +302,17 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     q = q.bfloat16()
     with pytest.raises(ValueError, match="CUDA device"):
         flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention_bwd_cuda(q, q, q, q, q)
     with pytest.raises(TypeError, match="takes 9 arguments"):
         ops.KERNELS["pearson"].launch(1, 2, stream=0)
     assert ops.launch_counts() == {"pearson": 0, "minplus": 0,
                                    "masked_argmax": 0, "topk": 0,
                                    "sparse_relax": 0, "flash_attention": 0,
-                                   "flash_attention_wgmma": 0}
+                                   "flash_attention_wgmma": 0,
+                                   "flash_attention_bwd_rows": 0,
+                                   "flash_attention_bwd_dkdv": 0,
+                                   "flash_attention_bwd_dq": 0}
 
 
 def test_topk_plan_fits_shared_memory():

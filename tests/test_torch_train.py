@@ -1,0 +1,556 @@
+"""The port's training path against the JAX package's.
+
+Every family's ``loss`` and its gradients against
+``jax.value_and_grad(model.loss)`` (the JAX side jitted at XLA's CPU
+optimization level 0, ``tests/torch_zoo.py:jit``; the weights drawn by
+the port's ``init`` and carried across, ``torch_zoo.jax_params``);
+AdamW fed the same gradients as JAX's; int8 quantize-dequantize and
+error feedback; ``make_train_step`` over three steps with and without
+microbatching and gradient compression; the twins of
+``tests/test_train.py``'s checkpoint, resume, straggler and heartbeat
+tests; the token pipeline and ``synthetic_batch`` bitwise the
+reference's; and ``launch.train.main`` on the CPU, checkpointing and
+resuming.  Configs are ``.reduced()`` (fp32), on the CPU, where
+attention runs the plain version that autograd differentiates.
+
+Tolerances: losses within 1e-5; each gradient leaf within 1e-5 times
+max(1, its largest magnitude) (fp32 summation order); AdamW within 1e-6
+(the same gradients in: only the order of the norm's sum differs);
+compression bitwise (the same fp32 divisions and roundings); train-step
+parameters within 0.1 lr (1e-4) absolute after three steps at lr 1e-3
+(AdamW divides by sqrt(v): an element whose gradient lies within
+rounding of zero moves by up to lr |g| / eps either way; with
+compression, an element within rounding of a half-quantum boundary takes
+either neighbouring level and is held to 3 lr).  The MoE (deepseek-moe-16b) is taken
+with free routing: at these seeds its router's top-k agrees with JAX's.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import torch_zoo as zoo  # noqa: E402
+from repro.configs import RunConfig as JRunConfig  # noqa: E402
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.data.tokens import TokenPipeline as JTokenPipeline  # noqa: E402
+from repro.data.tokens import TokenPipelineConfig as JTPConfig  # noqa: E402
+from repro.dist import compression as jcomp  # noqa: E402
+from repro.launch import train as jtrain  # noqa: E402
+from repro.models.registry import build_model as jax_build  # noqa: E402
+from repro.train import optimizer as joptim  # noqa: E402
+from repro.train.train_step import make_train_step as jmake  # noqa: E402
+from repro_torch.configs import RunConfig, get_config  # noqa: E402
+from repro_torch.data.tokens import (TokenPipeline,  # noqa: E402
+                                     TokenPipelineConfig)
+from repro_torch.dist import compression  # noqa: E402
+from repro_torch.interop import params_from_jax  # noqa: E402
+from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.train import checkpoint, optimizer  # noqa: E402
+from repro_torch.train.elastic import (HeartbeatRegistry,  # noqa: E402
+                                       StragglerMonitor)
+from repro_torch.train.train_step import (make_eval_step,  # noqa: E402
+                                          make_train_step)
+from repro_torch.train.tree import leaves, tree_map  # noqa: E402
+
+_t, _np = zoo.t, zoo.npf
+
+FAMILIES = ["granite-3-8b", "gemma3-4b", "deepseek-moe-16b", "qwen2-vl-72b",
+            "zamba2-2.7b", "xlstm-125m", "seamless-m4t-large-v2"]
+
+
+def _pair(arch, **over):
+    """(port cfg, JAX model, JAX params, port model, port params)."""
+    cfg = get_config(arch).reduced(**over)
+    jm = jax_build(jax_get_config(arch).reduced(**over))
+    tm = build_model(cfg, device="cpu")
+    jp = zoo.jax_params(tm, jm)
+    return cfg, jm, jp, tm, params_from_jax(jp)
+
+
+def _batch(cfg, B, T, seed):
+    """Seeded numpy tokens, targets and (with a frontend) embeddings."""
+    r = np.random.default_rng(seed)
+    out = {"tokens": r.integers(0, cfg.vocab, (B, T)).astype(np.int32),
+           "targets": r.integers(0, cfg.vocab, (B, T)).astype(np.int32)}
+    if cfg.frontend != "none":
+        out["frontend"] = r.normal(
+            size=(B, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _both(batch):
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+
+
+def _grad_close(got, want):
+    for (g, w) in zip(leaves(got), leaves(want)):
+        g, w = _np(g), _np(w)
+        tol = 1e-5 * max(1.0, float(np.abs(w).max()))
+        assert g.shape == w.shape
+        assert float(np.abs(g - w).max()) <= tol
+
+
+# ---------------------------------------------------------------------------
+# losses and gradients of every family
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_loss_and_grads_match_jax(arch):
+    cfg, jm, jp, tm, tp = _pair(arch, n_layers=2)
+    jb, tb = _both(_batch(cfg, 2, 12, seed=len(arch)))
+    (jl, jmet), jg = zoo.jit(jax.value_and_grad(jm.loss, has_aux=True))(
+        jp, jb)
+    flat = [p.clone().requires_grad_() for p in leaves(tp)]
+    params = tree_map(lambda _, p: p, tp, flat)
+    loss, met = tm.loss(params, tb)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, flat)]
+    assert abs(float(loss.detach()) - float(jl)) <= 1e-5
+    assert abs(float(met["ce"]) - float(jmet["ce"])) <= 1e-5
+    assert abs(float(met["aux"]) - float(jmet["aux"])) <= 1e-5
+    if cfg.n_experts:
+        assert float(met["aux"]) > 0
+    _grad_close(tree_map(lambda _, g: g, tp, grads), params_from_jax(jg))
+
+
+def test_remat_changes_no_gradient():
+    """remat=True recomputes each layer in the backward: the same loss
+    and gradients as remat=False, bitwise (the same operations)."""
+    cfg, _, _, tm, tp = _pair("granite-3-8b", n_layers=2)
+    _, tb = _both(_batch(cfg, 2, 12, seed=3))
+    out = []
+    for remat in (True, False):
+        flat = [p.clone().requires_grad_() for p in leaves(tp)]
+        loss, _ = tm.loss(tree_map(lambda _, p: p, tp, flat), tb,
+                          remat=remat)
+        out.append([loss.detach()] + list(torch.autograd.grad(loss, flat)))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_prefill_forward_records_no_gradient():
+    cfg, _, _, tm, tp = _pair("granite-3-8b", n_layers=1)
+    flat = [p.clone().requires_grad_() for p in leaves(tp)]
+    params = tree_map(lambda _, p: p, tp, flat)
+    toks = _batch(cfg, 1, 8, seed=4)["tokens"]
+    assert tm.forward(params, toks)[0].requires_grad
+    assert not tm.forward(params, toks, for_grad=False)[0].requires_grad
+    assert not tm.prefill(params, toks, max_len=12)[0].requires_grad
+
+
+# ---------------------------------------------------------------------------
+# optimizer and compression
+# ---------------------------------------------------------------------------
+
+def _tree(seed, dtype=np.float32):
+    r = np.random.default_rng(seed)
+    return {"w": r.normal(size=(7, 5)).astype(dtype),
+            "layers": [{"b": r.normal(size=(5,)).astype(dtype)},
+                       {"b": r.normal(size=(5,)).astype(dtype)}]}
+
+
+def test_adamw_matches_jax():
+    rc = dict(lr=1e-2, warmup_steps=2, total_steps=6, grad_clip=1.0,
+              weight_decay=0.1)
+    p0 = _tree(0)
+    jp, tp = jax.tree.map(jnp.asarray, p0), tree_map(torch.from_numpy, p0)
+    jst, tst = joptim.init(jp), optimizer.init(tp)
+    for step in range(4):
+        g = _tree(10 + step)
+        g["w"] *= 3.0 if step == 1 else 0.1          # one clipped step
+        jp, jst, jm = joptim.apply(jp, jax.tree.map(jnp.asarray, g), jst,
+                                   JRunConfig(**rc))
+        tp, tst, tm = optimizer.apply(tp, tree_map(torch.from_numpy, g),
+                                      tst, RunConfig(**rc))
+        assert int(tst.step) == int(jst.step) == step + 1
+        for k in ("grad_norm", "lr"):
+            assert abs(float(tm[k]) - float(jm[k])) <= 1e-6 * max(
+                1.0, abs(float(jm[k])))
+        for a, b in zip(leaves(tp) + leaves(tst.mu) + leaves(tst.nu),
+                        jax.tree.leaves((jp, jst.mu, jst.nu))):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+    for s in range(8):
+        want = float(joptim.schedule(jnp.int32(s), lr=3e-4, warmup_steps=2,
+                                     total_steps=6))
+        got = float(optimizer.schedule(torch.tensor(s, dtype=torch.int32),
+                                       lr=3e-4, warmup_steps=2,
+                                       total_steps=6))
+        assert abs(got - want) <= 1e-6 * 3e-4
+
+
+def test_adamw_moments_fp32_for_bf16_params():
+    p = {"w": torch.ones((4, 3), dtype=torch.bfloat16)}
+    st = optimizer.init(p)
+    assert st.mu["w"].dtype == torch.float32 and st.step.dtype == torch.int32
+    p2, st2, _ = optimizer.apply(p, {"w": torch.full((4, 3), 0.5,
+                                                     dtype=torch.bfloat16)},
+                                 st, RunConfig())
+    assert p2["w"].dtype == torch.bfloat16 and st2.nu["w"].dtype == \
+        torch.float32
+
+
+def test_quantize_dequantize_bitwise():
+    r = np.random.default_rng(0)
+    cases = [r.normal(size=(333, 57)).astype(np.float32),
+             (r.normal(size=(64,)) * 1e-3).astype(np.float32),
+             np.array([0.5, -1.5, 2.5, 127.0 * 0.5], np.float32),  # ties
+             np.zeros((5,), np.float32),
+             np.array([1.0, np.inf, -2.0], np.float32),
+             np.array([1.0, np.nan], np.float32)]
+    for g in cases:
+        want = np.asarray(jcomp.quantize_dequantize(jnp.asarray(g)))
+        got = compression.quantize_dequantize(torch.from_numpy(g)).numpy()
+        np.testing.assert_array_equal(got, want)
+    gb = torch.from_numpy(cases[0]).to(torch.bfloat16)
+    want = jcomp.quantize_dequantize(jnp.asarray(cases[0], jnp.bfloat16))
+    got = compression.quantize_dequantize(gb)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(got), np.asarray(want, np.float32))
+    err = np.abs(compression.quantize_dequantize(
+        torch.from_numpy(cases[0])).numpy() - cases[0])
+    assert err.max() <= np.abs(cases[0]).max() / 127 / 2 * 1.0001
+
+
+def test_error_feedback_bitwise_and_unbiased():
+    r = np.random.default_rng(1)
+    g = {"w": (r.normal(size=(64, 64)) * 1e-3).astype(np.float32),
+         "b": r.normal(size=(9,)).astype(np.float32)}
+    jg, tg = jax.tree.map(jnp.asarray, g), tree_map(torch.from_numpy, g)
+    jef, tef = jcomp.ef_init(jg), compression.ef_init(tg)
+    total = torch.zeros(64, 64)
+    n = 50
+    for i in range(n):
+        jc, jef = jcomp.compress_with_feedback(jg, jef)
+        tc, tef = compression.compress_with_feedback(tg, tef)
+        if i < 5:
+            for a, b in zip(leaves((tc, tef)), jax.tree.leaves((jc, jef))):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        total = total + tc["w"]
+    np.testing.assert_allclose((total / n).numpy(), g["w"], atol=1e-5)
+    comp = compression.compress_tree(tg)
+    np.testing.assert_array_equal(
+        comp["b"].numpy(), np.asarray(jcomp.quantize_dequantize(jg["b"])))
+
+
+def test_compression_shares_the_stacked_scale():
+    """A list of layers that the reference stacks into (L, ...) arrays
+    takes one scale per leaf across its layers, the stacked array's: the
+    layers' gradients differ in size by 10x, so per-layer scales would
+    quantize the small layer's elements to other levels."""
+    r = np.random.default_rng(2)
+    lay = [{"w": (r.normal(size=(16, 8)) * s).astype(np.float32),
+            "b": (r.normal(size=(8,)) * s).astype(np.float32)}
+           for s in (1e-3, 1e-2, 1e-4)]
+    top = r.normal(size=(8,)).astype(np.float32)
+    jg = {"layers": jax.tree.map(lambda *a: jnp.asarray(np.stack(a)), *lay),
+          "top": jnp.asarray(top)}
+    tg = {"layers": [tree_map(torch.from_numpy, x) for x in lay],
+          "top": torch.from_numpy(top)}
+    comp = compression.compress_tree(tg, ("layers",))
+    np.testing.assert_array_equal(
+        _np(comp["top"]), np.asarray(jcomp.quantize_dequantize(jg["top"])))
+    want = jcomp.compress_tree(jg)
+    for i in range(len(lay)):
+        for k in ("w", "b"):
+            np.testing.assert_array_equal(
+                _np(comp["layers"][i][k]), np.asarray(want["layers"][k][i]))
+    # the smallest layer alone would keep its own levels
+    assert not torch.equal(comp["layers"][2]["w"],
+                           compression.compress_tree(tg)["layers"][2]["w"])
+    jef, tef = jcomp.ef_init(jg), compression.ef_init(tg)
+    for _ in range(3):
+        jc, jef = jcomp.compress_with_feedback(jg, jef)
+        tc, tef = compression.compress_with_feedback(tg, tef, ("layers",))
+        for k in ("w", "b"):
+            for i in range(len(lay)):
+                np.testing.assert_array_equal(
+                    _np(tc["layers"][i][k]), np.asarray(jc["layers"][k][i]))
+                np.testing.assert_array_equal(
+                    _np(tef["layers"][i][k]),
+                    np.asarray(jef["layers"][k][i]))
+
+
+# ---------------------------------------------------------------------------
+# the train step
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def granite():
+    return _pair("granite-3-8b", n_layers=2)
+
+
+@pytest.mark.parametrize("compress", [False, True])
+@pytest.mark.parametrize("m", [1, 2])
+def test_train_step_matches_jax(granite, m, compress, monkeypatch):
+    cfg, jm, jp, tm, tp = granite
+    lr = 1e-3
+    rc = dict(lr=lr, warmup_steps=1, total_steps=10, microbatches=m,
+              compress_grads=compress)
+    jstep = zoo.jit(jmake(jm, JRunConfig(**rc)))
+    tstep = make_train_step(tm, RunConfig(**rc))
+    # the port's gradients as they enter the int8 quantization
+    seen = []
+    real = compression.compress_tree
+    monkeypatch.setattr(compression, "compress_tree",
+                        lambda g, stacked=(): seen.append(
+                            (g, compression._amax(g, stacked)))
+                        or real(g, stacked))
+    jo, to = joptim.init(jp), optimizer.init(tp)
+    for s in range(3):
+        jb, tb = _both(_batch(cfg, 4, 12, seed=20 + s))
+        jp, jo, jmet = jstep(jp, jo, jb)
+        tp, to, tmet = tstep(tp, to, tb)
+        assert abs(float(tmet["loss"]) - float(jmet["loss"])) <= 1e-5
+        assert set(tmet) == set(jmet)
+    assert len(seen) == (3 if compress else 0)
+    # an element whose gradient lies within rounding (1e-3 of a quantum)
+    # of a half-quantum boundary takes either neighbouring int8 level in
+    # the two packages; it may differ by up to lr a step.  Every other
+    # element is held to 0.1 lr over the three steps: a missing
+    # compression moves each element that rounds to level 0 by about lr.
+    near = [torch.zeros(p.shape, dtype=torch.bool) for p in leaves(tp)]
+    for g, amax in seen:
+        for i, (x, a) in enumerate(zip(leaves(g), leaves(amax))):
+            u = x.abs() / (a / 127.0)
+            near[i] |= (u - u.floor() - 0.5).abs() < 1e-3
+    n_near = sum(int(x.sum()) for x in near)
+    assert n_near <= 1e-2 * sum(x.numel() for x in near)
+    for a, b, x in zip(leaves(tp), leaves(params_from_jax(jp)), near):
+        d = (a - b).abs()
+        assert float(d[~x].max()) <= 0.1 * lr
+        assert float(d.max()) <= 3 * lr
+    ev = make_eval_step(tm)(tp, tb)
+    assert not ev["loss"].requires_grad and set(ev) == {"loss", "ce", "aux"}
+
+
+def test_train_step_loss_decreases_and_leaves_inputs(granite):
+    cfg, _, _, tm, tp = granite
+    before = [p.clone() for p in leaves(tp)]
+    step = make_train_step(tm, RunConfig(lr=1e-3, warmup_steps=1,
+                                         total_steps=50))
+    _, tb = _both(_batch(cfg, 4, 12, seed=5))
+    p, o, losses = tp, optimizer.init(tp), []
+    for _ in range(8):
+        p, o, met = step(p, o, tb)
+        losses.append(float(met["loss"]))
+    assert losses[-1] < losses[0] - 0.5, losses
+    assert all(torch.equal(a, b) for a, b in zip(before, leaves(tp)))
+
+
+# ---------------------------------------------------------------------------
+# checkpoints (twins of tests/test_train.py)
+# ---------------------------------------------------------------------------
+
+def _params_opt(granite):
+    _, _, _, _, tp = granite
+    p = dict(tp, extra_bf16=torch.arange(6, dtype=torch.bfloat16) / 3)
+    return p, optimizer.init(p)
+
+
+def test_checkpoint_roundtrip(tmp_path, granite):
+    p, o = _params_opt(granite)
+    path = str(tmp_path / "ckpt")
+    checkpoint.save((p, o), path, step=7, extras={"note": "x"})
+    like = tree_map(torch.zeros_like, (p, o))
+    (p2, o2), step, extras = checkpoint.restore(like, path)
+    assert step == 7 and extras == {"note": "x"}
+    assert isinstance(o2, optimizer.AdamWState)
+    for a, b in zip(leaves((p, o)), leaves((p2, o2))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_checkpoint_atomicity(tmp_path, granite):
+    """A half-written checkpoint never shadows a good one."""
+    p, _ = _params_opt(granite)
+    path = str(tmp_path / "ckpt")
+    checkpoint.save(p, path, step=1)
+    os.makedirs(os.path.join(path, ".tmp-step_000000002", "arrays"),
+                exist_ok=True)
+    assert checkpoint.latest_step(path) == 1
+    _, step, _ = checkpoint.restore(p, path)
+    assert step == 1
+    with pytest.raises(FileNotFoundError):
+        checkpoint.restore(p, str(tmp_path / "none"))
+
+
+def test_checkpoint_keep_last_k(tmp_path, granite):
+    p, _ = _params_opt(granite)
+    path = str(tmp_path / "ckpt")
+    for s in range(5):
+        checkpoint.save(p, path, step=s, keep=2)
+    steps = sorted(d for d in os.listdir(path) if d.startswith("step_"))
+    assert steps == ["step_000000003", "step_000000004"]
+    assert checkpoint.latest_step(path) == 4
+
+
+def test_async_checkpointer(tmp_path, granite):
+    p, _ = _params_opt(granite)
+    path = str(tmp_path / "ckpt")
+    ck = checkpoint.AsyncCheckpointer(path, keep=2)
+    ck.save(p, 3)
+    ck.wait()
+    assert checkpoint.latest_step(path) == 3
+    p2, _, _ = checkpoint.restore(p, path)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(p), leaves(p2)))
+
+
+def test_train_resume_bitwise(tmp_path):
+    """10 straight steps == 5 steps + checkpoint + restore + 5 steps."""
+    cfg = get_config("xlstm-125m").reduced(n_layers=2)
+    model = build_model(cfg, device="cpu")
+    step_fn = make_train_step(model, RunConfig(lr=1e-3, warmup_steps=1,
+                                               total_steps=10))
+    params = model.init(torch.Generator().manual_seed(0))
+    opt = optimizer.init(params)
+
+    def run(p, o, steps):
+        for s in steps:
+            p, o, _ = step_fn(p, o, ttrain.synthetic_batch(cfg, s, 2, 32,
+                                                           device="cpu"))
+        return p, o
+
+    ref, _ = run(params, opt, range(10))
+    p, o = run(params, opt, range(5))
+    path = str(tmp_path / "ck")
+    checkpoint.save((p, o), path, step=5)
+    (p, o), s0, _ = checkpoint.restore(tree_map(torch.zeros_like, (p, o)),
+                                       path)
+    p, _ = run(p, o, range(s0, 10))
+    assert all(torch.equal(a, b) for a, b in zip(leaves(ref), leaves(p)))
+
+
+# ---------------------------------------------------------------------------
+# elastic bookkeeping
+# ---------------------------------------------------------------------------
+
+def test_straggler_detection():
+    m = StragglerMonitor(window=8, threshold=4.0)
+    for _ in range(8):
+        for h in range(8):
+            m.record(h, 1.0 + 0.01 * h + (5.0 if h == 3 else 0.0))
+    assert m.stragglers() == [3]
+    w = m.rebalance_weights(8)
+    assert w[3] < min(w[h] for h in range(8) if h != 3)
+    assert StragglerMonitor().rebalance_weights(3) == [1.0] * 3
+
+
+def test_heartbeats():
+    r = HeartbeatRegistry(timeout=10.0)
+    r.beat(0, now=0.0)
+    r.beat(1, now=0.0)
+    r.beat(0, now=20.0)
+    assert r.dead_hosts(now=21.0) == [1] and r.alive_count(now=21.0) == 1
+
+
+# ---------------------------------------------------------------------------
+# data and the entry point
+# ---------------------------------------------------------------------------
+
+def test_token_pipeline_and_synthetic_batch_bitwise():
+    for kw, host in ((dict(vocab=503, seq_len=33, global_batch=4), 0),
+                     (dict(vocab=49155, seq_len=64, global_batch=8,
+                           n_hosts=2, seed=3), 1)):
+        jpipe = JTokenPipeline(JTPConfig(**kw), host_id=host)
+        tpipe = TokenPipeline(TokenPipelineConfig(**kw), host_id=host,
+                              device="cpu")
+        for step in (0, 1, 17):
+            a, b = jpipe.batch(step), tpipe.batch(step)
+            assert set(a) == set(b)
+            for k in a:
+                assert b[k].dtype == torch.int32
+                np.testing.assert_array_equal(b[k].numpy(), np.asarray(a[k]))
+    for arch in ("xlstm-125m", "qwen2-vl-72b", "seamless-m4t-large-v2"):
+        jcfg = jax_get_config(arch).reduced()
+        cfg = get_config(arch).reduced()
+        a = jtrain.synthetic_batch(jcfg, 5, 2, 32)
+        b = ttrain.synthetic_batch(cfg, 5, 2, 32, device="cpu")
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_array_equal(b[k].numpy(), np.asarray(a[k]))
+
+
+def test_launch_train_runs_and_resumes_bitwise(tmp_path, capsys):
+    """Six steps straight, against four steps (a checkpoint at 2 and 4),
+    a crash in the fifth, and a rerun that resumes from step 4: the final
+    checkpoints are bitwise equal."""
+    args = ["--reduced", "--device", "cpu", "--steps", "6", "--batch", "2",
+            "--seq", "16", "--ckpt-every", "2", "--log-every", "1"]
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    met = ttrain.main(args + ["--ckpt-dir", a])
+    assert np.isfinite(met["loss"]) and checkpoint.latest_step(a) == 6
+
+    real = ttrain.synthetic_batch
+
+    def crash_at_4(cfg, step, *rest, **kw):
+        if step == 4:
+            raise RuntimeError("killed")
+        return real(cfg, step, *rest, **kw)
+
+    ttrain.synthetic_batch = crash_at_4
+    try:
+        with pytest.raises(RuntimeError, match="killed"):
+            ttrain.main(args + ["--ckpt-dir", b])
+    finally:
+        ttrain.synthetic_batch = real
+    assert checkpoint.latest_step(b) == 4
+    ttrain.main(args + ["--ckpt-dir", b])
+    assert "resumed from step 4" in capsys.readouterr().out
+    for d in (a, b):
+        assert checkpoint.latest_step(d) == 6
+    step_dir = "step_000000006"
+    for f in sorted(os.listdir(os.path.join(a, step_dir, "arrays"))):
+        np.testing.assert_array_equal(
+            np.load(os.path.join(a, step_dir, "arrays", f)),
+            np.load(os.path.join(b, step_dir, "arrays", f)))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash kernels have no CPU "
+                    "mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_goes_through_the_backward_kernel(cuda):
+    """A reduced bf16 granite on the card: one step's gradients through
+    the flash kernels (a forward and its recomputation and one of each
+    backward launch per layer) at per-leaf cosine >= 0.999 of the plain
+    attention's, and a three-step run with falling loss."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.train_step import value_and_grad
+    cfg = get_config("granite-3-8b").reduced(n_layers=2, dtype="bfloat16",
+                                             head_dim=64)
+    model = build_model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tb = {k: torch.from_numpy(v).to(cuda)
+          for k, v in _batch(cfg, 2, 64, seed=6).items()}
+    ops.reset_launch_counts()
+    lk, _, gk = value_and_grad(model, params, tb)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_wgmma"] == 2 * cfg.n_layers
+    assert all(counts[f"flash_attention_bwd_{x}"] == cfg.n_layers
+               for x in ("rows", "dkdv", "dq"))
+    lt, _, gt = value_and_grad(model, params, tb, {"backend": "torch"})
+    assert abs(float(lk) - float(lt)) <= 1e-2
+    for a, b in zip(leaves(gk), leaves(gt)):
+        cos = torch.nn.functional.cosine_similarity(
+            a.double().flatten(), b.double().flatten(), dim=0)
+        assert float(cos) >= 0.999
+    step = make_train_step(model, RunConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=3))
+    p, o, losses = params, optimizer.init(params), []
+    for _ in range(3):
+        p, o, met = step(p, o, tb)
+        losses.append(float(met["loss"]))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
