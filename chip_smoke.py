@@ -226,37 +226,52 @@ Phases (any failure exits non-zero; no phase is skipped):
    tokens, 24 non-causal (the encoder) and 24 causal flash launches a
    prefill, the cosine gate.
 13. Training (``train_phase``, TRAIN_S).  (a) The flash backward
-   kernel, ``flash_attention_bwd.cu`` (three launches: the rows' lse and
-   D, dK and dV, dQ), against the plain ``ref.flash_attention_bwd_ref``
-   on the same inputs at BWD_CASES (granite-3-8b causal, gemma3-4b's
-   local layer, zamba2-2.7b's shared block, seamless-m4t's encoder), in
-   fp32 (each gradient within 1e-5 of its largest magnitude) and bf16
-   (within 2^-7 of it, cosine >= 0.9999), a second run bitwise the first;
-   each launch and the whole timed by CUDA events beside the bound (10
-   hd flops per unmasked pair and head at the bf16 tensor or fp32 peak,
-   against q, k, v, o, dO read and dQ, dK, dV written once), the plain
-   backward and SDPA's backward (``torch.autograd.grad`` of
-   ``scaled_dot_product_attention`` with ``enable_gqa=True``, its forward
-   excluded).  (b) granite-3-8b at full width cut to TRAIN_LAYERS layers
-   (``reduced``: the fp32 AdamW moments of 40 layers do not fit one
-   card), in bf16, one step's loss and per-leaf gradients against
-   ``backend="torch"`` (loss within 1e-2, cosine >= 0.999), then
-   TRAIN_STEPS steps of ``make_train_step`` on ``TokenPipeline``
-   batches of one TRAIN_SEQ-token sequence, counts reset just before and
-   read just after: per step two bf16 flash launches a layer (the
-   forward and its recomputation) and one of each backward kernel a
-   layer, and no other kernel; every loss finite and the last below the
-   first; s/step, tokens/s and peak bytes logged.  (c)
+   kernels against the plain ``ref.flash_attention_bwd_ref`` on the same
+   inputs at BWD_CASES (granite-3-8b causal, gemma3-4b's local layer,
+   zamba2-2.7b's shared block, seamless-m4t's encoder), in fp32 (each
+   gradient within 1e-5 of its largest magnitude) and bf16 (within 2^-7
+   of it, cosine >= 0.9999), a second run bitwise the first, each on its
+   route (``flash_attention.bwd_route``): bf16 up to hd 128 on
+   ``flash_attention_bwd_wgmma.cu`` (two launches, dq and dkdv, reading
+   the lse the bf16 forward saved; the second run recomputes that lse
+   with one forward launch), fp32 and hd 256 on ``flash_attention_bwd.cu``
+   (three launches: the rows' lse and D, dK and dV, dQ); each launch and
+   the whole timed by CUDA events, on the wgmma route against the
+   CUDA-core kernel forced onto the same inputs in the order old, new, new, old,
+   beside the bound (10 hd flops per unmasked pair and head at the bf16
+   tensor or fp32 peak, against q, k, v, o, dO read and dQ, dK, dV
+   written once), the plain backward and SDPA's backward
+   (``torch.autograd.grad`` of ``scaled_dot_product_attention`` with
+   ``enable_gqa=True``, its forward excluded), with SDPA's own gradients
+   against the plain backward given SDPA's output (a rounding witness);
+   the count of HGMMA and UTMALDG in the SASS of every instance of the
+   wgmma backward, none of them 0.  (b) granite-3-8b at full width cut
+   to TRAIN_LAYERS layers (``reduced``: the fp32 AdamW moments of 40
+   layers do not fit one card), in bf16, one step's loss and per-leaf
+   gradients against ``backend="torch"`` (loss within 1e-2, cosine >=
+   0.9999), then TRAIN_STEPS steps of ``make_train_step`` on
+   ``TokenPipeline`` batches of one TRAIN_SEQ-token sequence, counts
+   reset just before and read just after: per step two bf16 flash
+   launches a layer (the forward and its recomputation, each saving the
+   lse) and one of each wgmma backward kernel a layer, and no other
+   kernel; every loss finite and the last below the first; s/step,
+   tokens/s and peak bytes logged; one more step under
+   ``torch.profiler``, its device time by kernel class.  (c)
    ``launch.train.main`` on xlstm-125m at full width and depth (batch 8,
    256 tokens) to TRAIN_CLI_STEPS steps with a checkpoint every
    TRAIN_CLI_EVERY, then the same call to TRAIN_CLI_MORE steps, which
-   must resume from the last checkpoint.
+   must resume from the last checkpoint.  (d) gemma3-4b (hd 256) at
+   full width cut to TRAIN_HD256_LAYERS layers (five sliding-window
+   layers and one global), bf16, one step against ``backend="torch"``
+   and TRAIN_HD256_STEPS steps through the CUDA-core backward, counts reset
+   just before and read just after: one of each of its three kernels a
+   layer a step, and no wgmma backward launch.
 
 The line before the last is the JSON object of per-kernel numbers (with
 each kernel's launches on phase 11's approx and dense funnels, on
 each of phase 12's engine runs and on phase 13b's training steps;
-``flash_attention_bwd``'s launches are its three kernels' on phase
-13b); the
+``flash_attention_bwd_wgmma``'s launches are its two kernels' on phase
+13b, ``flash_attention_bwd``'s its three kernels' on phase 13d); the
 last line is ``{"ok": true, "device": {...}}``.  The script needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero
 without printing a result when either is missing.  It imports nothing
@@ -388,14 +403,18 @@ ZOO_S = 30.0
 # KVQ_FREE_COSINE of the bf16 cache's (0.9707-0.9996 there)
 MOE_FREE_FACTOR = 2.0
 KVQ_FREE_COSINE = 0.95
-# phase 13 (training): its expected seconds in all, with the backward
-# kernel's share of the build, charged with ZOO_S to phase 11a's
-# projection (95.0 s on an H100 at 700 W with launch.train run to 4 steps
-# and resumed to 6, at about 9 s a step; 13a about 10 s, 13b about 9 s); the backward kernel's shapes (13a); granite-3-8b at full
-# width cut to TRAIN_LAYERS layers, trained in bf16 on one sequence of
+# phase 13 (training): its expected seconds in all, charged with ZOO_S to
+# phase 11a's projection (on an H100 at 700 W, alone with the library
+# built: 67.1 s, of which 13a 23.6 s with 12.7 s of it the one
+# cuobjdump of the library that the script otherwise makes in phase 2,
+# 13b 6.4 s, 13c 30.7 s, 13d 1.5 s); the backward kernels' shapes
+# (13a); granite-3-8b at full width cut to TRAIN_LAYERS layers, trained
+# in bf16 on one sequence of
 # TRAIN_SEQ tokens for TRAIN_STEPS steps (13b); launch.train.main on
 # xlstm-125m at full width and depth, TRAIN_CLI_STEPS steps with a
-# checkpoint every TRAIN_CLI_EVERY, then resumed to TRAIN_CLI_MORE (13c)
+# checkpoint every TRAIN_CLI_EVERY, then resumed to TRAIN_CLI_MORE (13c);
+# gemma3-4b (hd 256) at full width cut to TRAIN_HD256_LAYERS layers,
+# TRAIN_HD256_STEPS steps through the CUDA-core backward (13d)
 TRAIN_S = 75.0
 BWD_CASES = [
     ("granite-3-8b causal", (1, 4096, 32, 8, 128), 0, True),
@@ -407,6 +426,9 @@ TRAIN_ARCH = "granite-3-8b"
 TRAIN_LAYERS = 4
 TRAIN_SEQ = 4096
 TRAIN_STEPS = 8
+TRAIN_HD256_ARCH = "gemma3-4b"
+TRAIN_HD256_LAYERS = 6
+TRAIN_HD256_STEPS = 3
 TRAIN_CLI_ARCH = "xlstm-125m"
 TRAIN_CLI_STEPS = 2
 TRAIN_CLI_EVERY = 1
@@ -466,16 +488,21 @@ def causal_pairs(T: int, window: int) -> int:
                for t in range(T))
 
 
+_SASS = {}   # library path -> its cuobjdump -sass text, dumped once
+
+
 def sass_counts(lib: str, kernel: str, opcodes) -> dict:
     """Count each opcode in the SASS of every instance of ``kernel`` in
-    the built library (``cuobjdump -sass``)."""
-    from repro_torch.kernels import _build
-    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
-    out = subprocess.run([str(tool), "-sass", lib], capture_output=True,
-                         text=True, timeout=300)
-    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    the built library (``cuobjdump -sass``, run once per library)."""
+    if lib not in _SASS:
+        from repro_torch.kernels import _build
+        tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+        out = subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                             text=True, timeout=300)
+        check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+        _SASS[lib] = out.stdout
     counts = {}
-    for fn in out.stdout.split("Function : ")[1:]:
+    for fn in _SASS[lib].split("Function : ")[1:]:
         name = fn.split("\n", 1)[0].strip()
         if kernel in name:
             counts[name] = {op: fn.count(op) for op in opcodes}
@@ -934,18 +961,32 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
     gen.manual_seed(seed + 13)
     out = {"bwd_cases": []}
 
-    # 13a. the backward kernel at the zoo's attention shapes
+    # 13a. the backward kernels at the zoo's attention shapes: bf16 up to
+    # hd 128 on the wgmma route with the forward's lse, timed against PR
+    # 24's kernel forced onto the same inputs in the order old, new, new,
+    # old; fp32 and hd 256 on the CUDA-core route
+    def run_all(launches):
+        return lambda: [launch() for _, launch in launches]
+
+    t0 = time.perf_counter()
+
     for label, (B, T, H, KV, hd), win, causal in BWD_CASES:
         for dt in (torch.float32, torch.bfloat16):
+            t_case = time.perf_counter()
+            route = fa.bwd_route(dt, hd)
             q, k, v = (torch.randn(s_, generator=gen, device=dev).to(dt)
                        for s_ in ((B, T, H, hd), (B, T, KV, hd),
                                   (B, T, KV, hd)))
-            o = fa.flash_attention_cuda(q, k, v, causal=causal, window=win)
-            do = torch.randn(o.shape, generator=gen, device=dev).to(dt)
             kw = dict(causal=causal, window=win)
-            got, launches = fa.bwd_launches(q, k, v, o, do, **kw)
-            for _, launch in launches:
-                launch()
+            if route == "wgmma":
+                o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                                 **kw)
+            else:
+                o, lse = fa.flash_attention_cuda(q, k, v, **kw), None
+            do = torch.randn(o.shape, generator=gen, device=dev).to(dt)
+            got, launches = fa.bwd_launches(q, k, v, o, do, lse=lse, **kw)
+            run_all(launches)()
+            # without the saved lse: the forward recomputes it first
             again = fa.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
             want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
             sync()
@@ -962,17 +1003,29 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
                 ok = max(errs) <= 1e-5
             else:
                 ok = max(errs) <= 2.0 ** -7 and min(coss) >= 0.9999
-            check(ok, f"train: backward kernel vs plain at {label} {dt}: "
-                  f"max |d| / max |g| {errs}, cosine {coss}")
+            check(ok, f"train: backward kernel ({route}) vs plain at "
+                  f"{label} {dt}: max |d| / max |g| {errs}, cosine {coss}")
             del again, want
             reps = 3 if T * T * H >= 2 ** 28 else 10
             per = {n_: cuda_ms(l_, reps) for n_, l_ in launches}
-            ms = cuda_ms(lambda: fa.flash_attention_bwd_cuda(
-                q, k, v, o, do, **kw), reps)
+            ab = {}
+            if route == "wgmma":
+                _, old = fa.bwd_launches(q, k, v, o, do, route="cuda_core",
+                                         **kw)
+                ab["old_ms"] = [cuda_ms(run_all(old), reps)]
+                ab["new_ms"] = [cuda_ms(run_all(launches), reps)
+                                for _ in range(2)]
+                ab["old_ms"].append(cuda_ms(run_all(old), reps))
+                ms = sum(ab["new_ms"]) / 2
+                del old
+            else:
+                ms = cuda_ms(run_all(launches), reps)
             plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(
                 q, k, v, o, do, **kw), 2)
             # SDPA's backward, its forward excluded: the window as a
-            # boolean mask built outside the timed call
+            # boolean mask built outside the timed call; and SDPA's own
+            # gradients against the plain backward given SDPA's output,
+            # a witness of what rounding costs a library backward
             qt, kt_, vt = (x_.transpose(1, 2).detach().requires_grad_()
                            for x_ in (q, k, v))
             mask = None
@@ -987,7 +1040,16 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
             dot = do.transpose(1, 2)
             lib_ms = cuda_ms(lambda: torch.autograd.grad(
                 ot, (qt, kt_, vt), dot, retain_graph=True), reps)
-            del ot, qt, kt_, vt, dot, mask
+            g_lib = [g_.transpose(1, 2) for g_ in torch.autograd.grad(
+                ot, (qt, kt_, vt), dot)]
+            w_lib = ref.flash_attention_bwd_ref(
+                q, k, v, ot.detach().transpose(1, 2).contiguous(), do, **kw)
+            lib_err = [float((g_.float() - w_.float()).abs().max())
+                       / float(w_.float().abs().max())
+                       for g_, w_ in zip(g_lib, w_lib)]
+            lib_cos = [_cosine(g_.flatten(), w_.flatten())
+                       for g_, w_ in zip(g_lib, w_lib)]
+            del ot, qt, kt_, vt, dot, mask, g_lib, w_lib
             pairs, nbytes = _bwd_sizes(B, T, H, KV, hd, win, causal,
                                        q.element_size())
             b_ms, b_by = bound(nbytes, 10 * hd * pairs,
@@ -995,15 +1057,31 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
                                if dt == torch.bfloat16 else FP32_OPS_PER_S)
             row = dict(case=label, shape=[B, T, H, KV, hd], window=win,
                        causal=causal, dtype=str(dt).replace("torch.", ""),
-                       max_abs_err=max(abs_errs), max_rel_err=errs,
-                       cosine=coss, bitwise_repeat=True,
-                       ms=ms, launch_ms=per, plain_ms=plain_ms,
+                       route=route, max_abs_err=max(abs_errs),
+                       max_rel_err=errs, cosine=coss, bitwise_repeat=True,
+                       ms=ms, launch_ms=per, **ab, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                       pairs=pairs)
+                       library_max_rel_err=lib_err, library_cosine=lib_cos,
+                       pairs=pairs, seconds=time.perf_counter() - t_case)
             out["bwd_cases"].append(row)
             log(f"[train] backward kernel ok: {json.dumps(row)}")
-            del q, k, v, o, do, got, launches
+            del q, k, v, o, lse, do, got, launches
             torch.cuda.empty_cache()
+    # the wgmma backward's SASS holds tensor-core products and TMA loads
+    from repro_torch.kernels import _build
+    t_sass = time.perf_counter()
+    out["bwd_sass"] = sass_counts(_build.BUILD_INFO["path"],
+                                  "flash_bwd_wgmma",
+                                  ("HGMMA", "UTMALDG", "LDL", "STL"))
+    out["bwd_sass_s"] = time.perf_counter() - t_sass
+    log(f"[sass] flash_bwd_wgmma instances: {json.dumps(out['bwd_sass'])}")
+    check(len(out["bwd_sass"]) == 4
+          and all(c_["HGMMA"] > 0 and c_["UTMALDG"] > 0
+                  for c_ in out["bwd_sass"].values()),
+          f"the wgmma backward's SASS lacks HGMMA or UTMALDG: "
+          f"{out['bwd_sass']}")
+    out["bwd_cases_s"] = time.perf_counter() - t0
+    log(f"[time] 13a done in {out['bwd_cases_s']:.1f} s")
 
     # 13b. granite-3-8b at full width, TRAIN_LAYERS layers, in bf16
     t0 = time.perf_counter()
@@ -1028,7 +1106,7 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
     sync()
     cos = [_cosine(a_.flatten(), b_.flatten())
            for a_, b_ in zip(leaves(gk), leaves(gt))]
-    check(abs(float(lk) - float(lt)) <= 1e-2 and min(cos) >= 0.999,
+    check(abs(float(lk) - float(lt)) <= 1e-2 and min(cos) >= 0.9999,
           f"train: {TRAIN_ARCH} cuda vs torch: loss {float(lk)} vs "
           f"{float(lt)}, least per-leaf gradient cosine {min(cos)}")
     del gk, gt
@@ -1050,10 +1128,11 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
     check(all(math.isfinite(l_) for l_ in losses) and losses[-1] < losses[0],
           f"train: {TRAIN_ARCH} losses {losses}")
     L = cfg.n_layers
+    # per step: the forward and its recomputation a layer (each saving
+    # the lse), then the wgmma backward's two launches a layer
     want = {"flash_attention_wgmma": 2 * L * TRAIN_STEPS,
-            "flash_attention_bwd_rows": L * TRAIN_STEPS,
-            "flash_attention_bwd_dkdv": L * TRAIN_STEPS,
-            "flash_attention_bwd_dq": L * TRAIN_STEPS}
+            "flash_attention_bwd_wgmma_dq": L * TRAIN_STEPS,
+            "flash_attention_bwd_wgmma_dkdv": L * TRAIN_STEPS}
     check(all(launches[n_] == c_ for n_, c_ in want.items())
           and sum(launches.values()) == sum(want.values()),
           f"train: {TRAIN_ARCH} launches {launches}, want {want}")
@@ -1070,13 +1149,14 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
         prof_wall = time.perf_counter() - t1
     split = _device_time_by_class(prof, (
         ("flash_bwd", ("bwd_rows_kernel", "bwd_dkdv_kernel",
-                       "bwd_dq_kernel")),
+                       "bwd_dq_kernel", "flash_bwd_wgmma")),
         ("flash_fwd", ("flash_wgmma_kernel",)),
         ("gemm", ("gemm", "Gemm", "sm90_xmma", "cutlass", "nvjet"))))
     if split:
         split["step_s"] = prof_wall
         split["device_busy_share"] = sum(split["us"].values()) / 1e6 \
             / prof_wall
+        split["flash_bwd_share"] = split["us"]["flash_bwd"] / 1e6 / prof_wall
     del prof
     out["granite"] = dict(
         arch=TRAIN_ARCH, layers=L, reduced={"n_layers": [40, L]},
@@ -1120,6 +1200,69 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
     out["cli"] = dict(arch=TRAIN_CLI_ARCH, batch=8, seq=256, runs=runs,
                       s_per_step_resumed=runs[1]["seconds"] / resumed,
                       seconds=time.perf_counter() - t0)
+
+    # 13d. hd 256 trains through the CUDA-core backward: TRAIN_HD256_ARCH at
+    # full width, TRAIN_HD256_LAYERS layers (five sliding-window layers
+    # and one global), bf16, one TRAIN_SEQ-token sequence a step; one
+    # step against backend="torch", then TRAIN_HD256_STEPS steps, the
+    # counts reset just before and read just after
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_HD256_ARCH),
+                              n_layers=TRAIN_HD256_LAYERS)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    opt = optimizer.init(params)
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1, n_domains=1,
+        seed=seed), device=dev)
+    step_fn = make_train_step(model, RunConfig(
+        lr=3e-5, warmup_steps=1, total_steps=TRAIN_HD256_STEPS))
+    batch0 = pipe.batch(0)
+    lk, _, gk = value_and_grad(model, params, batch0)
+    lt, _, gt = value_and_grad(model, params, batch0, {"backend": "torch"})
+    sync()
+    cos = [_cosine(a_.flatten(), b_.flatten())
+           for a_, b_ in zip(leaves(gk), leaves(gt))]
+    check(abs(float(lk) - float(lt)) <= 1e-2 and min(cos) >= 0.999,
+          f"train: {TRAIN_HD256_ARCH} cuda vs torch: loss {float(lk)} vs "
+          f"{float(lt)}, least per-leaf gradient cosine {min(cos)}")
+    del gk, gt
+    torch.cuda.empty_cache()
+    step_fn(params, opt, batch0)          # warm: kernels, allocator
+    sync()
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for s_ in range(TRAIN_HD256_STEPS):
+        batch = pipe.batch(s_)
+        t1 = time.perf_counter()
+        params, opt, met = step_fn(params, opt, batch)
+        losses.append(float(met["loss"]))
+        times.append(time.perf_counter() - t1)
+    launches = ops.launch_counts()
+    check(all(math.isfinite(l_) for l_ in losses),
+          f"train: {TRAIN_HD256_ARCH} losses {losses}")
+    L = cfg.n_layers
+    want = {"flash_attention_wgmma": 2 * L * TRAIN_HD256_STEPS,
+            "flash_attention_bwd_rows": L * TRAIN_HD256_STEPS,
+            "flash_attention_bwd_dkdv": L * TRAIN_HD256_STEPS,
+            "flash_attention_bwd_dq": L * TRAIN_HD256_STEPS}
+    check(all(launches[n_] == c_ for n_, c_ in want.items())
+          and sum(launches.values()) == sum(want.values()),
+          f"train: {TRAIN_HD256_ARCH} launches {launches}, want {want}")
+    out["hd256"] = dict(
+        arch=TRAIN_HD256_ARCH, layers=L,
+        reduced={"n_layers": [get_config(TRAIN_HD256_ARCH).n_layers, L]},
+        params=sum(p_.numel() for p_ in leaves(params)), dtype="bfloat16",
+        seq=TRAIN_SEQ, batch=1, steps=TRAIN_HD256_STEPS, losses=losses,
+        s_per_step=times, launches=launches,
+        launches_per_step={n_: c_ / TRAIN_HD256_STEPS for n_, c_ in
+                           launches.items() if c_},
+        cuda_vs_torch=dict(loss=[float(lk), float(lt)],
+                           min_leaf_grad_cosine=min(cos)),
+        seconds=time.perf_counter() - t0)
+    log(f"[train] {TRAIN_HD256_ARCH}: {json.dumps(out['hd256'])}")
+    del params, opt, model, met, batch, batch0
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3128,30 +3271,47 @@ def main() -> None:
     train_s = time.perf_counter() - t13
     log(f"[time] train phase done at {time.perf_counter() - t_start:.1f} s"
         f" ({train_s:.1f} s)")
-    head = train["bwd_cases"][1]          # granite-3-8b, bf16
-    per_step = train["granite"]["launches_per_step"]
-    bwd_names = ("flash_attention_bwd_rows", "flash_attention_bwd_dkdv",
-                 "flash_attention_bwd_dq")
-    entries["flash_attention_bwd"] = dict(
-        name="flash_attention_bwd", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        replaces="none: the gradient of src/repro/kernels/flash_attention"
-                 ".py:87, which the JAX package takes by XLA autodiff of "
-                 "src/repro/models/attention.py:_flash",
-        shape=head["shape"], dtype=head["dtype"],
-        max_abs_err=head["max_abs_err"], max_rel_err=head["max_rel_err"],
-        ms=head["ms"], launch_ms=head["launch_ms"], plain_ms=head["plain_ms"],
-        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-        library_ms=head["library_ms"], cases=train["bwd_cases"],
-        launches_by_kernel={n_: train["granite"]["launches"][n_]
-                            for n_ in bwd_names},
-        launches_per_step={n_: per_step[n_] for n_ in bwd_names})
+    # the two backward kernels' lines: each with its head case, its cases
+    # in 13a, and its launches on the training path that takes it (the
+    # wgmma one on 13b's granite-3-8b, the CUDA-core one on 13d's hd 256)
+    def bwd_case(label, dtype):
+        return next(c_ for c_ in train["bwd_cases"]
+                    if c_["case"] == label and c_["dtype"] == dtype)
+
+    for kname, src_, route, head, run in (
+            ("flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma.cu",
+             "wgmma", bwd_case(BWD_CASES[0][0], "bfloat16"),
+             train["granite"]),
+            ("flash_attention_bwd", "flash_attention_bwd.cu", "cuda_core",
+             bwd_case(BWD_CASES[1][0], "bfloat16"), train["hd256"])):
+        names = [n_ for n_ in ops.KERNELS
+                 if n_.startswith(kname + "_")
+                 and (route == "wgmma") == ("wgmma" in n_)]
+        entries[kname] = dict(
+            name=kname, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src_}",
+            replaces="none: the gradient of src/repro/kernels/"
+                     "flash_attention.py:87, which the JAX package takes "
+                     "by XLA autodiff of src/repro/models/attention.py:"
+                     "_flash",
+            shape=head["shape"], dtype=head["dtype"],
+            max_abs_err=head["max_abs_err"],
+            max_rel_err=head["max_rel_err"], ms=head["ms"],
+            launch_ms=head["launch_ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"],
+            cases=[c_ for c_ in train["bwd_cases"] if c_["route"] == route],
+            launches_by_kernel={n_: run["launches"][n_] for n_ in names},
+            launches_per_step={n_: run["launches_per_step"][n_]
+                               for n_ in names},
+            launches_on=run["arch"])
+    entries["flash_attention_bwd_wgmma"]["sass"] = train["bwd_sass"]
 
     dense_kernels = ("pearson", "minplus", "masked_argmax")
     train_launches = train["granite"]["launches"]
     for e in entries.values():
-        if e["name"] == "flash_attention_bwd":
-            # the training step's launches of its three kernels
+        if e["name"].startswith("flash_attention_bwd"):
+            # the training steps' launches of its kernels
             e["launches"] = sum(e["launches_by_kernel"].values())
             continue
         e["train_launches"] = train_launches[e["name"]]

@@ -65,12 +65,16 @@
 // of the next PV product.  HDP <= 128 takes BK = 128 (160 KB of shared
 // memory at hd 128); HDP 192 and 256 take BK = 64 (192 KB at hd 256).  The
 // cuTensorMapEncodeTiled entry point comes from cudaGetDriverEntryPoint, so
-// the library links no libcuda.
+// the library links no libcuda.  The PTX helpers, the products and the
+// item order are in flash_wgmma.cuh, shared with the backward.
+//
+// For training the epilogue also writes each row's lse = (m + log2 l) ln 2
+// (natural units, +inf for a row that saw no live key) into a (B, H,
+// lse_rows(Tq)) fp32 array that the backward (flash_attention_bwd_wgmma.cu)
+// reads instead of recomputing it; inference passes a null lse, and o is the
+// same bit for bit either way.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -78,165 +82,6 @@ constexpr int kConsumers = 2;                   // consumer warpgroups
 constexpr int kBQ = 64 * kConsumers;            // query rows per block
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kStages = 2;                      // K/V ring depth
-constexpr float kNeg = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// ---- PTX helpers: shared addresses, mbarriers, TMA, wgmma -----------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// spin until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 4-d tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// shared-memory matrix descriptor of a 128-byte-swizzled tile; lbo and sbo
-// in bytes (K-major: sbo = 1024 between 8-row groups, lbo unused;
-// MN-major: lbo between 64-column blocks, sbo = 1024 between 8-row groups)
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma's issue and wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// 2^x, flushing results below 2^-126 to zero
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The wgmma operand lists name every accumulator register: the m64nN fp32
-// fragment d (N / 2 floats a thread) is operands %0 .. %(N/2 - 1), the
-// other operands follow it.  SS: A and B from K-major shared-memory
-// descriptors, D = A B (acc = 0) or D += A B.  RS: A (bf16 pairs) from
-// registers, B MN-major (the transpose bit), D += A B.  Each is one
-// overload per fragment size.
-#define WG_D8(i)                                                           \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_D32(i) WG_D8(i), WG_D8(i + 8), WG_D8(i + 16), WG_D8(i + 24)
-#define WG_D64 WG_D32(0), WG_D32(32)
-#define WG_D96 WG_D64, WG_D32(64)
-#define WG_D128 WG_D96, WG_D32(96)
-#define WG_S32 \
-  "%0, %1, %2, %3, %4, %5, %6, %7, " \
-  "%8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, " \
-  "%24, %25, %26, %27, %28, %29, %30, %31"
-#define WG_S64 \
-  WG_S32 ", " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, " \
-  "%40, %41, %42, %43, %44, %45, %46, %47, " \
-  "%48, %49, %50, %51, %52, %53, %54, %55, " \
-  "%56, %57, %58, %59, %60, %61, %62, %63"
-#define WG_S96 \
-  WG_S64 ", " \
-  "%64, %65, %66, %67, %68, %69, %70, %71, " \
-  "%72, %73, %74, %75, %76, %77, %78, %79, " \
-  "%80, %81, %82, %83, %84, %85, %86, %87, " \
-  "%88, %89, %90, %91, %92, %93, %94, %95"
-#define WG_S128 \
-  WG_S96 ", " \
-  "%96, %97, %98, %99, %100, %101, %102, %103, " \
-  "%104, %105, %106, %107, %108, %109, %110, %111, " \
-  "%112, %113, %114, %115, %116, %117, %118, %119, " \
-  "%120, %121, %122, %123, %124, %125, %126, %127"
-
-// PRED: the operand that sets the scale-d predicate; AB: the A and B
-// operands as the instruction lists them
-#define WG_SS(N, S, D, PRED, AB)                                           \
-  __device__ __forceinline__ void wgmma_ss(float(&d)[N / 2], uint64_t da, \
-                                           uint64_t db, int acc) {         \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"        \
-                 "wgmma.mma_async.sync.aligned.m64n" #N                    \
-                 "k16.f32.bf16.bf16 {" S "}, " AB ", p, 1, 1, 0, 0;\n}\n"  \
-                 : D                                                       \
-                 : "l"(da), "l"(db), "r"(acc));                            \
-  }
-#define WG_RS(N, S, D, PRED, AB)                                           \
-  __device__ __forceinline__ void wgmma_rs(                                \
-      float(&d)[N / 2], const uint32_t(&a)[4], uint64_t db) {              \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"        \
-                 "wgmma.mma_async.sync.aligned.m64n" #N                    \
-                 "k16.f32.bf16.bf16 {" S "}, " AB ", p, 1, 1, 1;\n}\n"     \
-                 : D                                                       \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),    \
-                   "r"(1));                                                \
-  }
-WG_SS(64, WG_S32, WG_D32(0), "%34", "%32, %33")
-WG_SS(128, WG_S64, WG_D64, "%66", "%64, %65")
-WG_RS(64, WG_S32, WG_D32(0), "%37", "{%32, %33, %34, %35}, %36")
-WG_RS(128, WG_S64, WG_D64, "%69", "{%64, %65, %66, %67}, %68")
-WG_RS(192, WG_S96, WG_D96, "%101", "{%96, %97, %98, %99}, %100")
-WG_RS(256, WG_S128, WG_D128, "%133", "{%128, %129, %130, %131}, %132")
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 
 // named barriers 1 and 2 take turns between the two consumer warpgroups
 __device__ __forceinline__ void turn_wait(int wg) {
@@ -249,41 +94,6 @@ __device__ __forceinline__ void turn_pass(int wg) {
                : "memory");
 }
 
-template <int M>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[M][4]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[i][r])::"memory");
-}
-
-// ---- the pieces of one K/V tile ------------------------------------------------
-
-// issue S = Q K^T: HDP / 16 products over the 128-byte column boxes of the
-// WG's Q tile and of the K stage (K-major, +32 bytes per 16 columns)
-template <int HDP, int BK>
-__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_base,
-                                         uint32_t k_base) {
-#pragma unroll
-  for (int ks = 0; ks < HDP / 16; ++ks)
-    wgmma_ss(sc,
-             desc_sw128(q_base + (ks >> 2) * 64 * 128 + (ks & 3) * 32, 16,
-                        1024),
-             desc_sw128(k_base + (ks >> 2) * BK * 128 + (ks & 3) * 32, 16,
-                        1024),
-             ks > 0);
-}
-
-// issue O += P V: BK / 16 products, V MN-major (16 keys = 2048 bytes a step,
-// 128-byte column boxes BK * 128 bytes apart)
-template <int HDP, int BK>
-__device__ __forceinline__ void issue_pv(float (&acc)[HDP / 2],
-                                         const uint32_t (&pa)[BK / 16][4],
-                                         uint32_t v_base) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_rs(acc, pa[kk], desc_sw128(v_base + kk * 16 * 128, BK * 128, 1024));
-}
 
 // The online softmax of one score tile, in place: the scores in log2 units
 // (times scale * log2 e), masked to NEG where the tile crosses an edge
@@ -345,18 +155,6 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], Rows& st,
   st.l1 = st.l1 * corr1 + ps1;
 }
 
-// P to bf16 pairs: the S accumulator layout is the register layout of
-// wgmma's A operand, 16 keys (4 registers) per product
-template <int BK>
-__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
-                                       uint32_t (&pa)[BK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-}
-
 template <int HDP>
 __device__ __forceinline__ void rescale(float (&acc)[HDP / 2], float corr0,
                                         float corr1) {
@@ -387,35 +185,6 @@ struct Layout {
   static constexpr uint32_t kTotal = kBar + 8 * (2 + 4 * kStages) + 1024;
 };
 
-// One work item: a (batch * head, 128-query tile) pair and its K/V tile
-// range.  Items are numbered heaviest causal tile first; block g of G
-// takes item r * G + g in even rounds r and r * G + G - 1 - g in odd ones,
-// which evens out the decreasing causal costs across the blocks.
-struct Item {
-  int b, h, q_lo, lo, hi;
-};
-
-__device__ __forceinline__ int item_index(int round) {
-  return round * gridDim.x +
-         ((round & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
-}
-
-template <int BK>
-__device__ __forceinline__ Item item_at(int idx, int BH, int H, int nq, int Tk,
-                                        int causal, int window) {
-  Item it;
-  const int bh = idx % BH;
-  it.b = bh / H;
-  it.h = bh - it.b * H;
-  it.q_lo = (nq - 1 - idx / BH) * kBQ;
-  const int nk = (Tk + BK - 1) / BK;
-  it.hi = causal ? min(nk, (it.q_lo + kBQ + BK - 1) / BK) : nk;
-  // a tile past Tk + window - 1 has no live key: lo = hi, no K/V tile
-  it.lo = (window > 0 && it.q_lo - window + 1 > 0)
-              ? min((it.q_lo - window + 1) / BK, it.hi) : 0;
-  return it;
-}
-
 // Persistent: one block per SM walks its items; the ring's stage and phase
 // counters and the Q buffer's phase run on across items, so the producer
 // loads the next item's Q and first K/V tiles while the consumers finish
@@ -425,9 +194,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ o, int B, int H, int KV,
-                   int Tq, int Tk, int hd, int causal, int window,
-                   float scale) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int B, int H, int KV, int Tq, int Tk, int hd, int causal,
+                   int window, float scale) {
   using L = Layout<HDP, BK>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -465,7 +234,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 128 * kConsumers) {
       int i = 0;   // K/V tiles loaded so far, over all items
       for (int r = 0, idx; (idx = item_index(r)) < n_items; ++r) {
-        const Item it = item_at<BK>(idx, BH, H, nq, Tk, causal, window);
+        const Item it = query_item<kBQ, BK>(idx, BH, H, nq, Tk, causal, window);
         const int kvh = it.h / G;
         mbar_wait(bar_qe, (r & 1) ^ 1);
         mbar_expect_tx(bar_q, L::kQBytes);
@@ -507,7 +276,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
     int i0 = 0;   // K/V tiles consumed before this item
     for (int r = 0, idx; (idx = item_index(r)) < n_items; ++r) {
-      const Item it = item_at<BK>(idx, BH, H, nq, Tk, causal, window);
+      const Item it = query_item<kBQ, BK>(idx, BH, H, nq, Tk, causal, window);
       const int qa = it.q_lo + 64 * wg;                 // the WG's first row
       const int r0 = it.q_lo + row;                     // rows r0, r0 + 8
       // whether the tile at k_lo needs no mask for any row of this WG
@@ -593,6 +362,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
       const float den0 = fmaxf(l0, 1e-30f);
       const float den1 = fmaxf(l1, 1e-30f);
+      if (lse != nullptr && (lane & 3) == 0) {
+        // the row's natural-log lse for the backward, +inf where the row
+        // saw no live key (its max still NEG) and on the padding rows
+        const int ldr = lse_rows(Tq);
+        float* lrow = lse + ((int64_t)it.b * H + it.h) * ldr;
+        const float inf = __int_as_float(0x7f800000);
+        if (r0 < ldr)
+          lrow[r0] = r0 < Tq && st.m0 > kNeg ? (st.m0 + log2f(l0)) * kLn2
+                                             : inf;
+        if (r0 + 8 < ldr)
+          lrow[r0 + 8] = r0 + 8 < Tq && st.m1 > kNeg
+                             ? (st.m1 + log2f(l1)) * kLn2 : inf;
+      }
       const int64_t row_stride = (int64_t)H * hd;
       __nv_bfloat16* o0 =
           o + ((int64_t)it.b * Tq + r0) * row_stride + (int64_t)it.h * hd;
@@ -617,55 +399,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ---- host side ----------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime (no libcuda link)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a (B, T, nh, hd) bf16 tensor as a 4-d map (hd innermost), boxes of
-// 64 columns by `rows` rows of one head, 128-byte swizzle, zeros outside
-bool make_map(CUtensorMap* map, const void* ptr, int B, int T, int nh, int hd,
-              int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)nh, (cuuint64_t)T,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
-                                 (cuuint64_t)nh * hd * 2,
-                                 (cuuint64_t)T * nh * hd * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HDP, int BK>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Tq, int Tk, int H, int KV, int hd, int causal, int window,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int Tq, int Tk, int H, int KV, int hd, int causal,
+           int window, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B, Tq, H, hd, 64) ||
       !make_map(&tk, k, B, Tk, KV, hd, BK) ||
@@ -685,8 +422,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const int64_t items = (int64_t)B * H * ((Tq + kBQ - 1) / kBQ);
   const int grid = (int)(items < sms ? items : sms);
   flash_wgmma_kernel<HDP, BK><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, B, H, KV, Tq, Tk, hd, causal, window,
-      scale);
+      tq, tk, tv, (__nv_bfloat16*)o, (float*)lse, B, H, KV, Tq, Tk, hd,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -695,29 +432,33 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // q (B, Tq, H, hd), k and v (B, Tk, KV, hd) and o (B, Tq, H, hd), bf16,
 // contiguous and 16-byte aligned; hd a multiple of 8 up to 256; H a
 // multiple of KV; B * H and the query tiles within the grid's limits
-// (checked by the wrapper).
+// (checked by the wrapper).  lse: null (inference), or (B, H,
+// lse_rows(Tq)) fp32 for the backward, each row's natural-log
+// logsumexp of its scaled scores over its live keys (+inf for none, and
+// on the padding rows); o is the same bit for bit either way.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
-                                           const void* v, void* o, int B,
-                                           int Tq, int Tk, int H, int KV,
-                                           int hd, int causal, int window,
-                                           float scale, void* stream) {
+                                           const void* v, void* o, void* lse,
+                                           int B, int Tq, int Tk, int H,
+                                           int KV, int hd, int causal,
+                                           int window, float scale,
+                                           void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
       hd <= 0 || hd > 256 || hd % 8 != 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch ((hd + 63) / 64) {
     case 1:
-      return launch<64, 128>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
-                             scale, s);
+      return launch<64, 128>(q, k, v, o, lse, B, Tq, Tk, H, KV, hd, causal,
+                             window, scale, s);
     case 2:
-      return launch<128, 128>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal,
+      return launch<128, 128>(q, k, v, o, lse, B, Tq, Tk, H, KV, hd, causal,
                               window, scale, s);
     case 3:
-      return launch<192, 64>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
-                             scale, s);
+      return launch<192, 64>(q, k, v, o, lse, B, Tq, Tk, H, KV, hd, causal,
+                             window, scale, s);
     case 4:
-      return launch<256, 64>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
-                             scale, s);
+      return launch<256, 64>(q, k, v, o, lse, B, Tq, Tk, H, KV, hd, causal,
+                             window, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

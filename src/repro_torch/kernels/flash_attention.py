@@ -1,4 +1,4 @@
-"""Flash attention on the card: the wrappers of two CUDA kernels.
+"""Flash attention on the card: the wrappers of its CUDA kernels.
 
 Replaces ``repro.kernels.flash_attention.flash_attention_pallas``, the
 twin of ``repro.models.attention._flash``.  On the main path it is the
@@ -13,19 +13,31 @@ The route is chosen by dtype alone, with no fallback between them:
   * float32  -> ``csrc/flash_attention.cu``: fp32 FMAs on the CUDA cores
     (the port keeps fp32 off the tensor cores: no TF32).
 
-The backward, ``csrc/flash_attention_bwd.cu``, takes both dtypes and
-computes in fp32 on the CUDA cores: three launches (each row's lse and
-D, then dK and dV per key tile, then dQ per query tile), each with its
-own ``_build.Kernel``; :func:`flash_attention_bwd_cuda` runs them and
-``ops.flash_attention`` binds it to autograd.
+The backward is routed by dtype and head dim (:func:`bwd_route`), again
+with no fallback between its routes:
 
-Each has its own ``_build.Kernel`` and launch count; see each source
-note for its bound and design.  :func:`plan` repeats the fp32 kernel's
-tiling (rows per block, heads of a GQA group per block, positions per
-block, the copy ring, shared memory), :func:`blocks` its launch order
-and :func:`key_tiles` its tile-relevance test; :func:`flash_plan_ref` is
-the plain twin that walks that schedule, held against the Pallas kernel
-on the CPU.  GQA reads KV head ``h // G`` through the
+  * bfloat16 at hd <= 128 -> ``csrc/flash_attention_bwd_wgmma.cu``
+    ("wgmma"): two launches, dq (which also writes each row's D) and
+    dkdv, every product on the bf16 tensor cores, fed by the TMA, with
+    the lse that the bf16 forward saved (``return_lse=True``);
+  * float32, and bfloat16 above hd 128 -> ``csrc/flash_attention_bwd.cu``
+    ("cuda_core"): three launches computing in fp32 on the CUDA cores
+    (each row's lse and D, then dK and dV per key tile, then dQ per
+    query tile).
+
+:func:`flash_attention_bwd_cuda` runs a route's launches and
+``ops.flash_attention`` binds forward and backward to autograd.
+
+Each launch has its own ``_build.Kernel`` and launch count; see each
+source note for its bound and design.  :func:`plan` repeats the fp32
+kernel's tiling (rows per block, heads of a GQA group per block,
+positions per block, the copy ring, shared memory), :func:`blocks` its
+launch order and :func:`key_tiles` its tile-relevance test;
+:func:`flash_plan_ref` is the plain twin that walks that schedule, held
+against the Pallas kernel on the CPU.  :func:`flash_wgmma_lse_ref` and
+:func:`flash_bwd_wgmma_plan_ref` are the twins of the lse the bf16
+forward saves and of the bf16 backward's schedule, held against the
+oracle and JAX on the CPU.  GQA reads KV head ``h // G`` through the
 (B, T, KV, hd) strides of k and v: no copy and no repeat over the group.
 The fp32 scores are multiplied by ``scale`` (default ``1 / sqrt(hd)``,
 the Pallas kernel's); ``attention_full`` passes a q already scaled in
@@ -34,6 +46,7 @@ its own dtype with ``scale=1``, as the model's ``_flash`` scales it.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -42,9 +55,10 @@ import torch
 from . import _build
 from ._checks import require_cuda, require_int32_range, stream_of
 
-# (q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window, scale, stream)
+# (q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window, scale, stream); the
+# wgmma kernel takes the lse pointer (0: none) after o
 KERNEL = _build.Kernel("repro_flash_attention", "ppppiiiiiiiif")
-KERNEL_WGMMA = _build.Kernel("repro_flash_attention_wgmma", "ppppiiiiiiiif")
+KERNEL_WGMMA = _build.Kernel("repro_flash_attention_wgmma", "pppppiiiiiiiif")
 # the backward's three launches (csrc/flash_attention_bwd.cu), each with
 # its pointers, then (B, Tq, Tk, H, KV, hd, causal, window, scale, bf16)
 KERNEL_BWD_ROWS = _build.Kernel("repro_flash_attention_bwd_rows",
@@ -53,6 +67,12 @@ KERNEL_BWD_DKDV = _build.Kernel("repro_flash_attention_bwd_dkdv",
                                 "ppppppppiiiiiiiifi")
 KERNEL_BWD_DQ = _build.Kernel("repro_flash_attention_bwd_dq",
                               "pppppppiiiiiiiifi")
+# the bf16 backward's two launches (csrc/flash_attention_bwd_wgmma.cu), each
+# with its pointers, then (B, Tq, Tk, H, KV, hd, causal, window, scale)
+KERNEL_BWD_WGMMA_DQ = _build.Kernel("repro_flash_attention_bwd_wgmma_dq",
+                                    "ppppppppiiiiiiiif")
+KERNEL_BWD_WGMMA_DKDV = _build.Kernel("repro_flash_attention_bwd_wgmma_dkdv",
+                                      "ppppppppiiiiiiiif")
 
 ROUTES = {torch.float32: KERNEL, torch.bfloat16: KERNEL_WGMMA}
 MAX_HEAD_DIM = 256
@@ -62,6 +82,19 @@ WARPS = 8            # warps per block (kWarps)
 KEYS = 64            # keys per tile (kBK)
 MAX_SMEM = 232448    # shared memory one block may use on Hopper
 NEG = -1e30          # the masked score (kNeg)
+# the bf16 backward (csrc/flash_attention_bwd_wgmma.cu): its largest head
+# dim, rows per consumer warpgroup (kRows: a dq item holds two, 128
+# queries; a dkdv item 128 keys), keys per K/V tile of dq (kBK) and
+# queries per Q/dO tile of dkdv (kBQ); the saved lse and D have
+# LSE_ALIGN-rounded rows (lse_rows in csrc/flash_wgmma.cuh)
+BWD_WGMMA_MAX_HEAD_DIM = 128
+BWD_WGMMA_ROWS = 64
+BWD_WGMMA_KEYS = 64
+BWD_WGMMA_QUERIES = 64
+LSE_ALIGN = 64
+# the bf16 forward's tiles (csrc/flash_attention_wgmma.cu): 128 query
+# rows per item, 128 keys per tile up to hd 128 and 64 above
+WGMMA_QUERIES = 128
 
 
 class FlashPlan(NamedTuple):
@@ -220,14 +253,27 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return B, Tq, Tk, H, KV, hd
 
 
+def lse_rows(Tq: int) -> int:
+    """Rows of the saved lse and D per (b, h): Tq rounded up to LSE_ALIGN
+    (the padding rows hold lse = +inf and D = 0)."""
+    return -(-Tq // LSE_ALIGN) * LSE_ALIGN
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
     """Attention of q (B, Tq, H, hd) over k, v (B, Tk, KV, hd), causal
     and/or within a sliding window (0 = none), float32 or bfloat16, the
     scores times ``scale`` (None: 1 / sqrt(hd)); returns (B, Tq, H, hd)
-    in q's dtype."""
+    in q's dtype.  ``return_lse`` (bfloat16 only, for the backward):
+    returns (o, lse) with lse (B, H, lse_rows(Tq)) fp32, each row's
+    natural-log logsumexp of its scaled scores over its live keys (+inf
+    for a row with none, and on the padding rows); o is the same bit for
+    bit as without it."""
     kernel = kernel_for(q.dtype)
+    if return_lse and kernel is not KERNEL_WGMMA:
+        raise ValueError("only the bf16 (wgmma) kernel saves the lse")
     for name, t in (("q", q), ("k", k), ("v", v)):
         require_cuda(name, t, q.dtype, 4)
         if t.data_ptr() % 16:
@@ -241,21 +287,49 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # kernel's grid is one block per SM
         raise ValueError(f"Tq={Tq} needs more than {MAX_Q_TILES} query tiles")
     o = torch.empty_like(q)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr()]
+    lse = None
+    if return_lse:
+        lse = torch.empty((B, H, lse_rows(Tq)), dtype=torch.float32,
+                          device=q.device)
+    if kernel is KERNEL_WGMMA:
+        ptrs.append(0 if lse is None else lse.data_ptr())
     with torch.cuda.device(q.device):
-        kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                      B, Tq, Tk, H, KV, hd, int(bool(causal)), int(window),
+        kernel.launch(*ptrs, B, Tq, Tk, H, KV, hd, int(bool(causal)),
+                      int(window),
                       1.0 / math.sqrt(hd) if scale is None else float(scale),
                       stream=stream_of(q))
-    return o
+    return (o, lse) if return_lse else o
+
+
+def bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The backward that takes inputs of ``dtype`` at head dim ``hd``:
+    "wgmma" (``flash_attention_bwd_wgmma.cu``) for bfloat16 up to hd 128,
+    "cuda_core" (``flash_attention_bwd.cu``) for float32 and for
+    bfloat16 above it (the dK and dV accumulators of 64 keys at hd 256
+    do not fit a warpgroup's registers)."""
+    if dtype not in ROUTES:
+        raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
+    if dtype == torch.bfloat16 and hd <= BWD_WGMMA_MAX_HEAD_DIM:
+        return "wgmma"
+    return "cuda_core"
 
 
 def bwd_launches(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  o: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
-                 window: int = 0, scale: Optional[float] = None):
-    """The backward's outputs and its three launches, unlaunched: ((dq,
-    dk, dv), [(name, launch)]) with ``launch()`` running one kernel on
-    the current stream, in order rows (lse and D into fp32 scratch),
-    dkdv, dq.  Raises on inputs the kernels do not take."""
+                 window: int = 0, scale: Optional[float] = None,
+                 lse: Optional[torch.Tensor] = None,
+                 route: Optional[str] = None):
+    """The backward's outputs and its launches, unlaunched: ((dq, dk,
+    dv), [(name, launch)]) with ``launch()`` running one kernel on the
+    current stream.  ``route`` None takes :func:`bwd_route`'s;
+    "cuda_core" forces the CUDA-core backward at any dtype and head dim (for an
+    A/B on the card).  On the "cuda_core" route: rows (lse and D into
+    fp32 scratch), dkdv, dq.  On the "wgmma" route: dq (which writes D)
+    and dkdv, reading ``lse`` as ``flash_attention_cuda(...,
+    return_lse=True)`` gave it; where ``lse`` is None, a first launch
+    ("lse") runs that forward into scratch for it.  Raises on inputs the
+    kernels do not take."""
     if q.dtype not in ROUTES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
@@ -267,47 +341,241 @@ def bwd_launches(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
                          f"be q's shape {tuple(q.shape)}")
     require_int32_range(batch_heads=B * H, Tq=Tq, Tk=Tk)
-    if -(-max(Tq, Tk) // 32) > MAX_Q_TILES:
-        raise ValueError(f"T={max(Tq, Tk)} needs more than {MAX_Q_TILES} "
-                         f"tiles")
-    f32 = dict(dtype=torch.float32, device=q.device)
-    lse = torch.empty((B, H, Tq), **f32)
-    D = torch.empty((B, H, Tq), **f32)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    route = route or bwd_route(q.dtype, hd)
+    if route not in ("wgmma", "cuda_core") or (
+            route == "wgmma" and bwd_route(q.dtype, hd) != "wgmma"):
+        raise ValueError(f"no {route!r} backward for {q.dtype} at hd {hd}")
+    if lse is not None and route != "wgmma":
+        raise ValueError("the lse is taken by the wgmma backward only")
     sizes = (B, Tq, Tk, H, KV, hd, int(bool(causal)), int(window),
-             1.0 / math.sqrt(hd) if scale is None else float(scale),
-             int(q.dtype == torch.bfloat16))
-    p = [t.data_ptr() for t in (q, k, v, o, do, lse, D, dq, dk, dv)]
+             1.0 / math.sqrt(hd) if scale is None else float(scale))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    f32 = dict(dtype=torch.float32, device=q.device)
     s = stream_of(q)
 
-    def launcher(kernel, *ptrs):
+    def launcher(kernel, *args):
         def launch():
             with torch.cuda.device(q.device):
-                kernel.launch(*ptrs, *sizes, stream=s)
+                kernel.launch(*(a.data_ptr() if isinstance(a, torch.Tensor)
+                                else a for a in args), stream=s)
         return launch
 
-    return (dq, dk, dv), [
-        ("rows", launcher(KERNEL_BWD_ROWS, p[0], p[1], p[3], p[4], p[5],
-                          p[6])),
-        ("dkdv", launcher(KERNEL_BWD_DKDV, p[0], p[1], p[2], p[4], p[5],
-                          p[6], p[8], p[9])),
-        ("dq", launcher(KERNEL_BWD_DQ, p[0], p[1], p[2], p[4], p[5], p[6],
-                        p[7]))]
+    if route == "cuda_core":
+        if -(-max(Tq, Tk) // 32) > MAX_Q_TILES:
+            raise ValueError(f"T={max(Tq, Tk)} needs more than "
+                             f"{MAX_Q_TILES} tiles")
+        lse = torch.empty((B, H, Tq), **f32)
+        D = torch.empty((B, H, Tq), **f32)
+        sizes += (int(q.dtype == torch.bfloat16),)
+        return (dq, dk, dv), [
+            ("rows", launcher(KERNEL_BWD_ROWS, q, k, o, do, lse, D, *sizes)),
+            ("dkdv", launcher(KERNEL_BWD_DKDV, q, k, v, do, lse, D, dk, dv,
+                              *sizes)),
+            ("dq", launcher(KERNEL_BWD_DQ, q, k, v, do, lse, D, dq,
+                            *sizes))]
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    rows = (B, H, lse_rows(Tq))
+    launches = []
+    if lse is None:
+        lse = torch.empty(rows, **f32)
+        launches.append(("lse", launcher(KERNEL_WGMMA, q, k, v,
+                                         torch.empty_like(q), lse, *sizes)))
+    elif (lse.dtype != torch.float32 or tuple(lse.shape) != rows
+          or lse.device != q.device or not lse.is_contiguous()
+          or lse.data_ptr() % 16):
+        raise ValueError(f"lse must be a contiguous, 16-byte aligned "
+                         f"float32 {rows} on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    D = torch.empty(rows, **f32)
+    return (dq, dk, dv), launches + [
+        ("dq", launcher(KERNEL_BWD_WGMMA_DQ, q, k, v, o, do, lse, D, dq,
+                        *sizes)),
+        ("dkdv", launcher(KERNEL_BWD_WGMMA_DKDV, q, k, v, do, lse, D, dk, dv,
+                          *sizes))]
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, *, causal: bool = True,
                              window: int = 0,
-                             scale: Optional[float] = None):
+                             scale: Optional[float] = None,
+                             lse: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of ``flash_attention_cuda(q, k, v, ...)`` whose output
     was ``o``, given the output's gradient ``do``: q, o, do (B, Tq, H,
     hd) and k, v (B, Tk, KV, hd), all float32 or all bfloat16, on the
-    card.  Three launches on the current stream (the rows' lse and D in
-    fp32 scratch, then dK and dV, then dQ); the gradients come back in
-    the inputs' dtype.  The plain twin is ``ref.flash_attention_bwd_ref``."""
+    card.  The launches of :func:`bwd_launches` on the current stream
+    (``lse``: the bf16 forward's, on the "wgmma" route); the gradients
+    come back in the inputs' dtype.  The plain twin is
+    ``ref.flash_attention_bwd_ref``."""
     grads, launches = bwd_launches(q, k, v, o, do, causal=causal,
-                                   window=window, scale=scale)
+                                   window=window, scale=scale, lse=lse)
     for _, launch in launches:
         launch()
     return grads
+
+
+# ---- plain twins of the bf16 kernels' schedules (CPU tests) -----------------
+
+def _live(t0: int, nt: int, j0: int, nj: int, Tq: int, Tk: int,
+          causal: bool, window: int) -> torch.Tensor:
+    """(nt, nj): whether query t0 + i and key j0 + j are a live pair."""
+    ti = torch.arange(t0, t0 + nt)[:, None]
+    ji = torch.arange(j0, j0 + nj)[None, :]
+    ok = (ti < Tq) & (ji < Tk)
+    if causal:
+        ok &= ji <= ti
+    if window > 0:
+        ok &= ti - ji < window
+    return ok
+
+
+def _padded(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, T, heads, hd) in fp32, zero rows past T up to n (the TMA's
+    out-of-bounds zeros)."""
+    out = torch.zeros((x.shape[0], n) + tuple(x.shape[2:]))
+    out[:, :x.shape[1]] = x.float()
+    return out
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (nearest even), kept in fp32."""
+    return x.to(torch.bfloat16).float()
+
+
+def wgmma_keys(hd: int) -> int:
+    """Keys per K/V tile of the bf16 forward at head dim ``hd``."""
+    return 128 if hd <= 128 else 64
+
+
+def flash_wgmma_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """The plain twin of the lse the bf16 forward saves: each query tile
+    of WGMMA_QUERIES rows walks its key tiles ``key_tiles`` keeps, with
+    the scores in log2 units (times scale * log2 e), masked to NEG, the
+    running max m and sum l of 2^(x - m); lse = (m + log2 l) ln 2, +inf
+    where m stayed NEG (no live key) and on the padding rows.  Returns
+    (B, H, lse_rows(Tq)) fp32."""
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    keys, rows = wgmma_keys(hd), WGMMA_QUERIES
+    mul = (1.0 / math.sqrt(hd) if scale is None else scale) * math.log2(math.e)
+    nk = -(-Tk // keys)
+    qp, kp = _padded(q, -(-Tq // rows) * rows), _padded(k, nk * keys)
+    lse = torch.full((B, H, lse_rows(Tq)), float("inf"))
+    for b in range(B):
+        for h in range(H):
+            for q_lo in range(0, Tq, rows):
+                m = torch.full((rows,), NEG)
+                l = torch.zeros(rows)
+                lo, hi = key_tiles(q_lo, rows, Tk, causal, window, keys)
+                for kt in range(lo, hi):
+                    x = (qp[b, q_lo:q_lo + rows, h]
+                         @ kp[b, kt * keys:(kt + 1) * keys, h // G].T) * mul
+                    x = torch.where(_live(q_lo, rows, kt * keys, keys, Tq,
+                                          Tk, causal, window), x, NEG)
+                    m_new = torch.maximum(m, x.amax(1))
+                    l = l * torch.exp2(m - m_new) + torch.exp2(
+                        x - m_new[:, None]).sum(1)
+                    m = m_new
+                n = min(rows, Tq - q_lo)
+                lse[b, h, q_lo:q_lo + n] = torch.where(
+                    m > NEG, (m + torch.log2(l)) * math.log(2.0),
+                    float("inf"))[:n]
+    return lse
+
+
+def flash_bwd_wgmma_plan_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, scale: Optional[float] = None,
+                             lse: Optional[torch.Tensor] = None,
+                             keys: Optional[int] = None,
+                             queries: Optional[int] = None):
+    """The plain twin of the bf16 backward's schedule
+    (``csrc/flash_attention_bwd_wgmma.cu``): (a) dq over the items of
+    2 x BWD_WGMMA_ROWS queries, each warpgroup's rows walking the key
+    tiles ``key_tiles`` keeps (skipping a tile with no live pair for its
+    rows), D = rowsum(dO o) in fp32, P = 2^(s scale log2 e - lse log2 e)
+    on live pairs, dS = P (dP - D) rounded to bf16 for dQ += dS K; (b)
+    dkdv over the items of 2 x BWD_WGMMA_ROWS keys, each warpgroup's keys
+    walking the G heads and the query tiles that can see the item, P^T
+    and dS^T rounded to bf16 for dV += P^T dO and dK += dS^T Q.  ``lse``
+    defaults to :func:`flash_wgmma_lse_ref`'s.  Returns (dq, dk, dv) in
+    q's dtype.  ``keys`` (dq's K/V tile) and ``queries`` (dkdv's Q/dO
+    tile) default to the kernel's and may be set smaller to walk many
+    tiles at a small shape."""
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    R, tile = BWD_WGMMA_ROWS, 2 * BWD_WGMMA_ROWS
+    keys = keys or BWD_WGMMA_KEYS
+    queries = queries or BWD_WGMMA_QUERIES
+    mul = 1.0 / math.sqrt(hd) if scale is None else scale
+    log2e = math.log2(math.e)
+    if lse is None:
+        lse = flash_wgmma_lse_ref(q, k, causal=causal, window=window,
+                                  scale=scale)
+    lse2 = lse.float() * log2e                         # (B, H, rows)
+    nq, nk = -(-Tq // tile), -(-Tk // tile)
+    qp = _padded(q, max(nq * tile, lse2.shape[2]))
+    dop = _padded(do, qp.shape[1])
+    op = _padded(o, qp.shape[1])
+    kp, vp = _padded(k, nk * tile), _padded(v, nk * tile)
+    live = functools.partial(_live, Tq=Tq, Tk=Tk, causal=causal,
+                             window=window)
+    D = (dop * op).sum(-1)                             # (B, T, H)
+
+    def p_ds(b, h, t0, nt, j0, nj):
+        """P and dS of queries [t0, t0 + nt) and keys [j0, j0 + nj)."""
+        s = qp[b, t0:t0 + nt, h] @ kp[b, j0:j0 + nj, h // G].T
+        rows = torch.arange(t0, t0 + nt)
+        m = torch.where(rows < lse2.shape[2],
+                        lse2[b, h, rows.clamp(max=lse2.shape[2] - 1)],
+                        float("inf"))
+        p = torch.where(live(t0, nt, j0, nj),
+                        torch.exp2(s * (mul * log2e) - m[:, None]), 0.0)
+        dp = dop[b, t0:t0 + nt, h] @ vp[b, j0:j0 + nj, h // G].T
+        return p, p * (dp - D[b, t0:t0 + nt, h][:, None])
+
+    def any_live(t0, nt, j0, nj):
+        return bool(live(t0, nt, j0, nj).any())
+
+    # (a) dq
+    dq = torch.zeros((B, qp.shape[1], H, hd))
+    for b, h, q_lo in ((b, h, (nq - 1 - i) * tile)
+                       for i in range(nq) for b in range(B)
+                       for h in range(H)):
+        lo, hi = key_tiles(q_lo, tile, Tk, causal, window, keys)
+        for qa in (q_lo, q_lo + R):
+            for kt in range(lo, hi):
+                if not any_live(qa, R, kt * keys, keys):
+                    continue
+                _, ds = p_ds(b, h, qa, R, kt * keys, keys)
+                dq[b, qa:qa + R, h] += \
+                    _bf16(ds) @ kp[b, kt * keys:(kt + 1) * keys, h // G]
+    # (b) dkdv
+    dk = torch.zeros((B, nk * tile, KV, hd))
+    dv = torch.zeros_like(dk)
+    for i in range(nk * B * KV):
+        b, kvh, k_lo = i % (B * KV) // KV, i % KV, i // (B * KV) * tile
+        t_lo = k_lo if causal else 0
+        t_hi = min(Tq, k_lo + tile - 1 + window) if window > 0 else Tq
+        tiles = range(t_lo // queries, -(-t_hi // queries)) \
+            if t_lo < t_hi else range(0)
+        for kw in (k_lo, k_lo + R):
+            for h in range(kvh * G, (kvh + 1) * G):
+                for qt in tiles:
+                    t0 = qt * queries
+                    if not any_live(t0, queries, kw, R):
+                        continue
+                    p, ds = p_ds(b, h, t0, queries, kw, R)
+                    dv[b, kw:kw + R, kvh] += \
+                        _bf16(p).T @ dop[b, t0:t0 + queries, h]
+                    dk[b, kw:kw + R, kvh] += \
+                        _bf16(ds).T @ qp[b, t0:t0 + queries, h]
+    return ((dq[:, :Tq] * mul).to(q.dtype), (dk[:, :Tk] * mul).to(k.dtype),
+            dv[:, :Tk].to(v.dtype))

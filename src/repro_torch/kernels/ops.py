@@ -38,6 +38,8 @@ KERNELS = {
     "flash_attention_bwd_rows": flash_mod.KERNEL_BWD_ROWS,
     "flash_attention_bwd_dkdv": flash_mod.KERNEL_BWD_DKDV,
     "flash_attention_bwd_dq": flash_mod.KERNEL_BWD_DQ,
+    "flash_attention_bwd_wgmma_dq": flash_mod.KERNEL_BWD_WGMMA_DQ,
+    "flash_attention_bwd_wgmma_dkdv": flash_mod.KERNEL_BWD_WGMMA_DKDV,
 }
 
 
@@ -124,25 +126,31 @@ def sparse_relax_t(Dt: torch.Tensor, s: int, graph, *, plan=None,
 
 class FlashAttentionFn(torch.autograd.Function):
     """The flash kernels as one differentiable function: the forward is
-    ``flash_attention_cuda`` (by dtype, unchanged), the backward the
-    hand-written ``flash_attention_bwd_cuda``; q, k, v and the output
-    are saved.  A failed backward launch raises."""
+    ``flash_attention_cuda`` (by dtype), the backward the hand-written
+    ``flash_attention_bwd_cuda`` (by dtype and head dim,
+    ``flash_attention.bwd_route``); q, k, v and the output are saved, and
+    on the "wgmma" route (bf16 up to hd 128) the lse that the forward
+    kernel wrote beside the output.  A failed launch raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        o = flash_mod.flash_attention_cuda(q, k, v, causal=causal,
-                                           window=window, scale=scale)
-        ctx.save_for_backward(q, k, v, o)
-        ctx.attn = (causal, window, scale)
+        kw = dict(causal=causal, window=window, scale=scale)
+        lse = None
+        if flash_mod.bwd_route(q.dtype, q.shape[-1]) == "wgmma":
+            o, lse = flash_mod.flash_attention_cuda(q, k, v, return_lse=True,
+                                                    **kw)
+        else:
+            o = flash_mod.flash_attention_cuda(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.attn = kw
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        causal, window, scale = ctx.attn
+        q, k, v, o, lse = ctx.saved_tensors
+        kw = dict(ctx.attn) if lse is None else dict(ctx.attn, lse=lse)
         dq, dk, dv = flash_mod.flash_attention_bwd_cuda(
-            q, k, v, o, do.contiguous(), causal=causal, window=window,
-            scale=scale)
+            q, k, v, o, do.contiguous(), **kw)
         return dq, dk, dv, None, None, None
 
 
@@ -156,7 +164,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     1 / sqrt(hd)); (B, Tq, H, hd) in q's dtype.  On the card bfloat16
     goes to the wgmma kernel and float32 to the CUDA-core one; where
     autograd records and q, k or v needs a gradient, through
-    :class:`FlashAttentionFn`, whose backward is the backward kernel.
+    :class:`FlashAttentionFn`, whose backward is a backward kernel (the
+    wgmma one for bfloat16 up to hd 128, the CUDA-core one else).
     The plain version is differentiated by autograd itself."""
     if use_kernel(q, backend):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

@@ -19,7 +19,10 @@ softmax) and, in bf16 (the wgmma kernel), within one bf16 ulp of the
 plain output's largest magnitude (both round nearly equal fp32 values to
 bf16 once; the kernel also rounds P to bf16 before the PV product); the
 flash backward within 1e-5 (fp32) and 2^-7 (bf16) of each gradient's
-largest magnitude, and bitwise repeatable.
+largest magnitude, and bitwise repeatable; the bf16 forward's output
+bitwise the same with its lse output on and off, and that lse within
+1e-5 * max(1, |lse|) of the plain masked logsumexp (fp32 online sums in
+log2 units).
 """
 
 import numpy as np
@@ -589,16 +592,21 @@ def test_cuda_flash_wgmma_matches_plain(cuda, B, Tq, Tk, H, KV, hd, causal,
     (2, 130, 4, 4, 80, False, 0),       # MHA, bidirectional, hd 80
     (1, 150, 4, 1, 256, True, 0),       # MQA at hd 256 (32-key tiles)
     (1, 100, 6, 2, 128, True, 30),      # G = 3, a window under a tile
+    (1, 512, 32, 8, 128, True, 0),      # granite-3-8b's heads and hd
 ])
 def test_cuda_flash_backward_matches_plain(cuda, B, T, H, KV, hd, causal,
                                            window, dtype):
-    """The backward kernel (three launches, each counted once) against
-    the plain backward on the same inputs: fp32 within 1e-5 of each
-    gradient's largest magnitude (another summation order), bf16 within
-    2^-7 of it (the gradients are rounded to bf16 once, from fp32 sums
-    of bf16 inputs); a second run bitwise the first (no atomics); and
-    the same gradients through ``ops.flash_attention``'s autograd."""
-    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    """The backward kernels against the plain backward on the same
+    inputs, each launch counted once on its route (bf16 up to hd 128:
+    the bf16 forward for the lse, then the wgmma dq and dkdv; else the
+    CUDA-core rows, dkdv and dq): fp32 within 1e-5 of each gradient's
+    largest magnitude (another summation order), bf16 within 2^-7 of it
+    (the gradients are rounded to bf16 once, from fp32 sums; the wgmma
+    route also rounds P and dS to bf16); a second run bitwise the first
+    (no atomics); and the same gradients through ``ops.flash_attention``'s
+    autograd (which hands the backward the forward's own lse)."""
+    from repro_torch.kernels.flash_attention import (
+        bwd_route, flash_attention_bwd_cuda)
     rng = _rng(T + hd + H)
     dt = getattr(torch, dtype)
     q, k, v, do = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
@@ -609,8 +617,14 @@ def test_cuda_flash_backward_matches_plain(cuda, B, T, H, KV, hd, causal,
     got = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
                                    window=window)
     counts = ops.launch_counts()
-    assert all(counts[f"flash_attention_bwd_{x}"] == 1
-               for x in ("rows", "dkdv", "dq"))
+    if bwd_route(dt, hd) == "wgmma":
+        want_counts = {"flash_attention_wgmma": 1,
+                       "flash_attention_bwd_wgmma_dq": 1,
+                       "flash_attention_bwd_wgmma_dkdv": 1}
+    else:
+        want_counts = {f"flash_attention_bwd_{x}": 1
+                       for x in ("rows", "dkdv", "dq")}
+    assert counts == {**{n: 0 for n in counts}, **want_counts}, counts
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                        window=window)
     again = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
@@ -626,6 +640,90 @@ def test_cuda_flash_backward_matches_plain(cuda, B, T, H, KV, hd, causal,
         assert torch.equal(g, a) and torch.equal(g, b)
         err = float((g.float() - w.float()).abs().max())
         assert err <= rel * float(w.float().abs().max()), err
+
+
+def _plain_lse(q, k, causal, window):
+    """torch.logsumexp of the plain masked scaled scores, (B, H, Tq);
+    -inf on a row with no live key."""
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    qh = q.reshape(B, Tq, KV, H // KV, hd).float() / hd ** 0.5
+    s = torch.einsum("bqKgh,bsKh->bKgqs", qh, k.float())
+    ti = torch.arange(Tq, device=q.device)[:, None]
+    tj = torch.arange(Tk, device=q.device)[None, :]
+    live = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        live &= tj <= ti
+    if window > 0:
+        live &= ti - tj < window
+    return torch.logsumexp(torch.where(live, s, float("-inf")), -1) \
+        .reshape(B, H, Tq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Tq,Tk,H,KV,hd,causal,window", [
+    (1, 4096, 4096, 32, 8, 128, True, 0),     # granite-3-8b's prefill
+    (2, 333, 333, 8, 2, 64, True, 100),
+    (1, 200, 200, 4, 4, 80, False, 0),
+    (1, 300, 300, 8, 4, 256, True, 64),       # 64-key tiles
+])
+def test_cuda_flash_wgmma_lse_output_leaves_o_bitwise(cuda, B, Tq, Tk, H,
+                                                      KV, hd, causal,
+                                                      window):
+    """The bf16 forward's o is the same bit for bit with the lse output
+    on and off, and the launch is counted once either way."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q, k, v = _bf16_qkv(cuda, Tq + hd, B, Tq, Tk, H, KV, hd)
+    ops.reset_launch_counts()
+    o = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    o2, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_wgmma"] == 2
+    assert torch.equal(o, o2) and lse.dtype == torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Tq,Tk,H,KV,hd,causal,window", [
+    (1, 1000, 1000, 8, 2, 128, True, 0),
+    (2, 333, 333, 8, 2, 64, True, 100),
+    (1, 200, 200, 4, 4, 80, False, 0),
+    (1, 300, 300, 8, 4, 256, True, 64),
+    (1, 150, 60, 4, 2, 64, True, 20),        # rows past 78 see no key
+])
+def test_cuda_flash_wgmma_saved_lse_matches_logsumexp(cuda, B, Tq, Tk, H,
+                                                      KV, hd, causal,
+                                                      window):
+    """The lse the bf16 forward saves, (B, H, Tq rounded up to 64), within
+    1e-5 * max(1, |lse|) of torch.logsumexp of the plain masked scores;
+    +inf on the padding and on rows with no live key, whose gradients
+    from the wgmma backward are then zero (their dq rows, and dk, dv
+    the same as with their dO rows zeroed)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda, lse_rows)
+    q, k, v = _bf16_qkv(cuda, Tq + Tk + hd, B, Tq, Tk, H, KV, hd)
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    want = _plain_lse(q, k, causal, window)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, lse_rows(Tq))
+    got, pad = lse[..., :Tq], lse[..., Tq:]
+    live = torch.isfinite(want)
+    err = ((got - want).abs() / want.abs().clamp_min(1))[live]
+    assert float(err.max()) <= 1e-5, float(err.max())
+    assert bool((got[~live] == float("inf")).all())
+    assert bool((pad == float("inf")).all())
+    if hd > 128 or bool(live.all()):
+        return
+    dead = ~live[0, 0]
+    do = torch.randn(o.shape, device=cuda).bfloat16()
+    kw = dict(causal=causal, window=window, lse=lse)
+    dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    do0 = torch.where(dead[None, :, None, None], 0.0, do.float()).bfloat16()
+    _, dk0, dv0 = flash_attention_bwd_cuda(q, k, v, o, do0, **kw)
+    torch.cuda.synchronize()
+    assert not bool(dq[:, dead].any())
+    assert torch.equal(dk, dk0) and torch.equal(dv, dv0)
 
 
 @pytest.mark.cuda
