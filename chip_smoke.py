@@ -227,17 +227,19 @@ Phases (any failure exits non-zero; no phase is skipped):
    prefill, the cosine gate.
 13. Training (``train_phase``, TRAIN_S).  (a) The flash backward
    kernels against the plain ``ref.flash_attention_bwd_ref`` on the same
-   inputs at BWD_CASES (granite-3-8b causal, gemma3-4b's local layer,
-   zamba2-2.7b's shared block, seamless-m4t's encoder), in fp32 (each
-   gradient within 1e-5 of its largest magnitude) and bf16 (within 2^-7
-   of it, cosine >= 0.9999), a second run bitwise the first, each on its
-   route (``flash_attention.bwd_route``): bf16 up to hd 128 on
-   ``flash_attention_bwd_wgmma.cu`` (two launches, dq and dkdv, reading
-   the lse the bf16 forward saved; the second run recomputes that lse
-   with one forward launch), fp32 and hd 256 on ``flash_attention_bwd.cu``
-   (three launches: the rows' lse and D, dK and dV, dQ); each launch and
-   the whole timed by CUDA events, on the wgmma route against the
-   CUDA-core kernel forced onto the same inputs in the order old, new, new, old,
+   inputs at BWD_CASES (granite-3-8b causal, gemma3-4b's local and
+   global layers, zamba2-2.7b's shared block, seamless-m4t's encoder),
+   in fp32 (each gradient within 1e-5 of its largest magnitude) and bf16
+   (within 2^-7 of it, cosine >= 0.9999), a second run bitwise the
+   first, each on its route (``flash_attention.bwd_route``): bf16 up to
+   hd 128 on ``flash_attention_bwd_wgmma.cu`` and above it on
+   ``flash_attention_bwd_wgmma_wide.cu`` (two launches each, dq and
+   dkdv, reading the lse the bf16 forward saved; the second run
+   recomputes that lse with one forward launch), fp32 on
+   ``flash_attention_bwd.cu`` (three launches: the rows' lse and D, dK
+   and dV, dQ); each launch and the whole timed by CUDA events, on the
+   bf16 routes against the CUDA-core kernel forced onto the same inputs
+   in the order old, new, new, old,
    beside the bound (10 hd flops per unmasked pair and head at the bf16
    tensor or fp32 peak, against q, k, v, o, dO read and dQ, dK, dV
    written once), the plain backward and SDPA's backward
@@ -245,7 +247,7 @@ Phases (any failure exits non-zero; no phase is skipped):
    ``enable_gqa=True``, its forward excluded), with SDPA's own gradients
    against the plain backward given SDPA's output (a rounding witness);
    the count of HGMMA and UTMALDG in the SASS of every instance of the
-   wgmma backward, none of them 0.  (b) granite-3-8b at full width cut
+   two wgmma backwards, none of them 0, and no spill in the wide one.  (b) granite-3-8b at full width cut
    to TRAIN_LAYERS layers (``reduced``: the fp32 AdamW moments of 40
    layers do not fit one card), in bf16, one step's loss and per-leaf
    gradients against ``backend="torch"`` (loss within 1e-2, cosine >=
@@ -263,15 +265,18 @@ Phases (any failure exits non-zero; no phase is skipped):
    must resume from the last checkpoint.  (d) gemma3-4b (hd 256) at
    full width cut to TRAIN_HD256_LAYERS layers (five sliding-window
    layers and one global), bf16, one step against ``backend="torch"``
-   and TRAIN_HD256_STEPS steps through the CUDA-core backward, counts reset
-   just before and read just after: one of each of its three kernels a
-   layer a step, and no wgmma backward launch.
+   (cosine >= 0.999) and TRAIN_HD256_STEPS steps through the wide
+   backward, counts reset just before and read just after: two bf16
+   flash launches a layer a step (each saving the lse) and one of each
+   wide backward kernel, and no other kernel.
 
 The line before the last is the JSON object of per-kernel numbers (with
 each kernel's launches on phase 11's approx and dense funnels, on
 each of phase 12's engine runs and on phase 13b's training steps;
 ``flash_attention_bwd_wgmma``'s launches are its two kernels' on phase
-13b, ``flash_attention_bwd``'s its three kernels' on phase 13d); the
+13b, ``flash_attention_bwd_wide``'s its two kernels' on phase 13d, and
+``flash_attention_bwd``'s 0: no training path runs fp32, and its
+entry is headed by 13a's fp32 granite case); the
 last line is ``{"ok": true, "device": {...}}``.  The script needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero
 without printing a result when either is missing.  It imports nothing
@@ -405,20 +410,22 @@ MOE_FREE_FACTOR = 2.0
 KVQ_FREE_COSINE = 0.95
 # phase 13 (training): its expected seconds in all, charged with ZOO_S to
 # phase 11a's projection (on an H100 at 700 W, alone with the library
-# built: 67.1 s, of which 13a 23.6 s with 12.7 s of it the one
+# built: 87.3 s, of which 13a 28.1 s with about 12 s of it the one
 # cuobjdump of the library that the script otherwise makes in phase 2,
-# 13b 6.4 s, 13c 30.7 s, 13d 1.5 s); the backward kernels' shapes
+# 13b 8.3 s, 13c 43.6 s (30.7 s in an earlier run), 13d 1.3 s); the
+# backward kernels' shapes
 # (13a); granite-3-8b at full width cut to TRAIN_LAYERS layers, trained
 # in bf16 on one sequence of
 # TRAIN_SEQ tokens for TRAIN_STEPS steps (13b); launch.train.main on
 # xlstm-125m at full width and depth, TRAIN_CLI_STEPS steps with a
 # checkpoint every TRAIN_CLI_EVERY, then resumed to TRAIN_CLI_MORE (13c);
 # gemma3-4b (hd 256) at full width cut to TRAIN_HD256_LAYERS layers,
-# TRAIN_HD256_STEPS steps through the CUDA-core backward (13d)
-TRAIN_S = 75.0
+# TRAIN_HD256_STEPS steps through the wide bf16 backward (13d)
+TRAIN_S = 80.0
 BWD_CASES = [
     ("granite-3-8b causal", (1, 4096, 32, 8, 128), 0, True),
     ("gemma3-4b local", (1, 4096, 8, 4, 256), 1024, True),
+    ("gemma3-4b global", (1, 4096, 8, 4, 256), 0, True),
     ("zamba2-2.7b shared block", (1, 2048, 32, 32, 80), 4096, True),
     ("seamless-m4t encoder", (1, 1024, 16, 16, 64), 0, False),
 ]
@@ -433,6 +440,15 @@ TRAIN_CLI_ARCH = "xlstm-125m"
 TRAIN_CLI_STEPS = 2
 TRAIN_CLI_EVERY = 1
 TRAIN_CLI_MORE = 3
+# each backward route's launches, as ops.launch_counts() names them
+BWD_KERNELS = {
+    "wgmma": ("flash_attention_bwd_wgmma_dq",
+              "flash_attention_bwd_wgmma_dkdv"),
+    "wgmma_wide": ("flash_attention_bwd_wide_dq",
+                   "flash_attention_bwd_wide_dkdv"),
+    "cuda_core": ("flash_attention_bwd_rows", "flash_attention_bwd_dkdv",
+                  "flash_attention_bwd_dq"),
+}
 
 
 def fail(msg: str) -> None:
@@ -961,10 +977,11 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
     gen.manual_seed(seed + 13)
     out = {"bwd_cases": []}
 
-    # 13a. the backward kernels at the zoo's attention shapes: bf16 up to
-    # hd 128 on the wgmma route with the forward's lse, timed against PR
-    # 24's kernel forced onto the same inputs in the order old, new, new,
-    # old; fp32 and hd 256 on the CUDA-core route
+    # 13a. the backward kernels at the zoo's attention shapes: bf16 on a
+    # wgmma route (up to hd 128, and the wide one above) with the
+    # forward's lse, timed against the CUDA-core kernel forced onto the
+    # same inputs in the order old, new, new, old; fp32 on the CUDA-core
+    # route
     def run_all(launches):
         return lambda: [launch() for _, launch in launches]
 
@@ -978,7 +995,7 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
                        for s_ in ((B, T, H, hd), (B, T, KV, hd),
                                   (B, T, KV, hd)))
             kw = dict(causal=causal, window=win)
-            if route == "wgmma":
+            if route != "cuda_core":
                 o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True,
                                                  **kw)
             else:
@@ -1009,7 +1026,7 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
             reps = 3 if T * T * H >= 2 ** 28 else 10
             per = {n_: cuda_ms(l_, reps) for n_, l_ in launches}
             ab = {}
-            if route == "wgmma":
+            if route != "cuda_core":
                 _, old = fa.bwd_launches(q, k, v, o, do, route="cuda_core",
                                          **kw)
                 ab["old_ms"] = [cuda_ms(run_all(old), reps)]
@@ -1067,19 +1084,24 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
             log(f"[train] backward kernel ok: {json.dumps(row)}")
             del q, k, v, o, lse, do, got, launches
             torch.cuda.empty_cache()
-    # the wgmma backward's SASS holds tensor-core products and TMA loads
+    # the wgmma backwards' SASS holds tensor-core products and TMA loads
+    # (each two kernels at two HDPs), and the wide one no spill
     from repro_torch.kernels import _build
     t_sass = time.perf_counter()
-    out["bwd_sass"] = sass_counts(_build.BUILD_INFO["path"],
-                                  "flash_bwd_wgmma",
-                                  ("HGMMA", "UTMALDG", "LDL", "STL"))
+    for key_, frag_ in (("bwd_sass", "flash_bwd_wgmma"),
+                        ("bwd_wide_sass", "flash_bwd_wide")):
+        out[key_] = sass_counts(_build.BUILD_INFO["path"], frag_,
+                                ("HGMMA", "UTMALDG", "LDL", "STL"))
+        log(f"[sass] {frag_} instances: {json.dumps(out[key_])}")
+        check(len(out[key_]) == 4
+              and all(c_["HGMMA"] > 0 and c_["UTMALDG"] > 0
+                      for c_ in out[key_].values()),
+              f"the {frag_} backward's SASS lacks HGMMA or UTMALDG: "
+              f"{out[key_]}")
+    check(not any(c_["LDL"] or c_["STL"]
+                  for c_ in out["bwd_wide_sass"].values()),
+          f"the wide backward spills: {out['bwd_wide_sass']}")
     out["bwd_sass_s"] = time.perf_counter() - t_sass
-    log(f"[sass] flash_bwd_wgmma instances: {json.dumps(out['bwd_sass'])}")
-    check(len(out["bwd_sass"]) == 4
-          and all(c_["HGMMA"] > 0 and c_["UTMALDG"] > 0
-                  for c_ in out["bwd_sass"].values()),
-          f"the wgmma backward's SASS lacks HGMMA or UTMALDG: "
-          f"{out['bwd_sass']}")
     out["bwd_cases_s"] = time.perf_counter() - t0
     log(f"[time] 13a done in {out['bwd_cases_s']:.1f} s")
 
@@ -1149,7 +1171,8 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
         prof_wall = time.perf_counter() - t1
     split = _device_time_by_class(prof, (
         ("flash_bwd", ("bwd_rows_kernel", "bwd_dkdv_kernel",
-                       "bwd_dq_kernel", "flash_bwd_wgmma")),
+                       "bwd_dq_kernel", "flash_bwd_wgmma",
+                       "flash_bwd_wide")),
         ("flash_fwd", ("flash_wgmma_kernel",)),
         ("gemm", ("gemm", "Gemm", "sm90_xmma", "cutlass", "nvjet"))))
     if split:
@@ -1201,7 +1224,7 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
                       s_per_step_resumed=runs[1]["seconds"] / resumed,
                       seconds=time.perf_counter() - t0)
 
-    # 13d. hd 256 trains through the CUDA-core backward: TRAIN_HD256_ARCH at
+    # 13d. hd 256 trains through the wide bf16 backward: TRAIN_HD256_ARCH at
     # full width, TRAIN_HD256_LAYERS layers (five sliding-window layers
     # and one global), bf16, one TRAIN_SEQ-token sequence a step; one
     # step against backend="torch", then TRAIN_HD256_STEPS steps, the
@@ -1242,10 +1265,11 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
     check(all(math.isfinite(l_) for l_ in losses),
           f"train: {TRAIN_HD256_ARCH} losses {losses}")
     L = cfg.n_layers
+    # per step: the forward and its recomputation a layer (each saving
+    # the lse), then the wide backward's two launches a layer
     want = {"flash_attention_wgmma": 2 * L * TRAIN_HD256_STEPS,
-            "flash_attention_bwd_rows": L * TRAIN_HD256_STEPS,
-            "flash_attention_bwd_dkdv": L * TRAIN_HD256_STEPS,
-            "flash_attention_bwd_dq": L * TRAIN_HD256_STEPS}
+            "flash_attention_bwd_wide_dq": L * TRAIN_HD256_STEPS,
+            "flash_attention_bwd_wide_dkdv": L * TRAIN_HD256_STEPS}
     check(all(launches[n_] == c_ for n_, c_ in want.items())
           and sum(launches.values()) == sum(want.values()),
           f"train: {TRAIN_HD256_ARCH} launches {launches}, want {want}")
@@ -1254,7 +1278,9 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
         reduced={"n_layers": [get_config(TRAIN_HD256_ARCH).n_layers, L]},
         params=sum(p_.numel() for p_ in leaves(params)), dtype="bfloat16",
         seq=TRAIN_SEQ, batch=1, steps=TRAIN_HD256_STEPS, losses=losses,
-        s_per_step=times, launches=launches,
+        s_per_step=times,
+        s_per_step_median=float(sorted(times)[len(times) // 2]),
+        launches=launches,
         launches_per_step={n_: c_ / TRAIN_HD256_STEPS for n_, c_ in
                            launches.items() if c_},
         cuda_vs_torch=dict(loss=[float(lk), float(lt)],
@@ -3271,22 +3297,25 @@ def main() -> None:
     train_s = time.perf_counter() - t13
     log(f"[time] train phase done at {time.perf_counter() - t_start:.1f} s"
         f" ({train_s:.1f} s)")
-    # the two backward kernels' lines: each with its head case, its cases
-    # in 13a, and its launches on the training path that takes it (the
-    # wgmma one on 13b's granite-3-8b, the CUDA-core one on 13d's hd 256)
+    # the three backward kernels' lines: each with its head case, its
+    # cases in 13a, and its launches on the training path that takes it
+    # (the wgmma one on 13b's granite-3-8b, the wide one on 13d's
+    # gemma3-4b; none takes the CUDA-core one, which runs fp32 only)
     def bwd_case(label, dtype):
         return next(c_ for c_ in train["bwd_cases"]
                     if c_["case"] == label and c_["dtype"] == dtype)
 
+    no_path = dict(arch=None, launches={}, launches_per_step={})
     for kname, src_, route, head, run in (
             ("flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma.cu",
              "wgmma", bwd_case(BWD_CASES[0][0], "bfloat16"),
              train["granite"]),
+            ("flash_attention_bwd_wide",
+             "flash_attention_bwd_wgmma_wide.cu", "wgmma_wide",
+             bwd_case(BWD_CASES[1][0], "bfloat16"), train["hd256"]),
             ("flash_attention_bwd", "flash_attention_bwd.cu", "cuda_core",
-             bwd_case(BWD_CASES[1][0], "bfloat16"), train["hd256"])):
-        names = [n_ for n_ in ops.KERNELS
-                 if n_.startswith(kname + "_")
-                 and (route == "wgmma") == ("wgmma" in n_)]
+             bwd_case(BWD_CASES[0][0], "float32"), no_path)):
+        names = BWD_KERNELS[route]
         entries[kname] = dict(
             name=kname, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src_}",
@@ -3301,11 +3330,14 @@ def main() -> None:
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"],
             cases=[c_ for c_ in train["bwd_cases"] if c_["route"] == route],
-            launches_by_kernel={n_: run["launches"][n_] for n_ in names},
-            launches_per_step={n_: run["launches_per_step"][n_]
+            launches_by_kernel={n_: run["launches"].get(n_, 0)
+                                for n_ in names},
+            launches_per_step={n_: run["launches_per_step"].get(n_, 0)
                                for n_ in names},
-            launches_on=run["arch"])
+            launches_on=run["arch"] or "no training path: fp32 only, "
+                                       "which no path trains in")
     entries["flash_attention_bwd_wgmma"]["sass"] = train["bwd_sass"]
+    entries["flash_attention_bwd_wide"]["sass"] = train["bwd_wide_sass"]
 
     dense_kernels = ("pearson", "minplus", "masked_argmax")
     train_launches = train["granite"]["launches"]

@@ -79,69 +79,6 @@ constexpr int kBQ = 64;                         // (b) queries per Q/dO tile
 constexpr int kStages = 2;                      // ring depth
 constexpr uint32_t kBox = 64 * 128;             // 64 rows x 64 bf16 columns
 
-struct Dims {
-  int B, Tq, Tk, H, KV, hd, causal, window;
-  float scale;
-};
-
-__device__ __forceinline__ bool live(int t, int j, const Dims& d) {
-  bool ok = t < d.Tq && j < d.Tk;
-  if (d.causal) ok = ok && j <= t;
-  if (d.window > 0) ok = ok && t - j < d.window;
-  return ok;
-}
-
-// whether rows [t0, t0 + nt) and keys [j0, j0 + nj) hold a live pair (any)
-// or hold only live pairs (whole)
-__device__ __forceinline__ bool any_live(int t0, int nt, int j0, int nj,
-                                         const Dims& d) {
-  return t0 < d.Tq && j0 < d.Tk && (!d.causal || j0 <= t0 + nt - 1) &&
-         (d.window == 0 || t0 - (j0 + nj - 1) < d.window);
-}
-
-__device__ __forceinline__ bool all_live(int t0, int nt, int j0, int nj,
-                                         const Dims& d) {
-  return t0 + nt <= d.Tq && j0 + nj <= d.Tk &&
-         (!d.causal || j0 + nj - 1 <= t0) &&
-         (d.window == 0 || t0 + nt - 1 - j0 < d.window);
-}
-
-// sum of the products of 8 bf16 pairs, in fp32
-__device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
-  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
-  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
-    s = fmaf(u.x, w.x, s);
-    s = fmaf(u.y, w.y, s);
-  }
-  return s;
-}
-
-// the two rows (r, r + 8) of an accumulator fragment to bf16 gradients
-// times mul, columns below hd, rows below n; `g` points at row r, column 0
-template <int HDP>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* g, int64_t stride,
-                                           const float (&acc)[HDP / 2],
-                                           float mul, int r, int n, int hd,
-                                           int c0) {
-#pragma unroll
-  for (int j = 0; j < HDP / 8; ++j) {
-    const int col = 8 * j + c0;
-    if (8 * j < hd) {
-      if (r < n)
-        *reinterpret_cast<__nv_bfloat162*>(g + col) =
-            __floats2bfloat162_rn(acc[4 * j] * mul, acc[4 * j + 1] * mul);
-      if (r + 8 < n)
-        *reinterpret_cast<__nv_bfloat162*>(g + 8 * stride + col) =
-            __floats2bfloat162_rn(acc[4 * j + 2] * mul,
-                                  acc[4 * j + 3] * mul);
-    }
-  }
-}
-
 // ---- (a) dq ------------------------------------------------------------------
 
 // byte offsets from the 1024-aligned base of dynamic shared memory
@@ -255,26 +192,11 @@ flash_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
       // the rows' lse in log2 units (+inf past lse_rows: no such row)
       const float m0 = r0 < ldr ? lse[bh * ldr + r0] * kLog2e : inf;
       const float m1 = r0 + 8 < ldr ? lse[bh * ldr + r0 + 8] * kLog2e : inf;
-      // D = rowsum(dO o): the four threads of a row take every fourth
-      // 8-column chunk; 0 on rows past Tq (the padding (b) reads)
+      // D = rowsum(dO o), 0 on rows past Tq (the padding (b) reads)
       const int64_t g0 = ((int64_t)it.b * d.Tq + r0) * rs + it.h * d.hd;
-      float D0 = 0.f, D1 = 0.f;
-      for (int c = 8 * (lane & 3); c < d.hd; c += 32) {
-        if (r0 < d.Tq)
-          D0 += dot8(*reinterpret_cast<const uint4*>(o + g0 + c),
-                     *reinterpret_cast<const uint4*>(dout + g0 + c));
-        if (r0 + 8 < d.Tq)
-          D1 += dot8(*reinterpret_cast<const uint4*>(o + g0 + 8 * rs + c),
-                     *reinterpret_cast<const uint4*>(dout + g0 + 8 * rs + c));
-      }
-      D0 += __shfl_xor_sync(0xffffffffu, D0, 1);
-      D0 += __shfl_xor_sync(0xffffffffu, D0, 2);
-      D1 += __shfl_xor_sync(0xffffffffu, D1, 1);
-      D1 += __shfl_xor_sync(0xffffffffu, D1, 2);
-      if ((lane & 3) == 0) {
-        if (r0 < ldr) Dv[bh * ldr + r0] = D0;
-        if (r0 + 8 < ldr) Dv[bh * ldr + r0 + 8] = D1;
-      }
+      const float2 Dr = row_D(o, dout, Dv + bh * ldr, g0, rs, r0, ldr, lane,
+                              d);
+      const float D0 = Dr.x, D1 = Dr.y;
 
       float acc[HDP / 2];
 #pragma unroll
@@ -354,29 +276,6 @@ struct DkdvLayout {
   static constexpr uint32_t kTotal = kBar + 8 * (2 + 2 * kStages) + 1024;
 };
 
-// One key-tile work item: a (b, KV head, 128-key tile) and the 64-query
-// tiles [qt_lo, qt_hi) that can see its keys (causal: t >= k_lo; window:
-// t < k_lo + 127 + window).  Items are numbered heaviest causal tile
-// (the first keys) first.
-struct KeyItem {
-  int b, kvh, k_lo, qt_lo, qt_hi;
-};
-
-__device__ __forceinline__ KeyItem key_item(int idx, const Dims& d) {
-  KeyItem it;
-  const int BK = d.B * d.KV;
-  const int bk = idx % BK;
-  it.b = bk / d.KV;
-  it.kvh = bk - it.b * d.KV;
-  it.k_lo = idx / BK * kTile;
-  const int t_lo = d.causal ? it.k_lo : 0;
-  const int t_hi =
-      d.window > 0 ? min(d.Tq, it.k_lo + kTile - 1 + d.window) : d.Tq;
-  it.qt_lo = t_lo / kBQ;
-  it.qt_hi = t_lo < t_hi ? (t_hi + kBQ - 1) / kBQ : it.qt_lo;
-  return it;
-}
-
 template <int HDP>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
@@ -419,7 +318,7 @@ flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 128 * kConsumers) {
       int i = 0;   // Q/dO tiles loaded so far, over all items
       for (int r = 0, idx; (idx = item_index(r)) < n_items; ++r) {
-        const KeyItem it = key_item(idx, d);
+        const KeyItem it = key_item<kTile, kBQ>(idx, d);
         mbar_wait(bar_kve, (r & 1) ^ 1);
         mbar_expect_tx(bar_kv, 2 * kConsumers * L::kWG);
         for (int g = 0; g < kConsumers; ++g)
@@ -469,7 +368,7 @@ flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 
     int i0 = 0;   // Q/dO tiles consumed before this item
     for (int r = 0, idx; (idx = item_index(r)) < n_items; ++r) {
-      const KeyItem it = key_item(idx, d);
+      const KeyItem it = key_item<kTile, kBQ>(idx, d);
       const int kw = it.k_lo + kRows * wg;    // the warpgroup's first key
       const int key0 = kw + kr;               // this thread's keys, and + 8
       float dka[HDP / 2], dva[HDP / 2];
@@ -548,31 +447,6 @@ flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---- host side ----------------------------------------------------------------
-
-// q, dO (B, Tq, H, hd) as 4-d maps of 64-row boxes, k, v (B, Tk, KV, hd)
-// of kv_rows-row boxes
-bool make_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv,
-               CUtensorMap* tdo, const void* q, const void* k, const void* v,
-               const void* dout, const Dims& d, int kv_rows) {
-  return make_map(tq, q, d.B, d.Tq, d.H, d.hd, 64) &&
-         make_map(tk, k, d.B, d.Tk, d.KV, d.hd, kv_rows) &&
-         make_map(tv, v, d.B, d.Tk, d.KV, d.hd, kv_rows) &&
-         make_map(tdo, dout, d.B, d.Tq, d.H, d.hd, 64);
-}
-
-// the grid: one block per SM, at most one per item
-template <typename K>
-int prepare(K kernel, int smem, int64_t items, int* grid) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int device = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  *grid = (int)(items < sms ? items : sms);
-  return (int)err;
-}
 
 template <int HDP>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,

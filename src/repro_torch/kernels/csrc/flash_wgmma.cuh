@@ -1,9 +1,11 @@
 // The Hopper (sm_90a) building blocks of the bf16 flash-attention kernels,
 // forward (flash_attention_wgmma.cu) and backward
-// (flash_attention_bwd_wgmma.cu): shared-memory addresses, mbarriers, TMA
-// loads, 128-byte-swizzled wgmma descriptors, the bf16 wgmma products with
-// fp32 accumulators, the persistent item order, and the host-side 4-d
-// tensor maps over (B, T, heads, hd).
+// (flash_attention_bwd_wgmma.cu up to hd 128,
+// flash_attention_bwd_wgmma_wide.cu above): shared-memory addresses,
+// mbarriers, TMA loads, 128-byte-swizzled wgmma descriptors, the bf16 wgmma
+// products with fp32 accumulators, the persistent item order, the
+// backward's masks, D rows, gradient stores and key items, and the
+// host-side 4-d tensor maps over (B, T, heads, hd).
 
 #pragma once
 
@@ -272,6 +274,124 @@ __device__ __forceinline__ Item query_item(int idx, int BH, int H, int nq,
   return it;
 }
 
+// ---- the backward's masks, D rows, stores and key items ----------------
+
+struct Dims {
+  int B, Tq, Tk, H, KV, hd, causal, window;
+  float scale;
+};
+
+__device__ __forceinline__ bool live(int t, int j, const Dims& d) {
+  bool ok = t < d.Tq && j < d.Tk;
+  if (d.causal) ok = ok && j <= t;
+  if (d.window > 0) ok = ok && t - j < d.window;
+  return ok;
+}
+
+// whether rows [t0, t0 + nt) and keys [j0, j0 + nj) hold a live pair (any)
+// or hold only live pairs (whole)
+__device__ __forceinline__ bool any_live(int t0, int nt, int j0, int nj,
+                                         const Dims& d) {
+  return t0 < d.Tq && j0 < d.Tk && (!d.causal || j0 <= t0 + nt - 1) &&
+         (d.window == 0 || t0 - (j0 + nj - 1) < d.window);
+}
+
+__device__ __forceinline__ bool all_live(int t0, int nt, int j0, int nj,
+                                         const Dims& d) {
+  return t0 + nt <= d.Tq && j0 + nj <= d.Tk &&
+         (!d.causal || j0 + nj - 1 <= t0) &&
+         (d.window == 0 || t0 + nt - 1 - j0 < d.window);
+}
+
+// sum of the products of 8 bf16 pairs, in fp32
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    s = fmaf(u.x, w.x, s);
+    s = fmaf(u.y, w.y, s);
+  }
+  return s;
+}
+
+// the two rows (r, r + 8) of an accumulator fragment to bf16 gradients
+// times mul, columns below hd, rows below n; `g` points at row r, column 0
+template <int HDP>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* g, int64_t stride,
+                                           const float (&acc)[HDP / 2],
+                                           float mul, int r, int n, int hd,
+                                           int c0) {
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j) {
+    const int col = 8 * j + c0;
+    if (8 * j < hd) {
+      if (r < n)
+        *reinterpret_cast<__nv_bfloat162*>(g + col) =
+            __floats2bfloat162_rn(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+      if (r + 8 < n)
+        *reinterpret_cast<__nv_bfloat162*>(g + 8 * stride + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2] * mul,
+                                  acc[4 * j + 3] * mul);
+    }
+  }
+}
+
+// D = rowsum(dO o) of this thread's rows r0 and r0 + 8 in fp32, the four
+// threads of a row taking every fourth 8-column chunk; `g0` is row r0's
+// offset in o and dout (row stride rs).  Written to Drow[r] for the rows
+// below ldr, 0 on rows past Tq (the padding the dkdv launch reads).
+__device__ __forceinline__ float2 row_D(const __nv_bfloat16* __restrict__ o,
+                                        const __nv_bfloat16* __restrict__ dout,
+                                        float* __restrict__ Drow, int64_t g0,
+                                        int64_t rs, int r0, int ldr, int lane,
+                                        const Dims& d) {
+  float D0 = 0.f, D1 = 0.f;
+  for (int c = 8 * (lane & 3); c < d.hd; c += 32) {
+    if (r0 < d.Tq)
+      D0 += dot8(*reinterpret_cast<const uint4*>(o + g0 + c),
+                 *reinterpret_cast<const uint4*>(dout + g0 + c));
+    if (r0 + 8 < d.Tq)
+      D1 += dot8(*reinterpret_cast<const uint4*>(o + g0 + 8 * rs + c),
+                 *reinterpret_cast<const uint4*>(dout + g0 + 8 * rs + c));
+  }
+  D0 += __shfl_xor_sync(0xffffffffu, D0, 1);
+  D0 += __shfl_xor_sync(0xffffffffu, D0, 2);
+  D1 += __shfl_xor_sync(0xffffffffu, D1, 1);
+  D1 += __shfl_xor_sync(0xffffffffu, D1, 2);
+  if ((lane & 3) == 0) {
+    if (r0 < ldr) Drow[r0] = D0;
+    if (r0 + 8 < ldr) Drow[r0 + 8] = D1;
+  }
+  return make_float2(D0, D1);
+}
+
+// One key-tile work item of a dkdv launch: a (b, KV head, KT-key tile)
+// and the BQ-query tiles [qt_lo, qt_hi) that can see its keys (causal:
+// t >= k_lo; window: t < k_lo + KT - 1 + window).  Items are numbered
+// heaviest causal tile (the first keys) first.
+struct KeyItem {
+  int b, kvh, k_lo, qt_lo, qt_hi;
+};
+
+template <int KT, int BQ>
+__device__ __forceinline__ KeyItem key_item(int idx, const Dims& d) {
+  KeyItem it;
+  const int BK = d.B * d.KV;
+  const int bk = idx % BK;
+  it.b = bk / d.KV;
+  it.kvh = bk - it.b * d.KV;
+  it.k_lo = idx / BK * KT;
+  const int t_lo = d.causal ? it.k_lo : 0;
+  const int t_hi =
+      d.window > 0 ? min(d.Tq, it.k_lo + KT - 1 + d.window) : d.Tq;
+  it.qt_lo = t_lo / BQ;
+  it.qt_hi = t_lo < t_hi ? (t_hi + BQ - 1) / BQ : it.qt_lo;
+  return it;
+}
+
 // ---- host side ----------------------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -324,6 +444,31 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int T, int nh, int hd,
 // copy; rows past Tq hold lse = +inf and D = 0
 __host__ __device__ __forceinline__ int lse_rows(int Tq) {
   return (Tq + 63) / 64 * 64;
+}
+
+// q, dO (B, Tq, H, hd) as 4-d maps of 64-row boxes, k, v (B, Tk, KV, hd)
+// of kv_rows-row boxes
+bool make_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv,
+               CUtensorMap* tdo, const void* q, const void* k, const void* v,
+               const void* dout, const Dims& d, int kv_rows) {
+  return make_map(tq, q, d.B, d.Tq, d.H, d.hd, 64) &&
+         make_map(tk, k, d.B, d.Tk, d.KV, d.hd, kv_rows) &&
+         make_map(tv, v, d.B, d.Tk, d.KV, d.hd, kv_rows) &&
+         make_map(tdo, dout, d.B, d.Tq, d.H, d.hd, 64);
+}
+
+// the grid: one block per SM, at most one per item
+template <typename K>
+int prepare(K kernel, int smem, int64_t items, int* grid) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  *grid = (int)(items < sms ? items : sms);
+  return (int)err;
 }
 
 }  // namespace

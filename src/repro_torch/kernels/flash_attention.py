@@ -20,10 +20,13 @@ with no fallback between its routes:
     ("wgmma"): two launches, dq (which also writes each row's D) and
     dkdv, every product on the bf16 tensor cores, fed by the TMA, with
     the lse that the bf16 forward saved (``return_lse=True``);
-  * float32, and bfloat16 above hd 128 -> ``csrc/flash_attention_bwd.cu``
-    ("cuda_core"): three launches computing in fp32 on the CUDA cores
-    (each row's lse and D, then dK and dV per key tile, then dQ per
-    query tile).
+  * bfloat16 at hd 136..256 -> ``csrc/flash_attention_bwd_wgmma_wide.cu``
+    ("wgmma_wide"): the same two launches and lse, laid out for the wide
+    heads (dq with one V stage beside two K stages; dkdv items of 64
+    keys whose two warpgroups hold dV and dK);
+  * float32 -> ``csrc/flash_attention_bwd.cu`` ("cuda_core"): three
+    launches computing in fp32 on the CUDA cores (each row's lse and D,
+    then dK and dV per key tile, then dQ per query tile).
 
 :func:`flash_attention_bwd_cuda` runs a route's launches and
 ``ops.flash_attention`` binds forward and backward to autograd.
@@ -36,9 +39,11 @@ launch order and :func:`key_tiles` its tile-relevance test;
 :func:`flash_plan_ref` is the plain twin that walks that schedule, held
 against the Pallas kernel on the CPU.  :func:`flash_wgmma_lse_ref` and
 :func:`flash_bwd_wgmma_plan_ref` are the twins of the lse the bf16
-forward saves and of the bf16 backward's schedule, held against the
-oracle and JAX on the CPU.  GQA reads KV head ``h // G`` through the
-(B, T, KV, hd) strides of k and v: no copy and no repeat over the group.
+forward saves and of the bf16 backward's schedule, and
+:func:`flash_bwd_wide_plan_ref` that of the backward above hd 128, held
+against the oracle and JAX on the CPU.  GQA reads KV head ``h // G``
+through the (B, T, KV, hd) strides of k and v: no copy and no repeat
+over the group.
 The fp32 scores are multiplied by ``scale`` (default ``1 / sqrt(hd)``,
 the Pallas kernel's); ``attention_full`` passes a q already scaled in
 its own dtype with ``scale=1``, as the model's ``_flash`` scales it.
@@ -73,6 +78,12 @@ KERNEL_BWD_WGMMA_DQ = _build.Kernel("repro_flash_attention_bwd_wgmma_dq",
                                     "ppppppppiiiiiiiif")
 KERNEL_BWD_WGMMA_DKDV = _build.Kernel("repro_flash_attention_bwd_wgmma_dkdv",
                                       "ppppppppiiiiiiiif")
+# the bf16 backward above hd 128 (csrc/flash_attention_bwd_wgmma_wide.cu):
+# the same two launches and arguments
+KERNEL_BWD_WIDE_DQ = _build.Kernel("repro_flash_attention_bwd_wide_dq",
+                                   "ppppppppiiiiiiiif")
+KERNEL_BWD_WIDE_DKDV = _build.Kernel("repro_flash_attention_bwd_wide_dkdv",
+                                     "ppppppppiiiiiiiif")
 
 ROUTES = {torch.float32: KERNEL, torch.bfloat16: KERNEL_WGMMA}
 MAX_HEAD_DIM = 256
@@ -92,6 +103,11 @@ BWD_WGMMA_ROWS = 64
 BWD_WGMMA_KEYS = 64
 BWD_WGMMA_QUERIES = 64
 LSE_ALIGN = 64
+# the bf16 backward above hd 128 (csrc/flash_attention_bwd_wgmma_wide.cu):
+# dq as above (kRows, kBK), dkdv items of BWD_WIDE_KEYS keys (kBK) walking
+# BWD_WIDE_QUERIES-query tiles (kBQ)
+BWD_WIDE_KEYS = 64
+BWD_WIDE_QUERIES = 64
 # the bf16 forward's tiles (csrc/flash_attention_wgmma.cu): 128 query
 # rows per item, 128 keys per tile up to hd 128 and 64 above
 WGMMA_QUERIES = 128
@@ -305,14 +321,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
     """The backward that takes inputs of ``dtype`` at head dim ``hd``:
     "wgmma" (``flash_attention_bwd_wgmma.cu``) for bfloat16 up to hd 128,
-    "cuda_core" (``flash_attention_bwd.cu``) for float32 and for
-    bfloat16 above it (the dK and dV accumulators of 64 keys at hd 256
-    do not fit a warpgroup's registers)."""
+    "wgmma_wide" (``flash_attention_bwd_wgmma_wide.cu``) for bfloat16
+    above it, "cuda_core" (``flash_attention_bwd.cu``) for float32."""
     if dtype not in ROUTES:
         raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
-    if dtype == torch.bfloat16 and hd <= BWD_WGMMA_MAX_HEAD_DIM:
-        return "wgmma"
-    return "cuda_core"
+    if dtype == torch.float32:
+        return "cuda_core"
+    return "wgmma" if hd <= BWD_WGMMA_MAX_HEAD_DIM else "wgmma_wide"
 
 
 def bwd_launches(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -325,11 +340,11 @@ def bwd_launches(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     current stream.  ``route`` None takes :func:`bwd_route`'s;
     "cuda_core" forces the CUDA-core backward at any dtype and head dim (for an
     A/B on the card).  On the "cuda_core" route: rows (lse and D into
-    fp32 scratch), dkdv, dq.  On the "wgmma" route: dq (which writes D)
-    and dkdv, reading ``lse`` as ``flash_attention_cuda(...,
-    return_lse=True)`` gave it; where ``lse`` is None, a first launch
-    ("lse") runs that forward into scratch for it.  Raises on inputs the
-    kernels do not take."""
+    fp32 scratch), dkdv, dq.  On the "wgmma" and "wgmma_wide" routes: dq
+    (which writes D) and dkdv, reading ``lse`` as
+    ``flash_attention_cuda(..., return_lse=True)`` gave it; where ``lse``
+    is None, a first launch ("lse") runs that forward into scratch for
+    it.  Raises on inputs the kernels do not take."""
     if q.dtype not in ROUTES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
@@ -342,11 +357,10 @@ def bwd_launches(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"be q's shape {tuple(q.shape)}")
     require_int32_range(batch_heads=B * H, Tq=Tq, Tk=Tk)
     route = route or bwd_route(q.dtype, hd)
-    if route not in ("wgmma", "cuda_core") or (
-            route == "wgmma" and bwd_route(q.dtype, hd) != "wgmma"):
+    if route != "cuda_core" and route != bwd_route(q.dtype, hd):
         raise ValueError(f"no {route!r} backward for {q.dtype} at hd {hd}")
-    if lse is not None and route != "wgmma":
-        raise ValueError("the lse is taken by the wgmma backward only")
+    if lse is not None and route == "cuda_core":
+        raise ValueError("the lse is taken by the wgmma backwards only")
     sizes = (B, Tq, Tk, H, KV, hd, int(bool(causal)), int(window),
              1.0 / math.sqrt(hd) if scale is None else float(scale))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -389,11 +403,12 @@ def bwd_launches(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"float32 {rows} on {q.device}, got {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}")
     D = torch.empty(rows, **f32)
+    k_dq, k_dkdv = ((KERNEL_BWD_WGMMA_DQ, KERNEL_BWD_WGMMA_DKDV)
+                    if route == "wgmma"
+                    else (KERNEL_BWD_WIDE_DQ, KERNEL_BWD_WIDE_DKDV))
     return (dq, dk, dv), launches + [
-        ("dq", launcher(KERNEL_BWD_WGMMA_DQ, q, k, v, o, do, lse, D, dq,
-                        *sizes)),
-        ("dkdv", launcher(KERNEL_BWD_WGMMA_DKDV, q, k, v, do, lse, D, dk, dv,
-                          *sizes))]
+        ("dq", launcher(k_dq, q, k, v, o, do, lse, D, dq, *sizes)),
+        ("dkdv", launcher(k_dkdv, q, k, v, do, lse, D, dk, dv, *sizes))]
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -406,7 +421,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     was ``o``, given the output's gradient ``do``: q, o, do (B, Tq, H,
     hd) and k, v (B, Tk, KV, hd), all float32 or all bfloat16, on the
     card.  The launches of :func:`bwd_launches` on the current stream
-    (``lse``: the bf16 forward's, on the "wgmma" route); the gradients
+    (``lse``: the bf16 forward's, on the bf16 routes); the gradients
     come back in the inputs' dtype.  The plain twin is
     ``ref.flash_attention_bwd_ref``."""
     grads, launches = bwd_launches(q, k, v, o, do, causal=causal,
@@ -508,23 +523,60 @@ def flash_bwd_wgmma_plan_ref(q: torch.Tensor, k: torch.Tensor,
     q's dtype.  ``keys`` (dq's K/V tile) and ``queries`` (dkdv's Q/dO
     tile) default to the kernel's and may be set smaller to walk many
     tiles at a small shape."""
+    return _bwd_plan_ref(q, k, v, o, do, causal=causal, window=window,
+                         scale=scale, lse=lse,
+                         keys=keys or BWD_WGMMA_KEYS,
+                         queries=queries or BWD_WGMMA_QUERIES,
+                         key_item=2 * BWD_WGMMA_ROWS,
+                         key_part=BWD_WGMMA_ROWS)
+
+
+def flash_bwd_wide_plan_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = True,
+                            window: int = 0, scale: Optional[float] = None,
+                            lse: Optional[torch.Tensor] = None,
+                            keys: Optional[int] = None,
+                            queries: Optional[int] = None):
+    """The plain twin of the bf16 backward above hd 128
+    (``csrc/flash_attention_bwd_wgmma_wide.cu``): (a) dq as in
+    :func:`flash_bwd_wgmma_plan_ref` (items of 2 x BWD_WGMMA_ROWS
+    queries, BWD_WIDE_KEYS-key tiles; the kernel's K and V rings change
+    no sum); (b) dkdv over items of BWD_WIDE_KEYS keys, walking the G
+    heads and the BWD_WIDE_QUERIES-query tiles that can see the item
+    (skipping a tile with no live pair): P^T formed in fp32 from the lse
+    (warpgroup 0), dS^T = P^T (dP^T - D) from that fp32 P^T (warpgroup
+    1), each rounded to bf16 for dV += P^T dO and dK += dS^T Q over the
+    whole head dim.  Returns (dq, dk, dv) in q's dtype; ``keys`` and
+    ``queries`` as in :func:`flash_bwd_wgmma_plan_ref`."""
+    return _bwd_plan_ref(q, k, v, o, do, causal=causal, window=window,
+                         scale=scale, lse=lse, keys=keys or BWD_WIDE_KEYS,
+                         queries=queries or BWD_WIDE_QUERIES,
+                         key_item=BWD_WIDE_KEYS, key_part=BWD_WIDE_KEYS)
+
+
+def _bwd_plan_ref(q, k, v, o, do, *, causal, window, scale, lse, keys,
+                  queries, key_item, key_part):
+    """The two bf16 backwards' shared schedule: dq items of
+    2 x BWD_WGMMA_ROWS queries over ``keys``-key tiles; dkdv items of
+    ``key_item`` keys, each part of ``key_part`` keys (one warpgroup's
+    rows) walking ``queries``-query tiles."""
     B, Tq, H, hd = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     G = H // KV
     R, tile = BWD_WGMMA_ROWS, 2 * BWD_WGMMA_ROWS
-    keys = keys or BWD_WGMMA_KEYS
-    queries = queries or BWD_WGMMA_QUERIES
     mul = 1.0 / math.sqrt(hd) if scale is None else scale
     log2e = math.log2(math.e)
     if lse is None:
         lse = flash_wgmma_lse_ref(q, k, causal=causal, window=window,
                                   scale=scale)
     lse2 = lse.float() * log2e                         # (B, H, rows)
-    nq, nk = -(-Tq // tile), -(-Tk // tile)
+    nq, nk = -(-Tq // tile), -(-Tk // key_item)
     qp = _padded(q, max(nq * tile, lse2.shape[2]))
     dop = _padded(do, qp.shape[1])
     op = _padded(o, qp.shape[1])
-    kp, vp = _padded(k, nk * tile), _padded(v, nk * tile)
+    kp = _padded(k, max(nk * key_item, -(-Tk // keys) * keys))
+    vp = _padded(v, kp.shape[1])
     live = functools.partial(_live, Tq=Tq, Tk=Tk, causal=causal,
                              window=window)
     D = (dop * op).sum(-1)                             # (B, T, H)
@@ -558,24 +610,25 @@ def flash_bwd_wgmma_plan_ref(q: torch.Tensor, k: torch.Tensor,
                 dq[b, qa:qa + R, h] += \
                     _bf16(ds) @ kp[b, kt * keys:(kt + 1) * keys, h // G]
     # (b) dkdv
-    dk = torch.zeros((B, nk * tile, KV, hd))
+    dk = torch.zeros((B, nk * key_item, KV, hd))
     dv = torch.zeros_like(dk)
     for i in range(nk * B * KV):
-        b, kvh, k_lo = i % (B * KV) // KV, i % KV, i // (B * KV) * tile
+        b, kvh = i % (B * KV) // KV, i % KV
+        k_lo = i // (B * KV) * key_item
         t_lo = k_lo if causal else 0
-        t_hi = min(Tq, k_lo + tile - 1 + window) if window > 0 else Tq
+        t_hi = min(Tq, k_lo + key_item - 1 + window) if window > 0 else Tq
         tiles = range(t_lo // queries, -(-t_hi // queries)) \
             if t_lo < t_hi else range(0)
-        for kw in (k_lo, k_lo + R):
+        for kw in range(k_lo, k_lo + key_item, key_part):
             for h in range(kvh * G, (kvh + 1) * G):
                 for qt in tiles:
                     t0 = qt * queries
-                    if not any_live(t0, queries, kw, R):
+                    if not any_live(t0, queries, kw, key_part):
                         continue
-                    p, ds = p_ds(b, h, t0, queries, kw, R)
-                    dv[b, kw:kw + R, kvh] += \
+                    p, ds = p_ds(b, h, t0, queries, kw, key_part)
+                    dv[b, kw:kw + key_part, kvh] += \
                         _bf16(p).T @ dop[b, t0:t0 + queries, h]
-                    dk[b, kw:kw + R, kvh] += \
+                    dk[b, kw:kw + key_part, kvh] += \
                         _bf16(ds).T @ qp[b, t0:t0 + queries, h]
     return ((dq[:, :Tq] * mul).to(q.dtype), (dk[:, :Tk] * mul).to(k.dtype),
             dv[:, :Tk].to(v.dtype))

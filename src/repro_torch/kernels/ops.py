@@ -40,6 +40,8 @@ KERNELS = {
     "flash_attention_bwd_dq": flash_mod.KERNEL_BWD_DQ,
     "flash_attention_bwd_wgmma_dq": flash_mod.KERNEL_BWD_WGMMA_DQ,
     "flash_attention_bwd_wgmma_dkdv": flash_mod.KERNEL_BWD_WGMMA_DKDV,
+    "flash_attention_bwd_wide_dq": flash_mod.KERNEL_BWD_WIDE_DQ,
+    "flash_attention_bwd_wide_dkdv": flash_mod.KERNEL_BWD_WIDE_DKDV,
 }
 
 
@@ -129,14 +131,15 @@ class FlashAttentionFn(torch.autograd.Function):
     ``flash_attention_cuda`` (by dtype), the backward the hand-written
     ``flash_attention_bwd_cuda`` (by dtype and head dim,
     ``flash_attention.bwd_route``); q, k, v and the output are saved, and
-    on the "wgmma" route (bf16 up to hd 128) the lse that the forward
-    kernel wrote beside the output.  A failed launch raises."""
+    on the bf16 routes ("wgmma" up to hd 128, "wgmma_wide" above) the
+    lse that the forward kernel wrote beside the output.  A failed launch
+    raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
         kw = dict(causal=causal, window=window, scale=scale)
         lse = None
-        if flash_mod.bwd_route(q.dtype, q.shape[-1]) == "wgmma":
+        if flash_mod.bwd_route(q.dtype, q.shape[-1]) != "cuda_core":
             o, lse = flash_mod.flash_attention_cuda(q, k, v, return_lse=True,
                                                     **kw)
         else:
@@ -164,8 +167,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     1 / sqrt(hd)); (B, Tq, H, hd) in q's dtype.  On the card bfloat16
     goes to the wgmma kernel and float32 to the CUDA-core one; where
     autograd records and q, k or v needs a gradient, through
-    :class:`FlashAttentionFn`, whose backward is a backward kernel (the
-    wgmma one for bfloat16 up to hd 128, the CUDA-core one else).
+    :class:`FlashAttentionFn`, whose backward is a backward kernel (for
+    bfloat16 a wgmma one, the CUDA-core one for float32).
     The plain version is differentiated by autograd itself."""
     if use_kernel(q, backend):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

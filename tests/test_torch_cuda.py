@@ -597,9 +597,9 @@ def test_cuda_flash_wgmma_matches_plain(cuda, B, Tq, Tk, H, KV, hd, causal,
 def test_cuda_flash_backward_matches_plain(cuda, B, T, H, KV, hd, causal,
                                            window, dtype):
     """The backward kernels against the plain backward on the same
-    inputs, each launch counted once on its route (bf16 up to hd 128:
-    the bf16 forward for the lse, then the wgmma dq and dkdv; else the
-    CUDA-core rows, dkdv and dq): fp32 within 1e-5 of each gradient's
+    inputs, each launch counted once on its route (bf16: the bf16
+    forward for the lse, then the wgmma dq and dkdv, the wide ones above
+    hd 128; fp32: the CUDA-core rows, dkdv and dq): fp32 within 1e-5 of each gradient's
     largest magnitude (another summation order), bf16 within 2^-7 of it
     (the gradients are rounded to bf16 once, from fp32 sums; the wgmma
     route also rounds P and dS to bf16); a second run bitwise the first
@@ -617,10 +617,11 @@ def test_cuda_flash_backward_matches_plain(cuda, B, T, H, KV, hd, causal,
     got = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
                                    window=window)
     counts = ops.launch_counts()
-    if bwd_route(dt, hd) == "wgmma":
+    if bwd_route(dt, hd) != "cuda_core":
+        pre = "wgmma" if bwd_route(dt, hd) == "wgmma" else "wide"
         want_counts = {"flash_attention_wgmma": 1,
-                       "flash_attention_bwd_wgmma_dq": 1,
-                       "flash_attention_bwd_wgmma_dkdv": 1}
+                       f"flash_attention_bwd_{pre}_dq": 1,
+                       f"flash_attention_bwd_{pre}_dkdv": 1}
     else:
         want_counts = {f"flash_attention_bwd_{x}": 1
                        for x in ("rows", "dkdv", "dq")}
@@ -640,6 +641,68 @@ def test_cuda_flash_backward_matches_plain(cuda, B, T, H, KV, hd, causal,
         assert torch.equal(g, a) and torch.equal(g, b)
         err = float((g.float() - w.float()).abs().max())
         assert err <= rel * float(w.float().abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Tq,Tk,H,KV,hd,causal,window", [
+    (1, 333, 333, 8, 4, 256, True, 0),       # ragged T
+    (2, 200, 200, 4, 1, 136, True, 0),       # MQA, hd 136 (HDP 192)
+    (1, 150, 150, 4, 1, 256, True, 100),     # MQA, window under T
+    (1, 256, 256, 8, 4, 256, True, 1),       # window 1: the diagonal
+    (1, 100, 300, 8, 2, 192, False, 0),      # Tq < Tk, bidirectional
+    (1, 100, 300, 8, 2, 248, True, 40),      # Tq < Tk, causal, window
+    (2, 130, 130, 4, 4, 200, False, 0),      # non-causal, MHA, hd 200
+    (1, 4096, 4096, 8, 4, 256, True, 1024),  # gemma3-4b local layer
+    (1, 4096, 4096, 8, 4, 256, True, 0),     # gemma3-4b global layer
+])
+def test_cuda_flash_backward_wide_matches_plain(cuda, B, Tq, Tk, H, KV, hd,
+                                                causal, window):
+    """The bf16 backward above hd 128 (csrc/flash_attention_bwd_wgmma_wide.cu)
+    on the forward's saved lse, against the plain backward on the same
+    inputs: within 2^-7 of each gradient's largest magnitude, cosine >=
+    0.9999; its two launches counted once each; a second run bitwise the
+    first.  At T <= 333 also against the CPU twin of its schedule
+    (``flash_bwd_wide_plan_ref``), which rounds P and dS where it does,
+    within the same gate.  Window 1: each row's one live key is its own,
+    so P = 1, o = v and dS = dP - D vanishes; dq and dk are then the
+    fp32 rounding of that difference on both sides (about 1e-5) and are
+    held to 1e-4 absolute, against O(0.1) for a wrong mask; dv = dO
+    summed over the group is held to the gate."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = _rng(Tq + Tk + hd + H)
+    q, do = (torch.from_numpy(rng.normal(size=(B, Tq, H, hd))
+                              .astype(np.float32)).to(cuda, torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(B, Tk, KV, hd))
+                             .astype(np.float32)).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    assert fa.bwd_route(torch.bfloat16, hd) == "wgmma_wide"
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    ops.reset_launch_counts()
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse=lse, **kw)
+    counts = ops.launch_counts()
+    assert counts == {**{n: 0 for n in counts},
+                      "flash_attention_bwd_wide_dq": 1,
+                      "flash_attention_bwd_wide_dkdv": 1}, counts
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse=lse, **kw)
+    wants = [ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)]
+    if max(Tq, Tk) <= 333:
+        cpu = [t.cpu() for t in (q, k, v, o, do)]
+        wants.append(fa.flash_bwd_wide_plan_ref(*cpu, lse=lse.cpu(), **kw))
+    torch.cuda.synchronize()
+    for want in wants:
+        for name, g, a, w in zip("qkv", got, again, want):
+            assert g.dtype == torch.bfloat16 and g.shape == w.shape
+            assert torch.equal(g, a)
+            g, w = g.double().cpu().flatten(), w.double().cpu().flatten()
+            if window == 1 and name != "v":
+                assert float(g.abs().max()) <= 1e-4
+                assert float(w.abs().max()) <= 1e-4
+                continue
+            err = float((g - w).abs().max())
+            assert err <= 2.0 ** -7 * float(w.abs().max()), err
+            assert float(g @ w / (g.norm() * w.norm())) >= 0.9999
 
 
 def _plain_lse(q, k, causal, window):
@@ -690,6 +753,7 @@ def test_cuda_flash_wgmma_lse_output_leaves_o_bitwise(cuda, B, Tq, Tk, H,
     (1, 200, 200, 4, 4, 80, False, 0),
     (1, 300, 300, 8, 4, 256, True, 64),
     (1, 150, 60, 4, 2, 64, True, 20),        # rows past 78 see no key
+    (1, 150, 60, 4, 2, 256, True, 20),       # the same, wide backward
 ])
 def test_cuda_flash_wgmma_saved_lse_matches_logsumexp(cuda, B, Tq, Tk, H,
                                                       KV, hd, causal,
@@ -697,7 +761,7 @@ def test_cuda_flash_wgmma_saved_lse_matches_logsumexp(cuda, B, Tq, Tk, H,
     """The lse the bf16 forward saves, (B, H, Tq rounded up to 64), within
     1e-5 * max(1, |lse|) of torch.logsumexp of the plain masked scores;
     +inf on the padding and on rows with no live key, whose gradients
-    from the wgmma backward are then zero (their dq rows, and dk, dv
+    from a wgmma backward are then zero (their dq rows, and dk, dv
     the same as with their dO rows zeroed)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_cuda, lse_rows)
@@ -713,7 +777,7 @@ def test_cuda_flash_wgmma_saved_lse_matches_logsumexp(cuda, B, Tq, Tk, H,
     assert float(err.max()) <= 1e-5, float(err.max())
     assert bool((got[~live] == float("inf")).all())
     assert bool((pad == float("inf")).all())
-    if hd > 128 or bool(live.all()):
+    if bool(live.all()):
         return
     dead = ~live[0, 0]
     do = torch.randn(o.shape, device=cuda).bfloat16()

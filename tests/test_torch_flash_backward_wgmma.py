@@ -13,8 +13,8 @@ the twin of the lse the bf16 forward saves, is held against
 ``torch.logsumexp`` of the plain masked scores; rows with no live key
 give +inf and zero gradients.  ``bwd_route`` and
 ``ops.FlashAttentionFn`` send bf16 up to hd 128 to the new launches
-(with the forward's lse) and fp32 or hd above 128 to the CUDA-core
-backward's, checked
+and bf16 above it to the wide ones (both with the forward's lse), and
+fp32 to the CUDA-core backward's, checked
 with the CUDA wrappers swapped for their plain twins.
 
 Tolerances: the twin within 2^-7 of each gradient's largest magnitude,
@@ -188,13 +188,14 @@ def test_no_live_key_rows_give_inf_lse_and_zero_gradients():
 
 
 def test_backward_route_by_dtype_and_head_dim():
-    """bf16 up to hd 128 takes the wgmma launches, fp32 at any hd and
-    bf16 above hd 128 the CUDA-core one's; other dtypes are refused."""
+    """bf16 up to hd 128 takes the wgmma launches, bf16 above hd 128 the
+    wide ones, fp32 at any hd the CUDA-core one's; other dtypes are
+    refused."""
     for hd in (8, 64, 80, 128):
         assert flash_mod.bwd_route(torch.bfloat16, hd) == "wgmma"
         assert flash_mod.bwd_route(torch.float32, hd) == "cuda_core"
     for hd in (136, 256):
-        assert flash_mod.bwd_route(torch.bfloat16, hd) == "cuda_core"
+        assert flash_mod.bwd_route(torch.bfloat16, hd) == "wgmma_wide"
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_mod.bwd_route(torch.float16, 64)
     assert ops.KERNELS["flash_attention_bwd_wgmma_dq"] \
@@ -204,13 +205,13 @@ def test_backward_route_by_dtype_and_head_dim():
 
 
 @pytest.mark.parametrize("dtype,hd,wgmma", [
-    (torch.bfloat16, 16, True), (torch.bfloat16, 136, False),
+    (torch.bfloat16, 16, True), (torch.bfloat16, 136, True),
     (torch.float32, 16, False)])
 def test_autograd_takes_the_forward_lse_on_the_wgmma_route(
         monkeypatch, dtype, hd, wgmma):
     """On the card's route (the CUDA wrappers swapped for their plain
     twins), FlashAttentionFn asks the forward for the lse exactly where
-    the backward is the wgmma one and hands it over; the gradients
+    the backward is a wgmma one (bf16) and hands it over; the gradients
     through the twin of that backward pass the bf16 gate against
     autograd of the plain attention."""
     calls = []

@@ -332,6 +332,34 @@ def test_train_step_matches_jax(granite, m, compress, monkeypatch):
     assert not ev["loss"].requires_grad and set(ev) == {"loss", "ce", "aux"}
 
 
+@pytest.mark.parametrize("n_domains", [8, 1])
+def test_twenty_steps_at_lr_1e3_track_jax(granite, n_domains):
+    """The settings under which the card's losses did not fall: lr 1e-3
+    and one-sequence batches of the token pipeline, each drawing one
+    domain of its mixture (8 domains), or all from one.  The two
+    packages' steps, from the same weights on the same batches, give
+    the same loss at each of 20 steps within 1e-5 (the file's loss
+    tolerance; they agree within 1e-6), so whether the curve falls is
+    the reference's behaviour and not the port's."""
+    cfg, jm, jp, tm, tp = granite
+    rc = dict(lr=1e-3, warmup_steps=1, total_steps=20)
+    jstep = zoo.jit(jmake(jm, JRunConfig(**rc)))
+    tstep = make_train_step(tm, RunConfig(**rc))
+    pc = dict(vocab=cfg.vocab, seq_len=32, global_batch=1,
+              n_domains=n_domains, seed=7)
+    jpipe = JTokenPipeline(JTPConfig(**pc))
+    tpipe = TokenPipeline(TokenPipelineConfig(**pc), device="cpu")
+    jo, to = joptim.init(jp), optimizer.init(tp)
+    jl, tl = [], []
+    for s in range(20):
+        jp, jo, jmet = jstep(jp, jo, jpipe.batch(s))
+        tp, to, tmet = tstep(tp, to, tpipe.batch(s))
+        jl.append(float(jmet["loss"]))
+        tl.append(float(tmet["loss"]))
+    assert float(np.abs(np.subtract(tl, jl)).max()) <= 1e-5, (tl, jl)
+    assert np.isfinite(tl).all()
+
+
 def test_train_step_loss_decreases_and_leaves_inputs(granite):
     cfg, _, _, tm, tp = granite
     before = [p.clone() for p in leaves(tp)]

@@ -6,6 +6,7 @@ Usage, from the root of a checkout, on a machine with a CUDA device::
     python3 tools/flash_bwd_bench.py               # checks, then the A/B
     python3 tools/flash_bwd_bench.py --check-only  # checks alone
     python3 tools/flash_bwd_bench.py --src OTHER/src --label parent
+    python3 tools/flash_bwd_bench.py --cases gemma3   # only those A/B cases
 
 ``--src`` points at the ``src/`` directory of another checkout (for
 example the parent commit unpacked with ``git archive``), so two
@@ -15,17 +16,20 @@ card: run parent, change, change, parent.
 Checks, each against the plain version on the same inputs: the bf16
 forward's ``o`` bitwise the same with and without the lse output, the
 saved lse within 1e-5 * max(1, |lse|) of ``torch.logsumexp`` of the
-plain masked scores (+inf on rows with no live key), and the wgmma
-backward (``csrc/flash_attention_bwd_wgmma.cu``, with the saved lse and
+plain masked scores (+inf on rows with no live key), and the bf16
+backward of the checkout's route (``bwd_route``: up to hd 128
+``csrc/flash_attention_bwd_wgmma.cu``, above it
+``csrc/flash_attention_bwd_wgmma_wide.cu``, each with the saved lse and
 without it) within 2^-7 of each gradient's largest magnitude of
 ``ref.flash_attention_bwd_ref`` with cosine >= 0.9999, a second run
-bitwise the first, at ragged, windowed, bidirectional and GQA shapes up
-to hd 128 and at granite-3-8b's heads (1, 512, 32, 8, 128).
+bitwise the first, at ragged, windowed, bidirectional and GQA shapes,
+at granite-3-8b's heads (1, 512, 32, 8, 128) and at hd 136 to 256.
 
 The A/B times, in the order old, new, new, old, the CUDA-core
 backward (``csrc/flash_attention_bwd.cu``, forced onto bf16) and the
-wgmma backward at the bf16 shapes of phase 13a of ``chip_smoke.py`` that
-take the wgmma route, beside the bound (10 hd flops per unmasked pair
+checkout's bf16 route at the bf16 shapes of phase 13a of
+``chip_smoke.py`` (gemma3-4b's local and global layers at hd 256
+among them), beside the bound (10 hd flops per unmasked pair
 and head at the 989 TFLOP/s bf16 peak, or q, k, v, o, dO read and dQ,
 dK, dV written once at 3.35 TB/s), the plain backward and SDPA's
 backward, with SDPA's own error against the plain backward given
@@ -56,15 +60,31 @@ CHECK_CASES = [  # (B, T, H, KV, hd, causal, window)
     (1, 333, 4, 1, 128, True, 0),
     (1, 257, 6, 3, 40, False, 0),
     (1, 512, 32, 8, 128, True, 0),
+    (1, 333, 8, 4, 256, True, 0),
+    (2, 200, 4, 1, 136, True, 0),
+    (1, 256, 8, 4, 256, True, 2),
+    (2, 130, 4, 4, 200, False, 0),
+    (1, 300, 8, 2, 192, True, 64),
 ]
 AB_CASES = [
     ("granite-3-8b causal", (1, 4096, 32, 8, 128), 0, True),
+    ("gemma3-4b local", (1, 4096, 8, 4, 256), 1024, True),
+    ("gemma3-4b global", (1, 4096, 8, 4, 256), 0, True),
     ("zamba2-2.7b shared block", (1, 2048, 32, 32, 80), 4096, True),
     ("seamless-m4t encoder", (1, 1024, 16, 16, 64), 0, False),
 ]
 BF16_PEAK = 989e12
 HBM = 3.35e12
-KERNELS = ("flash_bwd_wgmma_dq_kernel", "flash_bwd_wgmma_dkdv_kernel")
+KERNELS = ("flash_bwd_wgmma_dq_kernel", "flash_bwd_wgmma_dkdv_kernel",
+           "flash_bwd_wide_dq_kernel", "flash_bwd_wide_dkdv_kernel")
+# each route's launches, as ops.launch_counts() names them
+ROUTE_LAUNCHES = {
+    "wgmma": ("flash_attention_bwd_wgmma_dq", "flash_attention_bwd_wgmma_dkdv"),
+    "wgmma_wide": ("flash_attention_bwd_wide_dq",
+                   "flash_attention_bwd_wide_dkdv"),
+    "cuda_core": ("flash_attention_bwd_rows", "flash_attention_bwd_dkdv",
+                  "flash_attention_bwd_dq"),
+}
 
 
 def fail(msg):
@@ -133,6 +153,8 @@ def main() -> None:
     ap.add_argument("--src", default=str(HERE / "src"),
                     help="the src/ directory whose kernels are run")
     ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--cases", default="",
+                    help="run only the A/B cases whose label holds this")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
 
@@ -183,6 +205,7 @@ def main() -> None:
     for B, T, H, KV, hd, causal, win in CHECK_CASES:
         q, k, v, do = inputs(B, T, H, KV, hd)
         kw = dict(causal=causal, window=win)
+        route = fa.bwd_route(torch.bfloat16, hd)
         o_plain = fa.flash_attention_cuda(q, k, v, **kw)
         o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
         want_lse = plain_lse(q, k, causal, win)
@@ -197,7 +220,9 @@ def main() -> None:
                 or not bool(torch.isinf(lse[..., T:]).all()):
             fail(f"lse at {(B, T, H, KV, hd)}: {lse_err}")
         ops.reset_launch_counts()
-        got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse=lse, **kw)
+        # an older checkout's hd 256 route takes no lse
+        got = fa.flash_attention_bwd_cuda(
+            q, k, v, o, do, lse=None if route == "cuda_core" else lse, **kw)
         c1 = ops.launch_counts()
         again = fa.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
         want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
@@ -205,16 +230,17 @@ def main() -> None:
         rel, cos = gates(got, want)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         row = dict(shape=[B, T, H, KV, hd], causal=causal, window=win,
-                   lse_rel_err=lse_err, max_rel_err=rel, cosine=cos,
+                   route=route, lse_rel_err=lse_err, max_rel_err=rel,
+                   cosine=cos,
                    bitwise_repeat=same,
                    launches={n: c for n, c in c1.items() if c})
         log(f"[check] {json.dumps(row)}")
         out["checks"].append(row)
         if not (same and max(rel) <= 2.0 ** -7 and min(cos) >= 0.9999):
             fail(f"backward at {(B, T, H, KV, hd, causal, win)}: {row}")
-        if c1.get("flash_attention_bwd_wgmma_dq") != 1 or \
-                c1.get("flash_attention_bwd_wgmma_dkdv") != 1 or \
-                sum(c1.values()) != 2:
+        want_c = ROUTE_LAUNCHES[route]
+        if any(c1.get(n) != 1 for n in want_c) or \
+                sum(c1.values()) != len(want_c):
             fail(f"launches {c1}")
     if args.check_only:
         log(json.dumps(out))
@@ -236,10 +262,14 @@ def main() -> None:
         return lambda: [launch() for _, launch in launches]
 
     for label, (B, T, H, KV, hd), win, causal in AB_CASES:
+        if args.cases not in label:
+            continue
         q, k, v, do = inputs(B, T, H, KV, hd)
         kw = dict(causal=causal, window=win)
+        route = fa.bwd_route(torch.bfloat16, hd)
         o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
-        new, l_new = fa.bwd_launches(q, k, v, o, do, lse=lse, **kw)
+        new, l_new = fa.bwd_launches(
+            q, k, v, o, do, lse=None if route == "cuda_core" else lse, **kw)
         old, l_old = fa.bwd_launches(q, k, v, o, do, route="cuda_core", **kw)
         reps = 5 if T >= 4096 else 10
         t_old = [cuda_ms(run_all(l_old), reps)]
@@ -281,7 +311,7 @@ def main() -> None:
         nbytes = 2 * (4 * B * T * H * hd + 4 * B * T * KV * hd)
         bound_ms = max(10 * hd * pairs / BF16_PEAK, nbytes / HBM) * 1e3
         row = dict(case=label, shape=[B, T, H, KV, hd], window=win,
-                   causal=causal, old_ms=t_old, new_ms=t_new,
+                   causal=causal, route=route, old_ms=t_old, new_ms=t_new,
                    new_launch_ms=per, bound_ms=bound_ms, plain_ms=plain_ms,
                    sdpa_ms=lib_ms, fwd_ms=fwd[0], fwd_lse_ms=fwd[1],
                    max_rel_err=rel, cosine=cos, old_max_rel_err=rel_old,
