@@ -233,21 +233,25 @@ Phases (any failure exits non-zero; no phase is skipped):
    (within 2^-7 of it, cosine >= 0.9999), a second run bitwise the
    first, each on its route (``flash_attention.bwd_route``): bf16 up to
    hd 128 on ``flash_attention_bwd_wgmma.cu`` and above it on
-   ``flash_attention_bwd_wgmma_wide.cu`` (two launches each, dq and
-   dkdv, reading the lse the bf16 forward saved; the second run
-   recomputes that lse with one forward launch), fp32 on
-   ``flash_attention_bwd.cu`` (three launches: the rows' lse and D, dK
-   and dV, dQ); each launch and the whole timed by CUDA events, on the
-   bf16 routes against the CUDA-core kernel forced onto the same inputs
-   in the order old, new, new, old,
+   ``flash_attention_bwd_wgmma_wide.cu``, fp32 on
+   ``flash_attention_bwd_tf32x3.cu`` (split TF32 on the tensor cores;
+   two launches each, dq and dkdv, reading the lse the forward saved;
+   the second run recomputes that lse with one forward launch); each
+   launch and the whole timed by CUDA events, against the CUDA-core
+   kernel ``flash_attention_bwd.cu`` (three launches: the rows' lse and
+   D, dK and dV, dQ) forced onto the same inputs in the order old, new,
+   new, old, its error and each of its launches recorded too,
    beside the bound (10 hd flops per unmasked pair and head at the bf16
-   tensor or fp32 peak, against q, k, v, o, dO read and dQ, dK, dV
-   written once), the plain backward and SDPA's backward
+   tensor peak, or in fp32 three TF32 products of them at the TF32 peak
+   with the fp32 FMA bound beside it, against q, k, v, o, dO read and
+   dQ, dK, dV written once), the plain backward and SDPA's backward
    (``torch.autograd.grad`` of ``scaled_dot_product_attention`` with
-   ``enable_gqa=True``, its forward excluded), with SDPA's own gradients
+   ``enable_gqa=True``, its forward excluded; fp32 with ``allow_tf32``
+   off, the default), with SDPA's own gradients
    against the plain backward given SDPA's output (a rounding witness);
    the count of HGMMA and UTMALDG in the SASS of every instance of the
-   two wgmma backwards, none of them 0, and no spill in the wide one.  (b) granite-3-8b at full width cut
+   two wgmma backwards and of TF32 HMMA in the split-TF32 one, none of
+   them 0, and no spill in the wide or the split-TF32 one.  (b) granite-3-8b at full width cut
    to TRAIN_LAYERS layers (``reduced``: the fp32 AdamW moments of 40
    layers do not fit one card), in bf16, one step's loss and per-leaf
    gradients against ``backend="torch"`` (loss within 1e-2, cosine >=
@@ -268,15 +272,24 @@ Phases (any failure exits non-zero; no phase is skipped):
    (cosine >= 0.999) and TRAIN_HD256_STEPS steps through the wide
    backward, counts reset just before and read just after: two bf16
    flash launches a layer a step (each saving the lse) and one of each
-   wide backward kernel, and no other kernel.
+   wide backward kernel, and no other kernel.  (e) fp32 training:
+   granite-3-8b at full width cut to TRAIN_FP32_LAYERS layers, fp32
+   weights, gradients and AdamW moments, one step against
+   ``backend="torch"`` (losses finite and within 1e-3, per-leaf gradient
+   cosine >= 0.99999) and TRAIN_FP32_STEPS steps of one TRAIN_SEQ-token
+   sequence, counts reset just before and read just after: two fp32
+   flash launches a layer a step (each saving the lse) and one of each
+   split-TF32 backward kernel, and no other kernel (none of the
+   CUDA-core backward's).
 
 The line before the last is the JSON object of per-kernel numbers (with
 each kernel's launches on phase 11's approx and dense funnels, on
 each of phase 12's engine runs and on phase 13b's training steps;
 ``flash_attention_bwd_wgmma``'s launches are its two kernels' on phase
-13b, ``flash_attention_bwd_wide``'s its two kernels' on phase 13d, and
-``flash_attention_bwd``'s 0: no training path runs fp32, and its
-entry is headed by 13a's fp32 granite case); the
+13b, ``flash_attention_bwd_wide``'s its two kernels' on phase 13d,
+``flash_attention_bwd_tf32x3``'s its two kernels' on phase 13e, and
+``flash_attention_bwd``'s 0: it is no route, only the A/B's old side,
+and its entry holds the old side's times of 13a's fp32 cases); the
 last line is ``{"ok": true, "device": {...}}``.  The script needs the
 repository's ``src/`` beside it and a CUDA device, and exits non-zero
 without printing a result when either is missing.  It imports nothing
@@ -300,6 +313,7 @@ SRC = HERE / "src"
 # NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_TENSOR_OPS_PER_S = 495e12
 BF16_TENSOR_OPS_PER_S = 989e12
 
 # the serve phase: granite-3-8b, 4 slots, prompts of these lengths (two
@@ -412,7 +426,9 @@ KVQ_FREE_COSINE = 0.95
 # phase 11a's projection (on an H100 at 700 W, alone with the library
 # built: 87.3 s, of which 13a 28.1 s with about 12 s of it the one
 # cuobjdump of the library that the script otherwise makes in phase 2,
-# 13b 8.3 s, 13c 43.6 s (30.7 s in an earlier run), 13d 1.3 s); the
+# 13b 8.3 s, 13c 43.6 s (30.7 s in an earlier run), 13d 1.3 s; 71.5 and
+# 105.0 s alone with 13e (2.2-2.3 s) and 13a's fp32 A/B, the old side's
+# errors and launch times (13a 26.5 and 39.0 s with the cuobjdump)); the
 # backward kernels' shapes
 # (13a); granite-3-8b at full width cut to TRAIN_LAYERS layers, trained
 # in bf16 on one sequence of
@@ -421,7 +437,7 @@ KVQ_FREE_COSINE = 0.95
 # checkpoint every TRAIN_CLI_EVERY, then resumed to TRAIN_CLI_MORE (13c);
 # gemma3-4b (hd 256) at full width cut to TRAIN_HD256_LAYERS layers,
 # TRAIN_HD256_STEPS steps through the wide bf16 backward (13d)
-TRAIN_S = 80.0
+TRAIN_S = 100.0
 BWD_CASES = [
     ("granite-3-8b causal", (1, 4096, 32, 8, 128), 0, True),
     ("gemma3-4b local", (1, 4096, 8, 4, 256), 1024, True),
@@ -436,6 +452,12 @@ TRAIN_STEPS = 8
 TRAIN_HD256_ARCH = "gemma3-4b"
 TRAIN_HD256_LAYERS = 6
 TRAIN_HD256_STEPS = 3
+# fp32 training through the split-TF32 backward (13e): TRAIN_ARCH at full
+# width cut to TRAIN_FP32_LAYERS layers (about 0.6e9 parameters: under
+# 12 GB of fp32 weights, gradients and AdamW moments), TRAIN_FP32_STEPS
+# steps of one TRAIN_SEQ-token sequence
+TRAIN_FP32_LAYERS = 2
+TRAIN_FP32_STEPS = 2
 TRAIN_CLI_ARCH = "xlstm-125m"
 TRAIN_CLI_STEPS = 2
 TRAIN_CLI_EVERY = 1
@@ -448,6 +470,8 @@ BWD_KERNELS = {
                    "flash_attention_bwd_wide_dkdv"),
     "cuda_core": ("flash_attention_bwd_rows", "flash_attention_bwd_dkdv",
                   "flash_attention_bwd_dq"),
+    "tf32x3": ("flash_attention_bwd_tf32x3_dq",
+               "flash_attention_bwd_tf32x3_dkdv"),
 }
 
 
@@ -509,7 +533,8 @@ _SASS = {}   # library path -> its cuobjdump -sass text, dumped once
 
 def sass_counts(lib: str, kernel: str, opcodes) -> dict:
     """Count each opcode in the SASS of every instance of ``kernel`` in
-    the built library (``cuobjdump -sass``, run once per library)."""
+    the built library (``cuobjdump -sass``, run once per library);
+    "HMMA_TF32" counts the lines that hold both HMMA and TF32."""
     if lib not in _SASS:
         from repro_torch.kernels import _build
         tool = Path(_build.nvcc_path()).parent / "cuobjdump"
@@ -521,7 +546,10 @@ def sass_counts(lib: str, kernel: str, opcodes) -> dict:
     for fn in _SASS[lib].split("Function : ")[1:]:
         name = fn.split("\n", 1)[0].strip()
         if kernel in name:
-            counts[name] = {op: fn.count(op) for op in opcodes}
+            counts[name] = {op: sum("HMMA" in ln and "TF32" in ln
+                                    for ln in fn.splitlines())
+                            if op == "HMMA_TF32" else fn.count(op)
+                            for op in opcodes}
     return counts
 
 
@@ -977,11 +1005,11 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
     gen.manual_seed(seed + 13)
     out = {"bwd_cases": []}
 
-    # 13a. the backward kernels at the zoo's attention shapes: bf16 on a
-    # wgmma route (up to hd 128, and the wide one above) with the
-    # forward's lse, timed against the CUDA-core kernel forced onto the
-    # same inputs in the order old, new, new, old; fp32 on the CUDA-core
-    # route
+    # 13a. the backward kernels at the zoo's attention shapes, each on its
+    # route with the forward's lse (bf16: a wgmma route, up to hd 128 and
+    # the wide one above; fp32: the split-TF32 one), timed against the
+    # CUDA-core kernel forced onto the same inputs in the order old, new,
+    # new, old
     def run_all(launches):
         return lambda: [launch() for _, launch in launches]
 
@@ -995,11 +1023,7 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
                        for s_ in ((B, T, H, hd), (B, T, KV, hd),
                                   (B, T, KV, hd)))
             kw = dict(causal=causal, window=win)
-            if route != "cuda_core":
-                o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True,
-                                                 **kw)
-            else:
-                o, lse = fa.flash_attention_cuda(q, k, v, **kw), None
+            o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
             do = torch.randn(o.shape, generator=gen, device=dev).to(dt)
             got, launches = fa.bwd_launches(q, k, v, o, do, lse=lse, **kw)
             run_all(launches)()
@@ -1016,27 +1040,44 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
                 abs_errs.append(d_)
                 errs.append(d_ / float(w_.float().abs().max()))
                 coss.append(_cosine(g_.flatten(), w_.flatten()))
-            if dt == torch.float32:
-                ok = max(errs) <= 1e-5
-            else:
-                ok = max(errs) <= 2.0 ** -7 and min(coss) >= 0.9999
-            check(ok, f"train: backward kernel ({route}) vs plain at "
+            gate = 1e-5 if dt == torch.float32 else 2.0 ** -7
+            check(max(errs) <= gate and min(coss) >= 0.9999,
+                  f"train: backward kernel ({route}) vs plain at "
                   f"{label} {dt}: max |d| / max |g| {errs}, cosine {coss}")
+            # the CUDA-core kernel forced onto the same inputs: its error
+            # beside the route's (in fp32 held to the same gate, and
+            # bitwise repeatable across the timing runs), then the A/B
+            g_old, old = fa.bwd_launches(q, k, v, o, do, route="cuda_core",
+                                         **kw)
+            run_all(old)()
+            sync()
+            old_abs = [float((g_.float() - w_.float()).abs().max())
+                       for g_, w_ in zip(g_old, want)]
+            ab = dict(old_max_abs_err=max(old_abs), old_max_rel_err=[
+                a_ / float(w_.float().abs().max())
+                for a_, w_ in zip(old_abs, want)])
+            if dt == torch.float32:
+                check(max(ab["old_max_rel_err"]) <= gate,
+                      f"train: backward kernel (cuda_core) vs plain at "
+                      f"{label} {dt}: max |d| / max |g| "
+                      f"{ab['old_max_rel_err']}")
+            first_old = [g_.clone() for g_ in g_old]
             del again, want
             reps = 3 if T * T * H >= 2 ** 28 else 10
             per = {n_: cuda_ms(l_, reps) for n_, l_ in launches}
-            ab = {}
-            if route != "cuda_core":
-                _, old = fa.bwd_launches(q, k, v, o, do, route="cuda_core",
-                                         **kw)
-                ab["old_ms"] = [cuda_ms(run_all(old), reps)]
-                ab["new_ms"] = [cuda_ms(run_all(launches), reps)
-                                for _ in range(2)]
-                ab["old_ms"].append(cuda_ms(run_all(old), reps))
-                ms = sum(ab["new_ms"]) / 2
-                del old
-            else:
-                ms = cuda_ms(run_all(launches), reps)
+            ab["old_ms"] = [cuda_ms(run_all(old), reps)]
+            ab["new_ms"] = [cuda_ms(run_all(launches), reps)
+                            for _ in range(2)]
+            ab["old_ms"].append(cuda_ms(run_all(old), reps))
+            ab["old_launch_ms"] = {n_: cuda_ms(l_, reps) for n_, l_ in old}
+            sync()
+            if dt == torch.float32:
+                check(all(bool(torch.equal(g_, f_))
+                          for g_, f_ in zip(g_old, first_old)),
+                      f"train: backward (cuda_core) at {label} {dt} "
+                      f"differs between runs")
+            ms = sum(ab["new_ms"]) / 2
+            del old, g_old, first_old
             plain_ms = cuda_ms(lambda: ref.flash_attention_bwd_ref(
                 q, k, v, o, do, **kw), 2)
             # SDPA's backward, its forward excluded: the window as a
@@ -1069,9 +1110,15 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
             del ot, qt, kt_, vt, dot, mask, g_lib, w_lib
             pairs, nbytes = _bwd_sizes(B, T, H, KV, hd, win, causal,
                                        q.element_size())
-            b_ms, b_by = bound(nbytes, 10 * hd * pairs,
-                               BF16_TENSOR_OPS_PER_S
-                               if dt == torch.bfloat16 else FP32_OPS_PER_S)
+            if dt == torch.bfloat16:
+                b_ms, b_by = bound(nbytes, 10 * hd * pairs,
+                                   BF16_TENSOR_OPS_PER_S)
+            else:
+                # the fp32 products as three TF32 products each, and (the
+                # old side's) at the fp32 FMA peak
+                b_ms, b_by = bound(nbytes, 3 * 10 * hd * pairs,
+                                   TF32_TENSOR_OPS_PER_S)
+                ab["fma_bound_ms"] = bound(nbytes, 10 * hd * pairs)[0]
             row = dict(case=label, shape=[B, T, H, KV, hd], window=win,
                        causal=causal, dtype=str(dt).replace("torch.", ""),
                        route=route, max_abs_err=max(abs_errs),
@@ -1085,7 +1132,9 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
             del q, k, v, o, lse, do, got, launches
             torch.cuda.empty_cache()
     # the wgmma backwards' SASS holds tensor-core products and TMA loads
-    # (each two kernels at two HDPs), and the wide one no spill
+    # (each two kernels at two HDPs), the split-TF32 one TF32 products
+    # (two kernels at three HDPs, each for hd = HDP and below it), and the
+    # wide and split-TF32 ones no spill
     from repro_torch.kernels import _build
     t_sass = time.perf_counter()
     for key_, frag_ in (("bwd_sass", "flash_bwd_wgmma"),
@@ -1098,9 +1147,19 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
                       for c_ in out[key_].values()),
               f"the {frag_} backward's SASS lacks HGMMA or UTMALDG: "
               f"{out[key_]}")
-    check(not any(c_["LDL"] or c_["STL"]
-                  for c_ in out["bwd_wide_sass"].values()),
-          f"the wide backward spills: {out['bwd_wide_sass']}")
+    out["bwd_tf32x3_sass"] = sass_counts(
+        _build.BUILD_INFO["path"], "flash_bwd_tf32x3",
+        ("HMMA_TF32", "LDL", "STL"))
+    log(f"[sass] flash_bwd_tf32x3 instances: "
+        f"{json.dumps(out['bwd_tf32x3_sass'])}")
+    check(len(out["bwd_tf32x3_sass"]) == 11
+          and all(c_["HMMA_TF32"] > 0
+                  for c_ in out["bwd_tf32x3_sass"].values()),
+          f"the split-TF32 backward's SASS lacks TF32 HMMA: "
+          f"{out['bwd_tf32x3_sass']}")
+    for key_ in ("bwd_wide_sass", "bwd_tf32x3_sass"):
+        check(not any(c_["LDL"] or c_["STL"] for c_ in out[key_].values()),
+              f"a backward spills: {out[key_]}")
     out["bwd_sass_s"] = time.perf_counter() - t_sass
     out["bwd_cases_s"] = time.perf_counter() - t0
     log(f"[time] 13a done in {out['bwd_cases_s']:.1f} s")
@@ -1287,6 +1346,74 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
                            min_leaf_grad_cosine=min(cos)),
         seconds=time.perf_counter() - t0)
     log(f"[train] {TRAIN_HD256_ARCH}: {json.dumps(out['hd256'])}")
+    del params, opt, model, met, batch, batch0
+    torch.cuda.empty_cache()
+
+    # 13e. fp32 training through the split-TF32 backward: TRAIN_ARCH at
+    # full width, TRAIN_FP32_LAYERS layers, fp32, one TRAIN_SEQ-token
+    # sequence a step; one step against backend="torch", then
+    # TRAIN_FP32_STEPS steps, the counts reset just before and read just
+    # after
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_FP32_LAYERS, dtype="float32")
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    opt = optimizer.init(params)
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1, n_domains=1,
+        seed=seed), device=dev)
+    step_fn = make_train_step(model, RunConfig(
+        lr=3e-5, warmup_steps=1, total_steps=TRAIN_FP32_STEPS))
+    batch0 = pipe.batch(0)
+    lk, _, gk = value_and_grad(model, params, batch0)
+    lt, _, gt = value_and_grad(model, params, batch0, {"backend": "torch"})
+    sync()
+    cos = [_cosine(a_.flatten(), b_.flatten())
+           for a_, b_ in zip(leaves(gk), leaves(gt))]
+    check(math.isfinite(float(lk)) and abs(float(lk) - float(lt)) <= 1e-3
+          and min(cos) >= 0.99999,
+          f"train: {TRAIN_ARCH} fp32 cuda vs torch: loss {float(lk)} vs "
+          f"{float(lt)}, least per-leaf gradient cosine {min(cos)}")
+    del gk, gt
+    torch.cuda.empty_cache()
+    step_fn(params, opt, batch0)          # warm: allocator
+    sync()
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for s_ in range(TRAIN_FP32_STEPS):
+        batch = pipe.batch(s_)
+        t1 = time.perf_counter()
+        params, opt, met = step_fn(params, opt, batch)
+        losses.append(float(met["loss"]))
+        times.append(time.perf_counter() - t1)
+    launches = ops.launch_counts()
+    check(all(math.isfinite(l_) for l_ in losses),
+          f"train: {TRAIN_ARCH} fp32 losses {losses}")
+    L = cfg.n_layers
+    # per step: the fp32 forward and its recomputation a layer (each
+    # saving the lse), then the split-TF32 backward's two launches a
+    # layer; none of the CUDA-core backward's
+    want = {"flash_attention": 2 * L * TRAIN_FP32_STEPS,
+            "flash_attention_bwd_tf32x3_dq": L * TRAIN_FP32_STEPS,
+            "flash_attention_bwd_tf32x3_dkdv": L * TRAIN_FP32_STEPS}
+    check(all(launches[n_] == c_ for n_, c_ in want.items())
+          and sum(launches.values()) == sum(want.values()),
+          f"train: {TRAIN_ARCH} fp32 launches {launches}, want {want}")
+    out["fp32"] = dict(
+        arch=TRAIN_ARCH, layers=L,
+        reduced={"n_layers": [get_config(TRAIN_ARCH).n_layers, L]},
+        params=sum(p_.numel() for p_ in leaves(params)), dtype="float32",
+        seq=TRAIN_SEQ, batch=1, steps=TRAIN_FP32_STEPS, losses=losses,
+        s_per_step=times,
+        s_per_step_median=float(sorted(times)[len(times) // 2]),
+        launches=launches,
+        launches_per_step={n_: c_ / TRAIN_FP32_STEPS for n_, c_ in
+                           launches.items() if c_},
+        cuda_vs_torch=dict(loss=[float(lk), float(lt)],
+                           min_leaf_grad_cosine=min(cos)),
+        seconds=time.perf_counter() - t0)
+    log(f"[train] {TRAIN_ARCH} fp32: {json.dumps(out['fp32'])}")
     del params, opt, model, met, batch, batch0
     torch.cuda.empty_cache()
     return out
@@ -3297,10 +3424,11 @@ def main() -> None:
     train_s = time.perf_counter() - t13
     log(f"[time] train phase done at {time.perf_counter() - t_start:.1f} s"
         f" ({train_s:.1f} s)")
-    # the three backward kernels' lines: each with its head case, its
+    # the four backward kernels' lines: each with its head case, its
     # cases in 13a, and its launches on the training path that takes it
     # (the wgmma one on 13b's granite-3-8b, the wide one on 13d's
-    # gemma3-4b; none takes the CUDA-core one, which runs fp32 only)
+    # gemma3-4b, the split-TF32 one on 13e's fp32 granite-3-8b; none takes
+    # the CUDA-core one, the A/B's old side, whose times are 13a's)
     def bwd_case(label, dtype):
         return next(c_ for c_ in train["bwd_cases"]
                     if c_["case"] == label and c_["dtype"] == dtype)
@@ -3313,9 +3441,18 @@ def main() -> None:
             ("flash_attention_bwd_wide",
              "flash_attention_bwd_wgmma_wide.cu", "wgmma_wide",
              bwd_case(BWD_CASES[1][0], "bfloat16"), train["hd256"]),
+            ("flash_attention_bwd_tf32x3", "flash_attention_bwd_tf32x3.cu",
+             "tf32x3", bwd_case(BWD_CASES[0][0], "float32"), train["fp32"]),
             ("flash_attention_bwd", "flash_attention_bwd.cu", "cuda_core",
              bwd_case(BWD_CASES[0][0], "float32"), no_path)):
         names = BWD_KERNELS[route]
+        if route == "cuda_core":
+            # the A/B's old side on the fp32 cases
+            head = dict(head, ms=sum(head["old_ms"]) / 2,
+                        launch_ms=head["old_launch_ms"],
+                        max_abs_err=head["old_max_abs_err"],
+                        max_rel_err=head["old_max_rel_err"],
+                        bound_ms=head["fma_bound_ms"], bound_by="operations")
         entries[kname] = dict(
             name=kname, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src_}",
@@ -3329,15 +3466,17 @@ def main() -> None:
             launch_ms=head["launch_ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"],
-            cases=[c_ for c_ in train["bwd_cases"] if c_["route"] == route],
+            cases=[c_ for c_ in train["bwd_cases"]
+                   if c_["route"] == route
+                   or (route == "cuda_core" and c_["dtype"] == "float32")],
             launches_by_kernel={n_: run["launches"].get(n_, 0)
                                 for n_ in names},
             launches_per_step={n_: run["launches_per_step"].get(n_, 0)
                                for n_ in names},
-            launches_on=run["arch"] or "no training path: fp32 only, "
-                                       "which no path trains in")
+            launches_on=run["arch"] or "no path: the A/B's old side only")
     entries["flash_attention_bwd_wgmma"]["sass"] = train["bwd_sass"]
     entries["flash_attention_bwd_wide"]["sass"] = train["bwd_wide_sass"]
+    entries["flash_attention_bwd_tf32x3"]["sass"] = train["bwd_tf32x3_sass"]
 
     dense_kernels = ("pearson", "minplus", "masked_argmax")
     train_launches = train["granite"]["launches"]

@@ -9,7 +9,10 @@
                     (csrc/sparse_relax.cu)
   * flash_attention.py -- causal / sliding-window GQA prefill attention:
                     bf16 on the tensor cores (csrc/flash_attention_wgmma.cu),
-                    fp32 on the CUDA cores (csrc/flash_attention.cu)
+                    fp32 on the CUDA cores (csrc/flash_attention.cu), and
+                    its backward: bf16 by wgmma
+                    (csrc/flash_attention_bwd_wgmma*.cu), fp32 by split
+                    TF32 mma.sync (csrc/flash_attention_bwd_tf32x3.cu)
 
 Each kernel is built from ``csrc/`` with nvcc at first use
 (``_build.py``) and has a plain version in ``ref.py``; ``ops.py``

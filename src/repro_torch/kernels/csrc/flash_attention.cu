@@ -1,7 +1,12 @@
 // Flash attention in fp32 for Hopper: causal or sliding-window GQA prefill
 // attention with an online softmax, on the CUDA cores.  The bf16 route is
 // csrc/flash_attention_wgmma.cu (the tensor cores); this kernel takes fp32
-// only, which the port keeps off the tensor cores (no TF32).
+// only, in fp32 on the CUDA cores (no TF32).  On request it also writes
+// each row's natural-log logsumexp of its scaled live scores (the lse that
+// the fp32 backward, csrc/flash_attention_bwd_tf32x3.cu, reads): (B, H,
+// lse_rows(Tq)) with lse_rows(Tq) = Tq rounded up to 64, +inf on a row
+// with no live key and on the padding rows; o is the same bit for bit
+// with and without it.
 //
 // Replaces: src/repro/kernels/flash_attention.py:flash_attention_pallas, the
 // Pallas TPU kernel that walks (bq, bk) score tiles with the running max,
@@ -79,6 +84,12 @@ constexpr int kWRows = 4 * kRQ;    // rows per warp
 constexpr int kBQ = kWRows * kWarps;   // rows per block
 constexpr int kStages = 3;         // K/V halves in the ring
 
+// the saved lse of a row whose online softmax ended at (m, l): +inf where
+// no key was live (m still kNeg) and on the padding rows at or past Tq
+__device__ __forceinline__ float row_lse(float m, float l, bool in_range) {
+  return in_range && m > kNeg ? m + logf(l) : __int_as_float(0x7f800000);
+}
+
 size_t smem_bytes(int hd) {
   return sizeof(float) * ((size_t)(kBQ + kStages * kBK) * (hd + 4) +
                           (size_t)kWarps * kWRows * kPStride);
@@ -129,9 +140,9 @@ __device__ __forceinline__ float row_sum(float x) {
 template <int NG>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int H, int KV,
-             int Tq, int Tk, int hd, int causal, int window, float scale,
-             int P) {
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int H, int KV, int Tq, int Tk, int hd,
+             int causal, int window, float scale, int P) {
   constexpr int RQ = kRQ;
   constexpr int BK = kBK;
   constexpr int STAGES = kStages;
@@ -315,6 +326,14 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
+  if (lse != nullptr && kg == 0) {
+    const int ldr = (Tq + 63) / 64 * 64;
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+      if (qpos[i] < ldr)
+        lse[((int64_t)b * H + h0 + lrow[i] / P) * ldr + qpos[i]] =
+            row_lse(m[i], l[i], qpos[i] < Tq);
+  }
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int pos = qpos[i];
@@ -334,9 +353,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int NG>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Tq, int Tk, int H, int KV, int hd, int causal, int window,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int Tq, int Tk, int H, int KV, int hd, int causal,
+           int window, float scale, cudaStream_t stream) {
   // two heads of a group per block where the group size allows
   const int P = (H / KV) % 2 == 0 ? kBQ / 2 : kBQ;
   const size_t smem = smem_bytes(hd);
@@ -346,8 +365,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H / (kBQ / P), (Tq + P - 1) / P);
   flash_kernel<NG><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, H, KV, Tq,
-      Tk, hd, causal, window, scale, P);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o,
+      (float*)lse, H, KV, Tq, Tk, hd, causal, window, scale, P);
   return (int)cudaGetLastError();
 }
 
@@ -400,9 +419,9 @@ __device__ __forceinline__ float group_sum(float x) {
 template <int NG>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel_wide(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int H,
-                  int KV, int Tq, int Tk, int hd, int causal, int window,
-                  float scale) {
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int H, int KV, int Tq, int Tk,
+                  int hd, int causal, int window, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int stride = hd + 4;
@@ -536,6 +555,14 @@ flash_kernel_wide(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
+  if (lse != nullptr && tx == 0) {
+    const int ldr = (Tq + 63) / 64 * 64;   // 64-row tiles: every row < ldr
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = q_lo + ty + 16 * i;
+      lse[(int64_t)bh * ldr + t] = row_lse(m[i], l[i], t < Tq);
+    }
+  }
   const int64_t o_row0 = (int64_t)b * Tq * H + h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -555,9 +582,9 @@ flash_kernel_wide(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int NG>
-int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
-                int Tq, int Tk, int H, int KV, int hd, int causal, int window,
-                float scale, cudaStream_t stream) {
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, int Tq, int Tk, int H, int KV, int hd,
+                int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)(kWideRows + kBK) * (hd + 4) +
                                        kWideRows * kWidePStride);
   cudaError_t err = cudaFuncSetAttribute(
@@ -566,8 +593,8 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (Tq + kWideRows - 1) / kWideRows);
   flash_kernel_wide<NG><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, H, KV, Tq,
-      Tk, hd, causal, window, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o,
+      (float*)lse, H, KV, Tq, Tk, hd, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -577,26 +604,28 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
 // contiguous and 16-byte aligned; hd a multiple of 8 up to 256; H a
 // multiple of KV; B * H and the query tiles within the grid's limits
 // (checked by the wrapper, whose plan() repeats the tiling chosen here).
+// lse: 0, or (B, H, lse_rows(Tq)) fp32 for each row's logsumexp.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int B, int Tq,
-                                     int Tk, int H, int KV, int hd, int causal,
-                                     int window, float scale, void* stream) {
+                                     const void* v, void* o, void* lse,
+                                     int B, int Tq, int Tk, int H, int KV,
+                                     int hd, int causal, int window,
+                                     float scale, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
       hd <= 0 || hd > 256 || hd % 8 != 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (hd <= 32)
-    return launch<1>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window, scale,
-                     s);
+    return launch<1>(q, k, v, o, lse, B, Tq, Tk, H, KV, hd, causal, window,
+                     scale, s);
   if (hd <= 64)
-    return launch<2>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window, scale,
-                     s);
+    return launch<2>(q, k, v, o, lse, B, Tq, Tk, H, KV, hd, causal, window,
+                     scale, s);
   if (hd <= 128)
-    return launch<4>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window, scale,
-                     s);
+    return launch<4>(q, k, v, o, lse, B, Tq, Tk, H, KV, hd, causal, window,
+                     scale, s);
   if (hd <= 192)
-    return launch_wide<3>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
-                          scale, s);
-  return launch_wide<4>(q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window,
+    return launch_wide<3>(q, k, v, o, lse, B, Tq, Tk, H, KV, hd, causal,
+                          window, scale, s);
+  return launch_wide<4>(q, k, v, o, lse, B, Tq, Tk, H, KV, hd, causal, window,
                         scale, s);
 }

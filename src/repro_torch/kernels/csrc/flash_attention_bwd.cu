@@ -1,11 +1,11 @@
 // The backward of the port's flash attention on Hopper: dQ, dK and dV of
 // causal, sliding-window or bidirectional GQA attention, in fp32 on the
-// CUDA cores.  It is the route of fp32 inputs, and of bf16 inputs above
-// hd 128 (hd 256: gemma3-4b); bf16 up to hd 128 takes the tensor-core
-// kernels of csrc/flash_attention_bwd_wgmma.cu, whose dK and dV
-// accumulators of 64 keys fit a warpgroup's registers only up to hd 128
-// (kernels/flash_attention.py:bwd_route).  It still takes bf16 at any hd,
-// for an A/B against the wgmma kernels on the card.
+// CUDA cores.  It is no route: bf16 takes the tensor-core kernels of
+// csrc/flash_attention_bwd_wgmma.cu and csrc/flash_attention_bwd_wgmma_wide.cu,
+// fp32 those of csrc/flash_attention_bwd_tf32x3.cu
+// (kernels/flash_attention.py:bwd_route).  It runs only when forced
+// (bwd_launches(..., route="cuda_core")), at either dtype and any hd, as
+// the old side of an A/B against them on the card.
 //
 // Replaces no TPU kernel: the Pallas kernel it differentiates
 // (src/repro/kernels/flash_attention.py:flash_attention_pallas) is
@@ -30,9 +30,8 @@
 //   (a) rows: one block per (b, h, 64-query tile).  It recomputes each
 //       row's max m and sum l over its live keys, walking the key tiles
 //       the forward's relevance test keeps, and writes lse = m + log l
-//       (B, H, Tq) fp32, and D (B, H, Tq) fp32.  The fp32 forward and the
-//       bf16 forward above hd 128 save no lse, so this route keeps the
-//       launch.
+//       (B, H, Tq) fp32, and D (B, H, Tq) fp32 (PR 24's design, kept as
+//       it was: it takes no saved lse).
 //   (b) dK, dV: one block per (b, KV head, key tile).  It loops over the
 //       G heads of the group and the query tiles that can see the tile
 //       (the causal lower bound, the window's upper bound), recomputes
@@ -49,10 +48,7 @@
 // flops a pair (the scores three times, dO V^T twice) on the CUDA cores,
 // with every operand read from shared memory by scalar loads (a 4 x 4
 // score tile per thread: one load per two FMAs), so it sits far from the
-// bf16 tensor-core bound; on its own routes it stands against the fp32
-// peak (no TF32 in the port) and, at hd 256, against a bf16 bound that a
-// tensor-core design with another register split would have to reach
-// (ROADMAP Queue 2 B).
+// bf16 tensor-core bound, and against the fp32 FMA peak.
 //
 // Tiles: 64 queries; 64 keys up to hd 128 and 32 keys above (the four
 // operand tiles of (b) fit 227 KB of shared memory at hd 256).  Rows of

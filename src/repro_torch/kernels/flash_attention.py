@@ -11,7 +11,10 @@ The route is chosen by dtype alone, with no fallback between them:
   * bfloat16 -> ``csrc/flash_attention_wgmma.cu``: TMA-fed K/V tiles and
     QK^T and PV on the bf16 tensor cores (``wgmma``);
   * float32  -> ``csrc/flash_attention.cu``: fp32 FMAs on the CUDA cores
-    (the port keeps fp32 off the tensor cores: no TF32).
+    (no TF32).
+
+Each forward writes, on request (``return_lse=True``), each row's lse
+beside its output for the backward.
 
 The backward is routed by dtype and head dim (:func:`bwd_route`), again
 with no fallback between its routes:
@@ -24,9 +27,14 @@ with no fallback between its routes:
     ("wgmma_wide"): the same two launches and lse, laid out for the wide
     heads (dq with one V stage beside two K stages; dkdv items of 64
     keys whose two warpgroups hold dV and dK);
-  * float32 -> ``csrc/flash_attention_bwd.cu`` ("cuda_core"): three
-    launches computing in fp32 on the CUDA cores (each row's lse and D,
-    then dK and dV per key tile, then dQ per query tile).
+  * float32 -> ``csrc/flash_attention_bwd_tf32x3.cu`` ("tf32x3"): the
+    same two launches on the lse that the fp32 forward saved, every
+    product on the tensor cores in split TF32 (mma.sync: each fp32 operand
+    as two TF32 halves, three products, about 22 bits; no single-pass
+    TF32 anywhere);
+  * "cuda_core" -> ``csrc/flash_attention_bwd.cu``, only when forced
+    (the A/B's old side): three launches in fp32 on the CUDA cores (each
+    row's lse and D, then dK and dV per key tile, then dQ per query tile).
 
 :func:`flash_attention_bwd_cuda` runs a route's launches and
 ``ops.flash_attention`` binds forward and backward to autograd.
@@ -40,8 +48,11 @@ launch order and :func:`key_tiles` its tile-relevance test;
 against the Pallas kernel on the CPU.  :func:`flash_wgmma_lse_ref` and
 :func:`flash_bwd_wgmma_plan_ref` are the twins of the lse the bf16
 forward saves and of the bf16 backward's schedule, and
-:func:`flash_bwd_wide_plan_ref` that of the backward above hd 128, held
-against the oracle and JAX on the CPU.  GQA reads KV head ``h // G``
+:func:`flash_bwd_wide_plan_ref` that of the backward above hd 128;
+:func:`flash_lse_ref` and :func:`flash_bwd_tf32x3_plan_ref` those of the
+lse the fp32 forward saves and of the fp32 backward's schedule, with
+:func:`tf32_split` the kernel's TF32 halves; all held against the oracle
+and JAX on the CPU.  GQA reads KV head ``h // G``
 through the (B, T, KV, hd) strides of k and v: no copy and no repeat
 over the group.
 The fp32 scores are multiplied by ``scale`` (default ``1 / sqrt(hd)``,
@@ -60,9 +71,9 @@ import torch
 from . import _build
 from ._checks import require_cuda, require_int32_range, stream_of
 
-# (q, k, v, o, B, Tq, Tk, H, KV, hd, causal, window, scale, stream); the
-# wgmma kernel takes the lse pointer (0: none) after o
-KERNEL = _build.Kernel("repro_flash_attention", "ppppiiiiiiiif")
+# (q, k, v, o, lse, B, Tq, Tk, H, KV, hd, causal, window, scale, stream),
+# both kernels: the lse pointer 0 for none
+KERNEL = _build.Kernel("repro_flash_attention", "pppppiiiiiiiif")
 KERNEL_WGMMA = _build.Kernel("repro_flash_attention_wgmma", "pppppiiiiiiiif")
 # the backward's three launches (csrc/flash_attention_bwd.cu), each with
 # its pointers, then (B, Tq, Tk, H, KV, hd, causal, window, scale, bf16)
@@ -84,6 +95,16 @@ KERNEL_BWD_WIDE_DQ = _build.Kernel("repro_flash_attention_bwd_wide_dq",
                                    "ppppppppiiiiiiiif")
 KERNEL_BWD_WIDE_DKDV = _build.Kernel("repro_flash_attention_bwd_wide_dkdv",
                                      "ppppppppiiiiiiiif")
+# the fp32 backward (csrc/flash_attention_bwd_tf32x3.cu): the same two
+# launches and arguments
+KERNEL_BWD_TF32X3_DQ = _build.Kernel("repro_flash_attention_bwd_tf32x3_dq",
+                                     "ppppppppiiiiiiiif")
+KERNEL_BWD_TF32X3_DKDV = _build.Kernel(
+    "repro_flash_attention_bwd_tf32x3_dkdv", "ppppppppiiiiiiiif")
+# each two-launch backward route's (dq, dkdv) kernels
+BWD_KERNELS = {"wgmma": (KERNEL_BWD_WGMMA_DQ, KERNEL_BWD_WGMMA_DKDV),
+               "wgmma_wide": (KERNEL_BWD_WIDE_DQ, KERNEL_BWD_WIDE_DKDV),
+               "tf32x3": (KERNEL_BWD_TF32X3_DQ, KERNEL_BWD_TF32X3_DKDV)}
 
 ROUTES = {torch.float32: KERNEL, torch.bfloat16: KERNEL_WGMMA}
 MAX_HEAD_DIM = 256
@@ -111,6 +132,12 @@ BWD_WIDE_QUERIES = 64
 # the bf16 forward's tiles (csrc/flash_attention_wgmma.cu): 128 query
 # rows per item, 128 keys per tile up to hd 128 and 64 above
 WGMMA_QUERIES = 128
+# the fp32 backward (csrc/flash_attention_bwd_tf32x3.cu): rows of a work
+# item (queries of dq, keys of dkdv) and of each streamed tile, up to
+# TF32X3_WIDE_HEAD_DIM and above it
+TF32X3_ROWS = 64
+TF32X3_WIDE_ROWS = 32
+TF32X3_WIDE_HEAD_DIM = 128
 
 
 class FlashPlan(NamedTuple):
@@ -185,6 +212,14 @@ def flash_plan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc / max(l, 1e-30).  ``positions``, ``heads`` and ``keys`` default
     to the kernel's plan and may be set smaller to walk many tiles at a
     small shape."""
+    return _flash_plan(q, k, v, causal=causal, window=window, scale=scale,
+                       positions=positions, heads=heads, keys=keys)[0]
+
+
+def _flash_plan(q, k, v, *, causal, window, scale, positions=None,
+                heads=None, keys=None):
+    """:func:`flash_plan_ref`'s walk: (out in q's dtype, the lse the
+    kernel saves, (B, H, lse_rows(Tq)) fp32)."""
     B, Tq, H, hd = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     pl = plan(B, Tq, H, KV, hd)
@@ -205,6 +240,7 @@ def flash_plan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vp = torch.zeros_like(kp)
     kp[:, :Tk], vp[:, :Tk] = k.float(), v.float()
     out = torch.empty((B, Tq, H, hd), dtype=torch.float32, device=q.device)
+    lse = torch.full((B, H, lse_rows(Tq)), float("inf"), device=q.device)
     for b, h0, q_lo in blocks(B, Tq, H, KV, positions, heads):
         kvh = h0 // G
         qi = torch.arange(q_lo, q_lo + positions, device=q.device)
@@ -234,7 +270,10 @@ def flash_plan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         n_pos = min(positions, Tq - q_lo)
         out[b, q_lo:q_lo + n_pos, h0:h0 + heads] = \
             o.transpose(0, 1)[:n_pos]
-    return out.to(q.dtype)
+        row = torch.where(m > NEG, m + torch.log(l), float("inf"))
+        lse[b, h0:h0 + heads, q_lo:q_lo + n_pos] = \
+            row.reshape(heads, positions)[:, :n_pos]
+    return out.to(q.dtype), lse
 
 
 def kernel_for(dtype: torch.dtype) -> _build.Kernel:
@@ -282,14 +321,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention of q (B, Tq, H, hd) over k, v (B, Tk, KV, hd), causal
     and/or within a sliding window (0 = none), float32 or bfloat16, the
     scores times ``scale`` (None: 1 / sqrt(hd)); returns (B, Tq, H, hd)
-    in q's dtype.  ``return_lse`` (bfloat16 only, for the backward):
-    returns (o, lse) with lse (B, H, lse_rows(Tq)) fp32, each row's
-    natural-log logsumexp of its scaled scores over its live keys (+inf
-    for a row with none, and on the padding rows); o is the same bit for
-    bit as without it."""
+    in q's dtype.  ``return_lse`` (for the backward): returns (o, lse)
+    with lse (B, H, lse_rows(Tq)) fp32, each row's natural-log
+    logsumexp of its scaled scores over its live keys (+inf for a row
+    with none, and on the padding rows); o is the same bit for bit as
+    without it."""
     kernel = kernel_for(q.dtype)
-    if return_lse and kernel is not KERNEL_WGMMA:
-        raise ValueError("only the bf16 (wgmma) kernel saves the lse")
     for name, t in (("q", q), ("k", k), ("v", v)):
         require_cuda(name, t, q.dtype, 4)
         if t.data_ptr() % 16:
@@ -308,8 +345,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if return_lse:
         lse = torch.empty((B, H, lse_rows(Tq)), dtype=torch.float32,
                           device=q.device)
-    if kernel is KERNEL_WGMMA:
-        ptrs.append(0 if lse is None else lse.data_ptr())
+    ptrs.append(0 if lse is None else lse.data_ptr())
     with torch.cuda.device(q.device):
         kernel.launch(*ptrs, B, Tq, Tk, H, KV, hd, int(bool(causal)),
                       int(window),
@@ -322,11 +358,13 @@ def bwd_route(dtype: torch.dtype, hd: int) -> str:
     """The backward that takes inputs of ``dtype`` at head dim ``hd``:
     "wgmma" (``flash_attention_bwd_wgmma.cu``) for bfloat16 up to hd 128,
     "wgmma_wide" (``flash_attention_bwd_wgmma_wide.cu``) for bfloat16
-    above it, "cuda_core" (``flash_attention_bwd.cu``) for float32."""
+    above it, "tf32x3" (``flash_attention_bwd_tf32x3.cu``) for float32 at
+    every hd.  The CUDA-core backward ("cuda_core") is no route: it runs
+    only when :func:`bwd_launches` is asked for it."""
     if dtype not in ROUTES:
         raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
     if dtype == torch.float32:
-        return "cuda_core"
+        return "tf32x3"
     return "wgmma" if hd <= BWD_WGMMA_MAX_HEAD_DIM else "wgmma_wide"
 
 
@@ -340,8 +378,8 @@ def bwd_launches(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     current stream.  ``route`` None takes :func:`bwd_route`'s;
     "cuda_core" forces the CUDA-core backward at any dtype and head dim (for an
     A/B on the card).  On the "cuda_core" route: rows (lse and D into
-    fp32 scratch), dkdv, dq.  On the "wgmma" and "wgmma_wide" routes: dq
-    (which writes D) and dkdv, reading ``lse`` as
+    fp32 scratch), dkdv, dq.  On the "wgmma", "wgmma_wide" and "tf32x3"
+    routes: dq (which writes D) and dkdv, reading ``lse`` as
     ``flash_attention_cuda(..., return_lse=True)`` gave it; where ``lse``
     is None, a first launch ("lse") runs that forward into scratch for
     it.  Raises on inputs the kernels do not take."""
@@ -360,7 +398,7 @@ def bwd_launches(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route != "cuda_core" and route != bwd_route(q.dtype, hd):
         raise ValueError(f"no {route!r} backward for {q.dtype} at hd {hd}")
     if lse is not None and route == "cuda_core":
-        raise ValueError("the lse is taken by the wgmma backwards only")
+        raise ValueError("the CUDA-core backward computes its own lse")
     sizes = (B, Tq, Tk, H, KV, hd, int(bool(causal)), int(window),
              1.0 / math.sqrt(hd) if scale is None else float(scale))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -390,11 +428,14 @@ def bwd_launches(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    if route == "tf32x3" and -(-max(Tq, Tk) // TF32X3_WIDE_ROWS) > MAX_Q_TILES:
+        raise ValueError(f"T={max(Tq, Tk)} needs more than {MAX_Q_TILES} "
+                         f"tiles")
     rows = (B, H, lse_rows(Tq))
     launches = []
     if lse is None:
         lse = torch.empty(rows, **f32)
-        launches.append(("lse", launcher(KERNEL_WGMMA, q, k, v,
+        launches.append(("lse", launcher(kernel_for(q.dtype), q, k, v,
                                          torch.empty_like(q), lse, *sizes)))
     elif (lse.dtype != torch.float32 or tuple(lse.shape) != rows
           or lse.device != q.device or not lse.is_contiguous()
@@ -403,9 +444,7 @@ def bwd_launches(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"float32 {rows} on {q.device}, got {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}")
     D = torch.empty(rows, **f32)
-    k_dq, k_dkdv = ((KERNEL_BWD_WGMMA_DQ, KERNEL_BWD_WGMMA_DKDV)
-                    if route == "wgmma"
-                    else (KERNEL_BWD_WIDE_DQ, KERNEL_BWD_WIDE_DKDV))
+    k_dq, k_dkdv = BWD_KERNELS[route]
     return (dq, dk, dv), launches + [
         ("dq", launcher(k_dq, q, k, v, o, do, lse, D, dq, *sizes)),
         ("dkdv", launcher(k_dkdv, q, k, v, do, lse, D, dk, dv, *sizes))]
@@ -421,7 +460,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     was ``o``, given the output's gradient ``do``: q, o, do (B, Tq, H,
     hd) and k, v (B, Tk, KV, hd), all float32 or all bfloat16, on the
     card.  The launches of :func:`bwd_launches` on the current stream
-    (``lse``: the bf16 forward's, on the bf16 routes); the gradients
+    (``lse``: the forward's, from ``return_lse=True``); the gradients
     come back in the inputs' dtype.  The plain twin is
     ``ref.flash_attention_bwd_ref``."""
     grads, launches = bwd_launches(q, k, v, o, do, causal=causal,
@@ -632,3 +671,139 @@ def _bwd_plan_ref(q, k, v, o, do, *, causal, window, scale, lse, keys,
                         _bf16(ds).T @ qp[b, t0:t0 + queries, h]
     return ((dq[:, :Tq] * mul).to(q.dtype), (dk[:, :Tk] * mul).to(k.dtype),
             dv[:, :Tk].to(v.dtype))
+
+
+# ---- plain twins of the fp32 kernels (CPU tests) ------------------------------
+
+def flash_lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                  window: int = 0,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """The plain twin of the lse the fp32 forward saves: each block of
+    :func:`blocks` walks its key tiles as :func:`flash_plan_ref` does (q
+    times scale, scores masked to NEG, the running max m and sum l of
+    exp(s - m)); lse = m + log l, +inf where m stayed NEG (no live key)
+    and on the padding rows.  Returns (B, H, lse_rows(Tq)) fp32."""
+    return _flash_plan(q, k, k, causal=causal, window=window,
+                       scale=scale)[1]
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: x (fp32) rounded to 10 mantissa bits, to
+    nearest with ties away from zero, through int32 bit operations (the
+    low 13 bits of the magnitude rounded and cleared), kept in fp32."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64)
+    bits = ((bits & 0xFFFFFFFF) + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 backward's split of an operand into TF32 halves: hi =
+    rna(x), lo = rna(x - hi) (x - hi is exact in fp32), so that
+    |x - hi - lo| <= 2^-22 |x|."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def tf32x3_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the fp32 backward's tensor-core products form it: lo(a)
+    hi(b) + hi(a) lo(b) + hi(a) hi(b), each in fp32 (lo lo dropped)."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def tf32x3_rows(hd: int) -> int:
+    """Rows of a work item and of a streamed tile of the fp32 backward."""
+    return TF32X3_ROWS if hd <= TF32X3_WIDE_HEAD_DIM else TF32X3_WIDE_ROWS
+
+
+def flash_bwd_tf32x3_plan_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, *, causal: bool = True,
+                              window: int = 0,
+                              scale: Optional[float] = None,
+                              lse: Optional[torch.Tensor] = None,
+                              rows: Optional[int] = None):
+    """The plain twin of the fp32 backward's schedule
+    (``csrc/flash_attention_bwd_tf32x3.cu``), every product through
+    :func:`tf32x3_mm`: (a) dq over (b, h, query tile) items, heaviest
+    causal tile first, walking the key tiles ``key_tiles`` keeps
+    (skipping a tile with no live pair): S = Q K^T, P = 2^(S scale
+    log2 e - lse log2 e) on live pairs, dP = dO V^T, dS = P (dP - D)
+    with D = rowsum(dO o), dQ += dS K; (b) dkdv over (b, KV head, key
+    tile) items, walking the G heads and the query tiles that can see
+    the item: S^T = K Q^T and P^T, dP^T = V dO^T, dS^T = P^T (dP^T - D),
+    dV += P^T dO and dK += dS^T Q.  ``lse`` defaults to
+    :func:`flash_lse_ref`'s.  Returns (dq, dk, dv) in fp32.  ``rows``
+    (the items' and tiles' rows) defaults to the kernel's
+    (:func:`tf32x3_rows`) and may be set smaller to walk many tiles at a
+    small shape."""
+    B, Tq, H, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    R = rows or tf32x3_rows(hd)
+    mul = 1.0 / math.sqrt(hd) if scale is None else scale
+    log2e = math.log2(math.e)
+    if lse is None:
+        lse = flash_lse_ref(q, k, causal=causal, window=window, scale=scale)
+    nq, nk = -(-Tq // R), -(-Tk // R)
+    ldr = lse.shape[2]
+    lse2 = torch.full((B, H, nq * R), float("inf"))
+    lse2[..., :min(ldr, nq * R)] = lse[..., :nq * R].float()
+    lse2 = lse2 * log2e
+    qp, dop, op = (_padded(x, nq * R) for x in (q, do, o))
+    kp, vp = _padded(k, nk * R), _padded(v, nk * R)
+    live = functools.partial(_live, Tq=Tq, Tk=Tk, causal=causal,
+                             window=window)
+    D = (dop * op).sum(-1)                             # (B, T, H)
+    sl = torch.tensor(mul * log2e, dtype=torch.float32)
+
+    def p_tile(s, t0, j0, b, h):
+        """P of queries [t0, t0 + R) (rows of s) and keys [j0, j0 + R)."""
+        m = lse2[b, h, t0:t0 + R][:, None]
+        return torch.where(live(t0, R, j0, R), torch.exp2(s * sl - m), 0.0)
+
+    # (a) dq
+    dq = torch.zeros((B, nq * R, H, hd))
+    for i in range(nq):
+        q_lo = (nq - 1 - i) * R
+        for b in range(B):
+            for h in range(H):
+                lo, hi = key_tiles(q_lo, R, Tk, causal, window, R)
+                for kt in range(lo, hi):
+                    j0 = kt * R
+                    if not bool(live(q_lo, R, j0, R).any()):
+                        continue
+                    kt_ = kp[b, j0:j0 + R, h // G]
+                    s = tf32x3_mm(qp[b, q_lo:q_lo + R, h], kt_.T)
+                    p = p_tile(s, q_lo, j0, b, h)
+                    dp = tf32x3_mm(dop[b, q_lo:q_lo + R, h],
+                                   vp[b, j0:j0 + R, h // G].T)
+                    ds = p * (dp - D[b, q_lo:q_lo + R, h][:, None])
+                    dq[b, q_lo:q_lo + R, h] += tf32x3_mm(ds, kt_)
+    # (b) dkdv
+    dk = torch.zeros((B, nk * R, KV, hd))
+    dv = torch.zeros_like(dk)
+    for kt in range(nk):
+        k_lo = kt * R
+        t_lo = k_lo if causal else 0
+        t_hi = min(Tq, k_lo + R - 1 + window) if window > 0 else Tq
+        tiles = range(t_lo // R, -(-t_hi // R)) if t_lo < t_hi else range(0)
+        for b in range(B):
+            for kvh in range(KV):
+                kk = kp[b, k_lo:k_lo + R, kvh]
+                vv = vp[b, k_lo:k_lo + R, kvh]
+                for h in range(kvh * G, (kvh + 1) * G):
+                    for qt in tiles:
+                        t0 = qt * R
+                        if not bool(live(t0, R, k_lo, R).any()):
+                            continue
+                        qq, dd = qp[b, t0:t0 + R, h], dop[b, t0:t0 + R, h]
+                        pt = p_tile(tf32x3_mm(kk, qq.T).T, t0, k_lo, b,
+                                    h).T
+                        dpt = tf32x3_mm(vv, dd.T)
+                        dst = pt * (dpt - D[b, t0:t0 + R, h][None, :])
+                        dv[b, k_lo:k_lo + R, kvh] += tf32x3_mm(pt, dd)
+                        dk[b, k_lo:k_lo + R, kvh] += tf32x3_mm(dst, qq)
+    return dq[:, :Tq] * mul, dk[:, :Tk] * mul, dv[:, :Tk]

@@ -42,6 +42,8 @@ KERNELS = {
     "flash_attention_bwd_wgmma_dkdv": flash_mod.KERNEL_BWD_WGMMA_DKDV,
     "flash_attention_bwd_wide_dq": flash_mod.KERNEL_BWD_WIDE_DQ,
     "flash_attention_bwd_wide_dkdv": flash_mod.KERNEL_BWD_WIDE_DKDV,
+    "flash_attention_bwd_tf32x3_dq": flash_mod.KERNEL_BWD_TF32X3_DQ,
+    "flash_attention_bwd_tf32x3_dkdv": flash_mod.KERNEL_BWD_TF32X3_DKDV,
 }
 
 
@@ -130,20 +132,16 @@ class FlashAttentionFn(torch.autograd.Function):
     """The flash kernels as one differentiable function: the forward is
     ``flash_attention_cuda`` (by dtype), the backward the hand-written
     ``flash_attention_bwd_cuda`` (by dtype and head dim,
-    ``flash_attention.bwd_route``); q, k, v and the output are saved, and
-    on the bf16 routes ("wgmma" up to hd 128, "wgmma_wide" above) the
-    lse that the forward kernel wrote beside the output.  A failed launch
+    ``flash_attention.bwd_route``: "wgmma" and "wgmma_wide" for bf16,
+    "tf32x3" for fp32); q, k, v and the output are saved, with the lse
+    that the forward kernel wrote beside the output.  A failed launch
     raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
         kw = dict(causal=causal, window=window, scale=scale)
-        lse = None
-        if flash_mod.bwd_route(q.dtype, q.shape[-1]) != "cuda_core":
-            o, lse = flash_mod.flash_attention_cuda(q, k, v, return_lse=True,
-                                                    **kw)
-        else:
-            o = flash_mod.flash_attention_cuda(q, k, v, **kw)
+        o, lse = flash_mod.flash_attention_cuda(q, k, v, return_lse=True,
+                                                **kw)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.attn = kw
         return o
@@ -151,9 +149,8 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        kw = dict(ctx.attn) if lse is None else dict(ctx.attn, lse=lse)
         dq, dk, dv = flash_mod.flash_attention_bwd_cuda(
-            q, k, v, o, do.contiguous(), **kw)
+            q, k, v, o, do.contiguous(), lse=lse, **ctx.attn)
         return dq, dk, dv, None, None, None
 
 
@@ -168,7 +165,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     goes to the wgmma kernel and float32 to the CUDA-core one; where
     autograd records and q, k or v needs a gradient, through
     :class:`FlashAttentionFn`, whose backward is a backward kernel (for
-    bfloat16 a wgmma one, the CUDA-core one for float32).
+    bfloat16 a wgmma one, for float32 the split-TF32 one).
     The plain version is differentiated by autograd itself."""
     if use_kernel(q, backend):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

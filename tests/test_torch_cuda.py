@@ -19,10 +19,10 @@ softmax) and, in bf16 (the wgmma kernel), within one bf16 ulp of the
 plain output's largest magnitude (both round nearly equal fp32 values to
 bf16 once; the kernel also rounds P to bf16 before the PV product); the
 flash backward within 1e-5 (fp32) and 2^-7 (bf16) of each gradient's
-largest magnitude, and bitwise repeatable; the bf16 forward's output
-bitwise the same with its lse output on and off, and that lse within
-1e-5 * max(1, |lse|) of the plain masked logsumexp (fp32 online sums in
-log2 units).
+largest magnitude, and bitwise repeatable; the bf16 and fp32 forwards'
+outputs bitwise the same with their lse output on and off, and that
+lse within 1e-5 * max(1, |lse|) of the plain masked logsumexp (fp32
+online sums).
 """
 
 import numpy as np
@@ -599,7 +599,8 @@ def test_cuda_flash_backward_matches_plain(cuda, B, T, H, KV, hd, causal,
     """The backward kernels against the plain backward on the same
     inputs, each launch counted once on its route (bf16: the bf16
     forward for the lse, then the wgmma dq and dkdv, the wide ones above
-    hd 128; fp32: the CUDA-core rows, dkdv and dq): fp32 within 1e-5 of each gradient's
+    hd 128; fp32: the fp32 forward for the lse, then the split-TF32 dq
+    and dkdv): fp32 within 1e-5 of each gradient's
     largest magnitude (another summation order), bf16 within 2^-7 of it
     (the gradients are rounded to bf16 once, from fp32 sums; the wgmma
     route also rounds P and dS to bf16); a second run bitwise the first
@@ -617,14 +618,11 @@ def test_cuda_flash_backward_matches_plain(cuda, B, T, H, KV, hd, causal,
     got = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
                                    window=window)
     counts = ops.launch_counts()
-    if bwd_route(dt, hd) != "cuda_core":
-        pre = "wgmma" if bwd_route(dt, hd) == "wgmma" else "wide"
-        want_counts = {"flash_attention_wgmma": 1,
-                       f"flash_attention_bwd_{pre}_dq": 1,
-                       f"flash_attention_bwd_{pre}_dkdv": 1}
-    else:
-        want_counts = {f"flash_attention_bwd_{x}": 1
-                       for x in ("rows", "dkdv", "dq")}
+    pre = {"wgmma": "wgmma", "wgmma_wide": "wide",
+           "tf32x3": "tf32x3"}[bwd_route(dt, hd)]
+    want_counts = {_FLASH_ROUTE[dtype]: 1,
+                   f"flash_attention_bwd_{pre}_dq": 1,
+                   f"flash_attention_bwd_{pre}_dkdv": 1}
     assert counts == {**{n: 0 for n in counts}, **want_counts}, counts
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                        window=window)
@@ -641,6 +639,49 @@ def test_cuda_flash_backward_matches_plain(cuda, B, T, H, KV, hd, causal,
         assert torch.equal(g, a) and torch.equal(g, b)
         err = float((g.float() - w.float()).abs().max())
         assert err <= rel * float(w.float().abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,KV,hd,causal,window", [
+    (1, 200, 8, 2, 64, True, 70),       # GQA 4, window, ragged tiles
+    (2, 130, 4, 4, 80, False, 0),       # MHA, bidirectional, hd 80
+    (1, 150, 4, 1, 256, True, 0),       # MQA at hd 256 (32-key tiles)
+    (1, 100, 6, 2, 128, True, 30),      # G = 3, a window under a tile
+    (1, 512, 32, 8, 128, True, 0),      # granite-3-8b's heads and hd
+])
+def test_cuda_flash_backward_cuda_core_matches_plain(cuda, B, T, H, KV, hd,
+                                                     causal, window):
+    """The CUDA-core backward (csrc/flash_attention_bwd.cu), on no route
+    and run only when forced (``route="cuda_core"``, the old side of the
+    A/B on the card), in fp32 against the plain backward on the same
+    inputs: within 1e-5 of each gradient's largest magnitude; its three
+    launches (rows, dkdv, dq) counted once each; a second run bitwise the
+    first."""
+    from repro_torch.kernels.flash_attention import bwd_launches
+    rng = _rng(T + hd + H)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   .to(cuda) for s in ((B, T, H, hd), (B, T, KV, hd),
+                                       (B, T, KV, hd), (B, T, H, hd)))
+    kw = dict(causal=causal, window=window)
+    o = ops.flash_attention(q, k, v, **kw)
+    runs = []
+    for _ in range(2):
+        ops.reset_launch_counts()
+        got, launches = bwd_launches(q, k, v, o, do, route="cuda_core", **kw)
+        for _, launch in launches:
+            launch()
+        counts = ops.launch_counts()
+        assert counts == {**{n: 0 for n in counts},
+                          **{f"flash_attention_bwd_{n}": 1
+                             for n in ("rows", "dkdv", "dq")}}, counts
+        runs.append(got)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    for g, a, w in zip(*runs, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.equal(g, a)
+        err = float((g - w).abs().max())
+        assert err <= 1e-5 * float(w.abs().max()), err
 
 
 @pytest.mark.cuda
@@ -788,6 +829,101 @@ def test_cuda_flash_wgmma_saved_lse_matches_logsumexp(cuda, B, Tq, Tk, H,
     torch.cuda.synchronize()
     assert not bool(dq[:, dead].any())
     assert torch.equal(dk, dk0) and torch.equal(dv, dv0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Tq,Tk,H,KV,hd,causal,window", [
+    (1, 4096, 4096, 32, 8, 128, True, 0),     # granite-3-8b, hd = HDP
+    (1, 333, 333, 4, 1, 128, True, 0),        # MQA, G = 4 over 333 rows
+    (2, 200, 200, 8, 2, 64, True, 70),        # hd = HDP 64, a window
+    (2, 130, 130, 4, 4, 80, False, 0),        # hd 80 in HDP 128
+    (1, 257, 257, 6, 3, 40, False, 0),        # hd 40 in HDP 64, G = 2
+    (1, 300, 300, 8, 4, 256, True, 64),       # hd 256: hd in two parts
+    (2, 200, 200, 4, 1, 136, True, 0),        # hd 136 in HDP 256
+    (1, 100, 300, 8, 2, 192, False, 0),       # Tq < Tk, bidirectional
+    (1, 150, 60, 4, 2, 64, True, 20),         # rows past 78 see no key
+])
+def test_cuda_flash_backward_tf32x3_matches_plain(cuda, B, Tq, Tk, H, KV,
+                                                  hd, causal, window):
+    """The fp32 backward on the tensor cores
+    (csrc/flash_attention_bwd_tf32x3.cu) on the fp32 forward's saved lse,
+    against the plain backward on the same inputs: within 1e-5 of each
+    gradient's largest magnitude (the split keeps about 22 bits a
+    product), its two launches counted once each, a second run bitwise
+    the first; rows with no live key get zero dq, and dk, dv as with
+    their dO rows zeroed (the plain backward spreads them uniformly, so
+    that case is held to its own answer)."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = _rng(Tq + Tk + hd + H + 7)
+    q, do = (torch.from_numpy(rng.normal(size=(B, Tq, H, hd))
+                              .astype(np.float32)).to(cuda)
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(B, Tk, KV, hd))
+                             .astype(np.float32)).to(cuda)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    assert fa.bwd_route(torch.float32, hd) == "tf32x3"
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    ops.reset_launch_counts()
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse=lse, **kw)
+    counts = ops.launch_counts()
+    assert counts == {**{n: 0 for n in counts},
+                      "flash_attention_bwd_tf32x3_dq": 1,
+                      "flash_attention_bwd_tf32x3_dkdv": 1}, counts
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse=lse, **kw)
+    dead = torch.isinf(lse[0, 0, :Tq])
+    do_live = torch.where(dead[None, :, None, None], 0.0, do)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do_live, **kw)
+    torch.cuda.synchronize()
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.equal(g, a)
+        if name == "q":
+            assert not bool(g[:, dead].any())
+            g, w = g[:, ~dead], w[:, ~dead]
+        err = float((g - w).abs().max())
+        assert err <= 1e-5 * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Tq,Tk,H,KV,hd,causal,window", [
+    (1, 4096, 4096, 32, 8, 128, True, 0),     # granite-3-8b's training
+    (1, 1000, 1000, 48, 1, 128, True, 0),     # MQA: one head a block
+    (2, 333, 333, 8, 2, 64, True, 100),
+    (1, 200, 200, 4, 4, 80, False, 0),
+    (1, 300, 300, 8, 4, 256, True, 64),       # flash_kernel_wide
+    (1, 150, 60, 4, 2, 64, True, 20),         # rows past 78 see no key
+    (1, 150, 60, 4, 2, 256, True, 20),
+])
+def test_cuda_flash_fp32_lse_leaves_o_bitwise_and_matches_logsumexp(
+        cuda, B, Tq, Tk, H, KV, hd, causal, window):
+    """The fp32 forward's o is the same bit for bit with its lse output on
+    and off, and that lse, (B, H, Tq rounded up to 64), is within 1e-5 *
+    max(1, |lse|) of torch.logsumexp of the plain masked scores, +inf on
+    the padding and on rows with no live key."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     lse_rows)
+    rng = _rng(Tq + Tk + hd + 3)
+    q = torch.from_numpy(rng.normal(size=(B, Tq, H, hd))
+                         .astype(np.float32)).to(cuda)
+    k, v = (torch.from_numpy(rng.normal(size=(B, Tk, KV, hd))
+                             .astype(np.float32)).to(cuda)
+            for _ in range(2))
+    ops.reset_launch_counts()
+    o = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    o2, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    want = _plain_lse(q, k, causal, window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 2
+    assert torch.equal(o, o2)
+    assert lse.shape == (B, H, lse_rows(Tq)) and lse.dtype == torch.float32
+    got, pad = lse[..., :Tq], lse[..., Tq:]
+    live = torch.isfinite(want)
+    err = ((got - want).abs() / want.abs().clamp_min(1))[live]
+    assert float(err.max()) <= 1e-5, float(err.max())
+    assert bool((got[~live] == float("inf")).all())
+    assert bool((pad == float("inf")).all())
 
 
 @pytest.mark.cuda

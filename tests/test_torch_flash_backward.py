@@ -220,11 +220,12 @@ def _plain_cuda(monkeypatch, calls):
     """The CUDA wrappers swapped for their plain versions (CPU tensors),
     each call recorded, and ``ops.use_kernel`` true for every backend but
     "torch": the card's route, run on the CPU."""
-    def fwd(q, k, v, **kw):
+    def fwd(q, k, v, *, return_lse=False, **kw):
         calls.append("fwd")
-        return ref.flash_attention_ref(q, k, v, **kw)
+        o = ref.flash_attention_ref(q, k, v, **kw)
+        return (o, flash_mod.flash_lse_ref(q, k, **kw)) if return_lse else o
 
-    def bwd(q, k, v, o, do, **kw):
+    def bwd(q, k, v, o, do, *, lse=None, **kw):
         calls.append("bwd")
         return ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
 

@@ -189,11 +189,11 @@ def test_no_live_key_rows_give_inf_lse_and_zero_gradients():
 
 def test_backward_route_by_dtype_and_head_dim():
     """bf16 up to hd 128 takes the wgmma launches, bf16 above hd 128 the
-    wide ones, fp32 at any hd the CUDA-core one's; other dtypes are
+    wide ones, fp32 at any hd the split-TF32 one's; other dtypes are
     refused."""
     for hd in (8, 64, 80, 128):
         assert flash_mod.bwd_route(torch.bfloat16, hd) == "wgmma"
-        assert flash_mod.bwd_route(torch.float32, hd) == "cuda_core"
+        assert flash_mod.bwd_route(torch.float32, hd) == "tf32x3"
     for hd in (136, 256):
         assert flash_mod.bwd_route(torch.bfloat16, hd) == "wgmma_wide"
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -210,25 +210,30 @@ def test_backward_route_by_dtype_and_head_dim():
 def test_autograd_takes_the_forward_lse_on_the_wgmma_route(
         monkeypatch, dtype, hd, wgmma):
     """On the card's route (the CUDA wrappers swapped for their plain
-    twins), FlashAttentionFn asks the forward for the lse exactly where
-    the backward is a wgmma one (bf16) and hands it over; the gradients
-    through the twin of that backward pass the bf16 gate against
-    autograd of the plain attention."""
+    twins), FlashAttentionFn asks the forward for the lse on every route
+    (the bf16 wgmma ones, and, since the fp32 backward moved to the
+    tensor cores, fp32's split-TF32 one too) and hands it over; the
+    gradients through the twin of that backward (``wgmma``: the bf16
+    one, else the fp32 one) pass the bf16 gate against autograd of the
+    plain attention."""
     calls = []
 
     def fwd(q, k, v, *, return_lse=False, **kw):
         calls.append(("fwd", return_lse))
         o = ref.flash_attention_ref(q, k, v, **kw)
         if return_lse:
-            return o, flash_mod.flash_wgmma_lse_ref(q, k, **kw)
+            lse_ref = (flash_mod.flash_wgmma_lse_ref if wgmma
+                       else flash_mod.flash_lse_ref)
+            return o, lse_ref(q, k, **kw)
         return o
 
     def bwd(q, k, v, o, do, *, lse=None, **kw):
         calls.append(("bwd", lse is not None))
         if lse is None:
             return ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
-        return flash_mod.flash_bwd_wgmma_plan_ref(q, k, v, o, do, lse=lse,
-                                                  **kw)
+        plan = (flash_mod.flash_bwd_wgmma_plan_ref if wgmma
+                else flash_mod.flash_bwd_tf32x3_plan_ref)
+        return plan(q, k, v, o, do, lse=lse, **kw)
 
     monkeypatch.setattr(flash_mod, "flash_attention_cuda", fwd)
     monkeypatch.setattr(flash_mod, "flash_attention_bwd_cuda", bwd)
@@ -238,7 +243,7 @@ def test_autograd_takes_the_forward_lse_on_the_wgmma_route(
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     got = torch.autograd.grad(ops.flash_attention(*leaves, window=30),
                               leaves, do)
-    assert calls == [("fwd", wgmma), ("bwd", wgmma)]
+    assert calls == [("fwd", True), ("bwd", True)]
     plain = [t.clone().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(
         ops.flash_attention(*plain, window=30, backend="torch"), plain, do)

@@ -172,10 +172,10 @@ def test_no_live_key_rows_give_zero_gradients():
 
 def test_route_and_launch_names():
     """bf16 from hd 136 to 256 takes the wide launches, each with its own
-    count in ops.launch_counts(); fp32 stays on the CUDA-core route."""
+    count in ops.launch_counts(); fp32 takes the split-TF32 route."""
     for hd in range(136, 257, 8):
         assert flash_mod.bwd_route(torch.bfloat16, hd) == "wgmma_wide"
-        assert flash_mod.bwd_route(torch.float32, hd) == "cuda_core"
+        assert flash_mod.bwd_route(torch.float32, hd) == "tf32x3"
     assert flash_mod.bwd_route(torch.bfloat16, 128) == "wgmma"
     assert ops.KERNELS["flash_attention_bwd_wide_dq"] \
         is flash_mod.KERNEL_BWD_WIDE_DQ

@@ -264,7 +264,8 @@ def test_every_kernel_has_a_matching_c_entry_point():
         "pearson.cu", "minplus.cu", "masked_argmax.cu", "topk.cu",
         "sparse_relax.cu", "flash_attention.cu",
         "flash_attention_wgmma.cu", "flash_attention_bwd.cu",
-        "flash_attention_bwd_wgmma.cu", "flash_attention_bwd_wgmma_wide.cu"}
+        "flash_attention_bwd_wgmma.cu", "flash_attention_bwd_wgmma_wide.cu",
+        "flash_attention_bwd_tf32x3.cu"}
     for kname, kern in ops.KERNELS.items():
         assert entries[kern.symbol] == kern.signature + "p", kname
 
@@ -317,7 +318,9 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
                                    "flash_attention_bwd_wgmma_dq": 0,
                                    "flash_attention_bwd_wgmma_dkdv": 0,
                                    "flash_attention_bwd_wide_dq": 0,
-                                   "flash_attention_bwd_wide_dkdv": 0}
+                                   "flash_attention_bwd_wide_dkdv": 0,
+                                   "flash_attention_bwd_tf32x3_dq": 0,
+                                   "flash_attention_bwd_tf32x3_dkdv": 0}
 
 
 def test_topk_plan_fits_shared_memory():
