@@ -262,18 +262,35 @@ Phases (any failure exits non-zero; no phase is skipped):
    lse) and one of each wgmma backward kernel a layer, and no other
    kernel; every loss finite and the last below the first; s/step,
    tokens/s and peak bytes logged; one more step under
-   ``torch.profiler``, its device time by kernel class.  (c)
+   ``torch.profiler``, its device time by kernel class.  (f, run next,
+   ``mesh_train_phase``) The same model on a world-1 NCCL ("data",
+   "model") (1, 1) mesh (no gloo fallback): the parameters and AdamW
+   state laid out by ``dist.sharding.param_shardings`` and each batch by
+   ``batch_shardings``, TRAIN_STEPS steps of
+   ``make_train_step(model, run_cfg, mesh)`` from 13b's initial weights
+   on 13b's batches, the counts reset just before and read just after:
+   every loss and every leaf after the last step bitwise 13b's, 13b's
+   launches (two bf16 flash launches and one of each wgmma backward
+   kernel a layer a step, no other kernel), s/step beside 13b's, the
+   first step's collectives (``CommDebugMode``);
+   ``compression.psum_compressed`` over the data axis bitwise
+   ``compress_tree`` on one step's gradients; a checkpoint saved from
+   the mesh and restored onto a ("data",) mesh with
+   ``checkpoint.restore(shardings=)``, bitwise ``elastic.remesh`` of the
+   state, and one more step there, bitwise 13b's profiled step.  (c)
    ``launch.train.main`` on xlstm-125m at full width and depth (batch 8,
-   256 tokens) to TRAIN_CLI_STEPS steps with a checkpoint every
-   TRAIN_CLI_EVERY, then the same call to TRAIN_CLI_MORE steps, which
-   must resume from the last checkpoint.  (d) gemma3-4b (hd 256) at
-   full width cut to TRAIN_HD256_LAYERS layers (five sliding-window
-   layers and one global), bf16, one step against ``backend="torch"``
-   (cosine >= 0.999) and TRAIN_HD256_STEPS steps through the wide
-   backward, counts reset just before and read just after: two bf16
-   flash launches a layer a step (each saving the lse) and one of each
-   wide backward kernel, and no other kernel.  (e) fp32 training:
-   granite-3-8b at full width cut to TRAIN_FP32_LAYERS layers, fp32
+   256 tokens), its state and batches laid out on a world-1 ("data",
+   "model") mesh and stepped by the mesh step, to TRAIN_CLI_STEPS steps
+   with a checkpoint every TRAIN_CLI_EVERY, then the same call to
+   TRAIN_CLI_MORE steps, which must resume (through
+   ``restore(shardings=)``) from the last checkpoint.  (d) gemma3-4b
+   (hd 256) at full width cut to TRAIN_HD256_LAYERS layers (five
+   sliding-window layers and one global), bf16, one step against
+   ``backend="torch"`` (cosine >= 0.999) and TRAIN_HD256_STEPS steps
+   through the wide backward, counts reset just before and read just
+   after: two bf16 flash launches a layer a step (each saving the lse)
+   and one of each wide backward kernel, and no other kernel.  (e) fp32
+   training: granite-3-8b at full width cut to TRAIN_FP32_LAYERS layers, fp32
    weights, gradients and AdamW moments, one step against
    ``backend="torch"`` (losses finite and within 1e-3, per-leaf gradient
    cosine >= 0.99999) and TRAIN_FP32_STEPS steps of one TRAIN_SEQ-token
@@ -284,7 +301,8 @@ Phases (any failure exits non-zero; no phase is skipped):
 
 The line before the last is the JSON object of per-kernel numbers (with
 each kernel's launches on phase 11's approx and dense funnels, on
-each of phase 12's engine runs and on phase 13b's training steps;
+each of phase 12's engine runs, on phase 13b's training steps and, as
+``mesh_train_launches``, on phase 13f's;
 ``flash_attention_bwd_wgmma``'s launches are its two kernels' on phase
 13b, ``flash_attention_bwd_wide``'s its two kernels' on phase 13d,
 ``flash_attention_bwd_tf32x3``'s its two kernels' on phase 13e, and
@@ -428,16 +446,19 @@ KVQ_FREE_COSINE = 0.95
 # cuobjdump of the library that the script otherwise makes in phase 2,
 # 13b 8.3 s, 13c 43.6 s (30.7 s in an earlier run), 13d 1.3 s; 71.5 and
 # 105.0 s alone with 13e (2.2-2.3 s) and 13a's fp32 A/B, the old side's
-# errors and launch times (13a 26.5 and 39.0 s with the cuobjdump)); the
-# backward kernels' shapes
+# errors and launch times (13a 26.5 and 39.0 s with the cuobjdump); 13f
+# 22.6 s alone, of which the 10.5 GB checkpoint's save 9.2 s and its
+# restore 6.7 s); the backward kernels' shapes
 # (13a); granite-3-8b at full width cut to TRAIN_LAYERS layers, trained
 # in bf16 on one sequence of
 # TRAIN_SEQ tokens for TRAIN_STEPS steps (13b); launch.train.main on
 # xlstm-125m at full width and depth, TRAIN_CLI_STEPS steps with a
 # checkpoint every TRAIN_CLI_EVERY, then resumed to TRAIN_CLI_MORE (13c);
 # gemma3-4b (hd 256) at full width cut to TRAIN_HD256_LAYERS layers,
-# TRAIN_HD256_STEPS steps through the wide bf16 backward (13d)
-TRAIN_S = 100.0
+# TRAIN_HD256_STEPS steps through the wide bf16 backward (13d); 13b's
+# steps again on a world-1 mesh, checkpointed and restored onto another
+# (13f)
+TRAIN_S = 125.0
 BWD_CASES = [
     ("granite-3-8b causal", (1, 4096, 32, 8, 128), 0, True),
     ("gemma3-4b local", (1, 4096, 8, 4, 256), 1024, True),
@@ -980,8 +1001,10 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
     TRAIN_ARCH at full width, TRAIN_LAYERS layers, trained in bf16
     through make_train_step on TokenPipeline batches, the counts reset
     just before and read just after, one step against backend="torch";
-    (c) launch.train.main on TRAIN_CLI_ARCH, then resumed.  ``device``
-    is the card's (a CPU rehearsal passes "cpu")."""
+    (f) the same steps on a device mesh (``mesh_train_phase``, on 13b's
+    reference); (c) launch.train.main on TRAIN_CLI_ARCH, then resumed;
+    (d) gemma3-4b through the wide backward; (e) fp32 training.
+    ``device`` is the card's (a CPU rehearsal passes "cpu")."""
     import contextlib
     import io
     import tempfile
@@ -1206,6 +1229,9 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
         times.append(time.perf_counter() - t1)
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() - base
+    # 13f's reference: the state after the TRAIN_STEPS steps (the step
+    # returns new tensors, so this holds them) and after the next one
+    after = (params, opt)
     check(all(math.isfinite(l_) for l_ in losses) and losses[-1] < losses[0],
           f"train: {TRAIN_ARCH} losses {losses}")
     L = cfg.n_layers
@@ -1226,7 +1252,7 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
                                    ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         params, opt, met = step_fn(params, opt, pipe.batch(TRAIN_STEPS))
-        float(met["loss"])
+        next_loss = float(met["loss"])
         prof_wall = time.perf_counter() - t1
     split = _device_time_by_class(prof, (
         ("flash_bwd", ("bwd_rows_kernel", "bwd_dkdv_kernel",
@@ -1254,7 +1280,14 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
                                "profiler",
         seconds=time.perf_counter() - t0)
     log(f"[train] {TRAIN_ARCH}: {json.dumps(out['granite'])}")
-    del params, opt, model, met, batch, batch0
+    ref = dict(losses=losses, after=after, next_loss=next_loss,
+               next=(params, opt), s_per_step=s_step)
+    del params, opt, model, met, batch, batch0, after
+    torch.cuda.empty_cache()
+
+    # 13f. the same steps on a device mesh, then resharded onto another
+    out["mesh"] = mesh_train_phase(seed, ref, device)
+    del ref
     torch.cuda.empty_cache()
 
     # 13c. launch.train.main at full width and depth, resumed
@@ -1416,6 +1449,156 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
     log(f"[train] {TRAIN_ARCH} fp32: {json.dumps(out['fp32'])}")
     del params, opt, model, met, batch, batch0
     torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_phase(seed: int, ref: dict, device: str = "cuda") -> dict:
+    """Phase 13f: 13b's TRAIN_ARCH at full width, TRAIN_LAYERS layers,
+    bf16, on a world-1 ("data", "model") (1, 1) mesh (NCCL on the card):
+    the parameters and AdamW state laid out by ``param_shardings`` and
+    each batch by ``batch_shardings``, TRAIN_STEPS steps of
+    ``make_train_step(model, run_cfg, mesh)`` from 13b's initial weights
+    on 13b's batches, the counts reset just before and read just after:
+    every loss and every leaf after the last step bitwise 13b's
+    (``ref``), the launches 13b's, the first step's collectives counted
+    (``CommDebugMode``); ``psum_compressed`` over the data axis bitwise
+    ``compress_tree`` on one step's gradients; then a checkpoint saved
+    from the mesh, restored onto a ("data",) mesh with
+    ``restore(shardings=)`` (bitwise ``elastic.remesh`` of the state), and
+    one more step there, bitwise 13b's next step."""
+    import tempfile
+
+    import torch
+    import torch.distributed as tdist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.dist import compression
+    from repro_torch.dist import sharding as dsh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import checkpoint, elastic, optimizer
+    from repro_torch.train.train_step import make_train_step, value_and_grad
+    from repro_torch.train.tree import leaves, tree_map
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    started = not tdist.is_initialized()
+    mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+    backend = tdist.get_backend()
+    check(dev.type != "cuda" or backend == "nccl",
+          f"train mesh: the group is {backend}, not nccl")
+
+    def place(tree, shardings):
+        return tree_map(lambda x_, s_: s_.place(x_), tree, shardings)
+
+    def same(tree, want) -> bool:
+        return all(torch.equal(dsh.whole(a_), b_)
+                   for a_, b_ in zip(leaves(tree), leaves(want)))
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    opt = optimizer.init(params)
+    layout = dsh.param_shardings((params, opt), mesh)
+    params, opt = place((params, opt), layout)
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1, n_domains=1,
+        seed=seed), device=dev)
+    run_cfg = RunConfig(lr=3e-5, warmup_steps=1, total_steps=TRAIN_STEPS)
+    step_fn = make_train_step(model, run_cfg, mesh)
+
+    def batch_on(m_, i_):
+        b_ = pipe.batch(i_)
+        return place(b_, dsh.batch_shardings(m_, b_))
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for s_ in range(TRAIN_STEPS):
+        batch = batch_on(mesh, s_)
+        t1 = time.perf_counter()
+        if s_ == 0:
+            # the first step's collectives, outside the timed steps
+            with CommDebugMode() as comm:
+                params, opt, met = step_fn(params, opt, batch)
+                losses.append(float(met["loss"]))
+            comms = {str(k_): v_ for k_, v_ in
+                     comm.get_comm_counts().items()}
+        else:
+            params, opt, met = step_fn(params, opt, batch)
+            losses.append(float(met["loss"]))
+        times.append(time.perf_counter() - t1)
+    launches = ops.launch_counts()
+    check(losses == ref["losses"],
+          f"train mesh: losses {losses}, without the mesh {ref['losses']}")
+    check(same((params, opt), ref["after"]),
+          "train mesh: the state after the steps is not bitwise 13b's")
+    L = cfg.n_layers
+    want = {"flash_attention_wgmma": 2 * L * TRAIN_STEPS,
+            "flash_attention_bwd_wgmma_dq": L * TRAIN_STEPS,
+            "flash_attention_bwd_wgmma_dkdv": L * TRAIN_STEPS}
+    check(all(launches[n_] == c_ for n_, c_ in want.items())
+          and sum(launches.values()) == sum(want.values()),
+          f"train mesh: launches {launches}, want {want}")
+    timed = sorted(times[1:])
+    s_step = float(timed[len(timed) // 2])
+
+    # psum_compressed over the data axis: at world 1 the all-reduce is a
+    # copy of the quantized leaves
+    whole = tree_map(dsh.whole, params)
+    _, _, grads = value_and_grad(model, whole, pipe.batch(0))
+    summed = compression.psum_compressed(grads, "data", mesh, model.stacked)
+    check(same(summed, compression.compress_tree(grads, model.stacked)),
+          "train mesh: psum_compressed is not bitwise compress_tree")
+    del whole, grads, summed
+
+    # save from the mesh; restore onto a ("data",) mesh; one more step
+    mesh_d = make_mesh((1,), ("data",), device=dev)
+    layout_d = dsh.param_shardings((params, opt), mesh_d)
+    with tempfile.TemporaryDirectory(dir=HERE / "build") as ck:
+        t1 = time.perf_counter()
+        checkpoint.save((params, opt), ck, TRAIN_STEPS)
+        save_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        (params_d, opt_d), step_read, _ = checkpoint.restore(
+            (params, opt), ck, shardings=layout_d)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+    remeshed = elastic.remesh((params, opt), mesh_d)
+    check(step_read == TRAIN_STEPS
+          and all(x_.device_mesh == mesh_d for x_ in leaves(params_d))
+          and same((params_d, opt_d), tree_map(dsh.whole, remeshed)),
+          "train mesh: the restored state is not bitwise the remeshed one")
+    del remeshed, params, opt
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    params_d, opt_d, met = make_train_step(model, run_cfg, mesh_d)(
+        params_d, opt_d, batch_on(mesh_d, TRAIN_STEPS))
+    next_loss = float(met["loss"])
+    next_s = time.perf_counter() - t1
+    check(next_loss == ref["next_loss"] and same((params_d, opt_d),
+                                                  ref["next"]),
+          f"train mesh: the step after the restore (loss {next_loss}) is "
+          f"not bitwise the next step without a mesh ({ref['next_loss']})")
+    del params_d, opt_d, met, model
+    if started:
+        tdist.destroy_process_group()
+    out = dict(
+        arch=TRAIN_ARCH, layers=L, mesh=[[1, 1], ["data", "model"]],
+        backend=backend, steps=TRAIN_STEPS, losses=losses,
+        bitwise_unplaced=True, s_per_step=times, s_per_step_median=s_step,
+        unplaced_s_per_step_median=ref["s_per_step"],
+        launches=launches,
+        launches_per_step={n_: c_ / TRAIN_STEPS for n_, c_ in
+                           launches.items() if c_},
+        collectives_first_step=comms, psum_compressed_bitwise=True,
+        checkpoint_save_s=save_s, restore_onto_data_mesh_s=restore_s,
+        next_step_s=next_s, next_loss=next_loss,
+        seconds=time.perf_counter() - t0)
+    log(f"[train] {TRAIN_ARCH} on a mesh: {json.dumps(out)}")
     return out
 
 
@@ -3480,11 +3663,15 @@ def main() -> None:
 
     dense_kernels = ("pearson", "minplus", "masked_argmax")
     train_launches = train["granite"]["launches"]
+    mesh_launches = train["mesh"]["launches"]
     for e in entries.values():
         if e["name"].startswith("flash_attention_bwd"):
             # the training steps' launches of its kernels
             e["launches"] = sum(e["launches_by_kernel"].values())
+            e["mesh_train_launches"] = sum(
+                mesh_launches.get(n_, 0) for n_ in e["launches_by_kernel"])
             continue
+        e["mesh_train_launches"] = mesh_launches[e["name"]]
         e["train_launches"] = train_launches[e["name"]]
         e["launches"] = (launches_s if e["name"] == "flash_attention_wgmma"
                          else launches_32 if e["name"] == "flash_attention"

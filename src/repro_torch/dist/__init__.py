@@ -1,19 +1,24 @@
-"""Distribution layer of the port (DESIGN.md §4.4): the clustering half
-of ``repro.dist`` over ``torch.distributed``.
+"""Distribution layer of the port (DESIGN.md §4.4, §7): ``repro.dist``
+over ``torch.distributed``.
 
-* :mod:`repro_torch.dist.sharding` -- the layouts of the paper's arrays
-  as ``DTensor`` placements on a ``DeviceMesh``, ``data_mesh`` (a group
-  of world size 1 when the caller has none), and the sharded Pearson,
-  top-K, masked-argmax and min-plus entry points.
+* :mod:`repro_torch.dist.sharding` -- mesh-aware placement as ``DTensor``
+  placements on a ``DeviceMesh``: the layouts of the paper's arrays,
+  ``data_mesh`` (a group of world size 1 when the caller has none), the
+  sharded Pearson, top-K, masked-argmax and min-plus entry points, and
+  the LM zoo's parameter and batch placement (``param_specs``,
+  ``param_shardings``, ``batch_specs``, ``batch_shardings``).
 
 * :mod:`repro_torch.dist.compression` -- int8 error-feedback gradient
-  compression, the value half (the train step's ``compress_grads``).
+  compression (the train step's ``compress_grads``) and
+  ``psum_compressed``.
 
-The LM half of the sharding rules (parameter and batch placement over
-DTensor), ``psum_compressed`` and the layout hints are not ported yet:
-ROADMAP Queue 1 item 15.6b.
+* :mod:`repro_torch.dist.hints` -- dynamically scoped logical-axis
+  annotations: the launcher pins layouts (``kv_cache``, ``logits``,
+  ``activations``, ``moe_expert``) and algorithm variants
+  (``onehot_embed``) without threading them through every model
+  signature.
 """
 
-from . import compression, sharding  # noqa: F401
+from . import compression, hints, sharding  # noqa: F401
 
-__all__ = ["compression", "sharding"]
+__all__ = ["compression", "hints", "sharding"]

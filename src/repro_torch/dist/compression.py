@@ -8,9 +8,12 @@ in fp32 and cast back to the leaf's dtype.  A non-finite or zero scale
 passes the leaf through unchanged.  Where the reference stacks a list
 of layers into one (L, ...) array per leaf, the port keeps a list of
 per-layer trees: the keys named by ``stacked`` (a model's ``stacked``)
-take one scale per leaf across their layers, the stacked array's.  These helpers quantize values only:
-the collective that would ship int8 payloads (``psum_compressed``) is
-not ported yet (ROADMAP Queue 1 item 15.6b).
+take one scale per leaf across their layers, the stacked array's.
+:func:`psum_compressed` quantizes each rank's gradients so and sums them
+over one axis of a device mesh, as the reference's does inside a
+``shard_map`` body.  As in the reference, these helpers model the noise
+of int8 gradients and not their wire format: the all-reduce carries the
+dequantized values in the leaves' own dtype.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 from typing import Any, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..train.tree import leaves, tree_map, unflatten
 
@@ -76,3 +80,21 @@ def compress_with_feedback(grads: Any, ef: Any,
         corrected, _amax(corrected, stacked), grads)
     new_ef = tree_map(lambda c, q: c - q.float(), corrected, compressed)
     return compressed, new_ef
+
+
+def psum_compressed(grads: Any, axis_name: str, mesh,
+                    stacked: Sequence[str] = ()) -> Any:
+    """Every leaf of this rank's gradient tree quantize-dequantized (one
+    scale per leaf, shared across the layers of each key in ``stacked``,
+    as :func:`compress_tree` takes it), then summed over the ranks of
+    ``mesh``'s ``axis_name`` dim: one all-reduce a leaf.  The leaves are
+    the rank's own (plain) tensors, as in a ``shard_map`` body; the result
+    is new tensors."""
+    group = mesh.get_group(axis_name)
+
+    def reduce(g, a):
+        q = quantize_dequantize(g, a)
+        dist.all_reduce(q, group=group)
+        return q
+
+    return tree_map(reduce, grads, _amax(grads, stacked))

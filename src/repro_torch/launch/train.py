@@ -5,14 +5,20 @@
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --device cpu --steps 4 --batch 4 --seq 64
 
-The port of ``repro.launch.train``, with its CLI and defaults: the model
-is built on one device (CUDA unless ``--device cpu``; the reference's
-replicated layout on one device), its weights drawn from a
-``torch.Generator`` seeded with 0, and trained by ``make_train_step`` on
-``synthetic_batch`` tokens (seeded per (host, step), bitwise the
-reference's, so a restarted run sees the same data).  It checkpoints
-asynchronously every ``--ckpt-every`` steps and at the end, and resumes
-from the latest checkpoint under ``--ckpt-dir``.  A checkpoint is named
+The port of ``repro.launch.train``, with its CLI and defaults.  The
+model is built on this rank's device (CUDA unless ``--device cpu``), its
+weights drawn from a ``torch.Generator`` seeded with 0.  The mesh is
+``("data", "model")`` of (world, 1) over the default process group (one
+of world size 1 is started when there is none, as
+``dist.sharding.data_mesh`` does, and ended with the run): the
+parameters and AdamW state are laid out by
+``dist.sharding.param_shardings``, each step's ``synthetic_batch``
+tokens (seeded per (host, step), bitwise the reference's, so a
+restarted run sees the same data) by ``batch_shardings``, and the step
+is ``make_train_step(model, run_cfg, mesh)``.  It checkpoints
+asynchronously every ``--ckpt-every`` steps and at the end (each leaf
+whole), and resumes from the latest checkpoint under ``--ckpt-dir``
+through ``checkpoint.restore(..., shardings=)``.  A checkpoint is named
 by the number of steps done; the reference names its mid-run ones by the
 index of the step just run, so that resuming from one runs that step
 twice.
@@ -25,13 +31,17 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.core.pipeline import resolve_device
+from repro_torch.dist import sharding as sh
 from repro_torch.models.registry import build_model
 from repro_torch.train import checkpoint, optimizer
 from repro_torch.train.elastic import StragglerMonitor
 from repro_torch.train.train_step import make_train_step
+from repro_torch.train.tree import tree_map
+from .mesh import ensure_process_group, make_mesh
 
 
 def synthetic_batch(cfg, step: int, batch: int, seq: int, host: int = 0,
@@ -77,18 +87,35 @@ def main(argv=None):
     run_cfg = RunConfig(lr=args.lr, microbatches=args.microbatches,
                         total_steps=args.steps,
                         warmup_steps=max(1, args.steps // 10))
+    started = not dist.is_initialized()
+    try:
+        return _run(args, cfg, model, run_cfg)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _place(tree, shardings):
+    return tree_map(lambda x, s: s.place(x), tree, shardings)
+
+
+def _run(args, cfg, model, run_cfg):
+    world = ensure_process_group(model.device)
+    mesh = make_mesh((world, 1), ("data", "model"), device=model.device)
     params = model.init(torch.Generator(device=model.device).manual_seed(0))
     opt_state = optimizer.init(params)
+    layout = sh.param_shardings((params, opt_state), mesh)
+    params, opt_state = _place((params, opt_state), layout)
 
     start_step = 0
     ckpt = checkpoint.AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir \
         else None
     if ckpt and checkpoint.latest_step(args.ckpt_dir) is not None:
         (params, opt_state), start_step, _ = checkpoint.restore(
-            (params, opt_state), args.ckpt_dir)
+            (params, opt_state), args.ckpt_dir, shardings=layout)
         print(f"resumed from step {start_step}")
 
-    step_fn = make_train_step(model, run_cfg)
+    step_fn = make_train_step(model, run_cfg, mesh)
     monitor = StragglerMonitor()
 
     metrics = {}
@@ -97,6 +124,7 @@ def main(argv=None):
         for step in range(start_step, args.steps):
             batch = synthetic_batch(cfg, step, args.batch, args.seq,
                                     device=model.device)
+            batch = _place(batch, sh.batch_shardings(mesh, batch))
             t0 = time.time()
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             metrics = {k: float(v) for k, v in metrics.items()}

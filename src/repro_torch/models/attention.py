@@ -36,6 +36,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..dist import hints
 from ..kernels import ops
 from ..kernels.ref import ATTN_NEG
 from .layers import apply_mrope, apply_rope, dense_init
@@ -93,7 +94,9 @@ def attention_full(p, x: torch.Tensor, positions: torch.Tensor, *, cfg,
     out = ops.flash_attention(q * scale, k, v, causal=causal, window=window,
                               scale=1.0, backend=backend)
     B, T = x.shape[0], x.shape[1]
-    return out.reshape(B, T, -1).to(x.dtype) @ p["wo"], (k, v)
+    # the (k, v) copies carry the launcher's kv_cache layout hint
+    return out.reshape(B, T, -1).to(x.dtype) @ p["wo"], (
+        hints.constrain(k, "kv_cache"), hints.constrain(v, "kv_cache"))
 
 
 def _decode_positions(pos, B: int, cfg, device):

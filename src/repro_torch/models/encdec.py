@@ -17,6 +17,7 @@ from typing import Any, Dict
 import torch
 
 from ..core.pipeline import resolve_device
+from ..dist import hints
 from . import attention as attn
 from .layers import (dense_init, dtype_of, embed_init, mlp_apply, mlp_init,
                      remat as remat_call, rmsnorm, rmsnorm_init, token_ce)
@@ -125,7 +126,8 @@ class EncDecModel:
                                   backend=backend)
             x, _, _ = self._decode_stack(params, tokens, enc_out, backend,
                                          remat=remat)
-            return (x @ params["embed"].T).float()
+            return hints.constrain(x @ params["embed"].T,
+                                   "logits").float()
 
     def loss(self, params, batch, *, remat: bool = True,
              backend: str = "auto", **_chunks):

@@ -29,6 +29,7 @@ from typing import Any, Dict
 import torch
 
 from ..core.pipeline import resolve_device
+from ..dist import hints
 from . import attention as attn
 from . import ssm
 from .layers import (dtype_of, embed_init, mlp_apply, mlp_init,
@@ -123,7 +124,8 @@ class Zamba2Model:
         ``for_grad=False`` records no gradient."""
         with torch.set_grad_enabled(for_grad and torch.is_grad_enabled()):
             x, groups = self._run(params, tokens, backend, remat=remat)
-            logits = (x @ params["embed"].T).float()
+            logits = hints.constrain(x @ params["embed"].T,
+                                     "logits").float()
         return logits, [kv for _, kv in groups] if collect_kv else [], 0.0
 
     def loss(self, params, batch, *, remat: bool = True,

@@ -129,6 +129,13 @@ def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:
     return h @ p["w2"]
 
 
+def mlp_flops(cfg, tokens: int) -> int:
+    """The MLP's matmul flops for ``tokens`` tokens: 2 per
+    multiply-add, three (d_model, d_ff) products for SwiGLU, two else."""
+    mats = 3 if cfg.mlp == "swiglu" else 2
+    return 2 * mats * cfg.d_model * cfg.d_ff * tokens
+
+
 def mask_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     """Mask padded vocab logits (cfg.vocab_padded > cfg.vocab) to -1e30."""
     V = logits.shape[-1]

@@ -15,8 +15,9 @@ The router runs in fp32.  ``lax.top_k`` breaks ties by lowest index and
 descending sort.  Tokens are dispatched in groups (``_n_groups``): from
 4096 tokens up, groups of at least 2048 tokens, each with its own
 capacity, as the reference groups them; shared experts run after the
-dispatch, on every token.  The reference's ``dist.hints.constrain``
-layout pins do nothing without a device mesh and are dropped.
+dispatch, on every token.  The (E, C, d) dispatch buffer and the
+experts' output carry the ``moe_expert`` layout hint
+(``dist.hints.constrain``), as in the reference.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..dist import hints
 from .layers import dense_init
 
 
@@ -155,10 +157,11 @@ def _moe_dispatch_one(p, xf: torch.Tensor, cfg):
     pw_s = topv.reshape(-1).to(xf.dtype)[order]
     buf = torch.zeros((E * C + 1, d), dtype=xf.dtype, device=xf.device)
     buf[slot] = xf[ptok_s]
-    buf = buf[:-1].reshape(E, C, d)
+    buf = hints.constrain(buf[:-1].reshape(E, C, d), "moe_expert")
 
     h = F.silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wu"])
     y = torch.bmm(h, p["wd"])                                   # (E, C, d)
+    y = hints.constrain(y, "moe_expert")
     return combine(y, keep, slot, pw_s, ptok_s, N), aux
 
 

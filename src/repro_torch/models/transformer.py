@@ -11,10 +11,11 @@ in the reference; ``kv_quant=True`` keeps them as int8
 (``cfg.mrope``, ``cfg.frontend``) prepends projected frontend embeddings
 and rotates with M-RoPE's stub (t, h, w) streams.
 
-The reference's ``dist.hints.constrain`` calls and its ``_onehot_embed``
-lookup do nothing without a device mesh and the ``onehot_embed`` hint,
-which a single card never has, so the port takes the plain gather
-``embed[tokens]`` and no layout constraint.  ``forward`` is the training
+The embedding lookup is the gather ``embed[tokens]``, or under the
+``onehot_embed`` hint (``dist.hints``) the reference's chunked one-hot
+matmul :func:`_onehot_embed`, bitwise the gather; the embedded
+activations and the logits carry the ``activations`` and ``logits``
+layout hints, as in the reference.  ``forward`` is the training
 form (each layer rematerialised in the backward, ``remat=True``) unless
 ``for_grad=False``, the reference's prefill form, which records no
 gradient; ``loss`` is the training objective.
@@ -27,10 +28,31 @@ from typing import Dict, List, Optional
 import torch
 
 from ..core.pipeline import resolve_device
+from ..dist import hints
 from . import attention as attn
 from . import moe as moe_mod
 from .layers import (dense_init, dtype_of, embed_init, mlp_apply, mlp_init,
                      remat as remat_call, rmsnorm, rmsnorm_init, token_ce)
+
+
+def _onehot_embed(tokens: torch.Tensor, embed: torch.Tensor,
+                  chunk: int = 512) -> torch.Tensor:
+    """The embedding lookup as a one-hot matmul in chunks of ``chunk``
+    positions (the reference's collective-friendly lookup): each row is
+    one weight times 1 plus zeros, so it is bitwise ``embed[tokens]``."""
+    B, T = tokens.shape
+    V, d = embed.shape
+    c = min(chunk, T)
+    pad = (-T) % c
+    if pad:
+        tokens = torch.nn.functional.pad(tokens, (0, pad))
+    nc = (T + pad) // c
+    toks = tokens.reshape(B, nc, c).transpose(0, 1)          # (nc, B, c)
+    xs = [torch.einsum("bcv,vd->bcd",
+                       torch.nn.functional.one_hot(t, V).to(embed.dtype),
+                       embed) for t in toks]
+    x = torch.stack(xs).transpose(0, 1).reshape(B, nc * c, d)
+    return x[:, :T]
 
 
 def layer_windows(cfg) -> list:
@@ -126,12 +148,15 @@ class DecoderModel:
         return torch.as_tensor(tokens, device=self.device).long()
 
     def _embed(self, params, tokens, extra_embeds) -> torch.Tensor:
-        x = params["embed"][self._tokens(tokens)]
+        if hints.get("onehot_embed"):
+            x = _onehot_embed(self._tokens(tokens), params["embed"])
+        else:
+            x = params["embed"][self._tokens(tokens)]
         if self.cfg.frontend != "none" and extra_embeds is not None:
             fe = torch.as_tensor(extra_embeds, device=self.device)
             fe = fe.to(x.dtype) @ params["frontend_proj"]
             x = torch.cat([fe, x], dim=1)
-        return x
+        return hints.constrain(x, "activations")
 
     # -- full-sequence forward (train / prefill) -----------------------------
     def forward(self, params, tokens, extra_embeds=None, *,
@@ -158,7 +183,8 @@ class DecoderModel:
                 if collect_kv:
                     kvs.append(kv)
             x = rmsnorm(params["ln_f"], x)
-            logits = (x @ params["embed"].T).float()     # tied head
+            logits = hints.constrain(x @ params["embed"].T,   # tied head
+                                     "logits").float()
         return logits, kvs, aux_total
 
     def loss(self, params, batch, *, remat: bool = True,

@@ -1,11 +1,15 @@
-"""Straggler detection and liveness bookkeeping (host-side).
+"""Elastic scaling, straggler detection and liveness bookkeeping.
 
-The port of ``repro.train.elastic``'s :class:`StragglerMonitor` (per-host
-step times, robust median / MAD outliers, data-shard rebalancing weights)
-and :class:`HeartbeatRegistry` (hosts missing beats for ``timeout``
-seconds are dead).  ``remesh``, which moves a parameter tree onto a new
-device mesh, waits for the LM half of the sharding rules (ROADMAP Queue 1
-item 15.6b).
+The port of ``repro.train.elastic``:
+
+* :func:`remesh` -- move a parameter or optimizer-state tree onto another
+  device mesh (the device count changed after a failure) by the standard
+  placement rules.  With ``checkpoint.restore(..., shardings=)`` this is
+  the restart path: a job saved on one mesh resumes on another.
+* :class:`StragglerMonitor` -- per-host step times, robust median / MAD
+  outliers, data-shard rebalancing weights (host-side).
+* :class:`HeartbeatRegistry` -- hosts missing beats for ``timeout``
+  seconds are dead (``launch/cluster.py``'s supervisor reads it).
 """
 
 from __future__ import annotations
@@ -13,7 +17,21 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
+
+from ..dist import sharding as sh
+from .tree import leaves, unflatten
+
+
+def remesh(tree: Any, new_mesh) -> Any:
+    """The tree laid out on ``new_mesh`` by ``dist.sharding.param_shardings``.
+    DTensor cannot redistribute between two meshes, so each leaf goes
+    through its whole tensor: gathered (``full_tensor``) on the old mesh,
+    then each rank keeps its block on the new one.  Every rank of both
+    meshes calls it."""
+    shardings = leaves(sh.param_shardings(tree, new_mesh))
+    return unflatten(tree, [s.place(sh.whole(x))
+                            for x, s in zip(leaves(tree), shardings)])
 
 
 @dataclass

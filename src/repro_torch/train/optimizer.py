@@ -4,13 +4,16 @@ The port of ``repro.train.optimizer``: plain functions over parameter
 trees (``train/tree.py``).  The moments are fp32 whatever the parameter
 dtype (the mixed-precision convention); the update is computed in fp32
 and cast back to each parameter's dtype.  Each call returns new tensors:
-nothing is updated in place, so the train step's inputs stay valid.
+nothing is updated in place, so the train step's inputs stay valid.  The
+update is elementwise, so the train step on a mesh applies it to each
+rank's shards as they are, with the norm taken over every shard
+(``gnorm=``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -50,13 +53,17 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def apply(params, grads, state: AdamWState, run_cfg, *, b1: float = 0.9,
-          b2: float = 0.95, eps: float = 1e-8):
+          b2: float = 0.95, eps: float = 1e-8,
+          gnorm: Optional[torch.Tensor] = None):
     """One AdamW update; returns (new_params, new_state, metrics
-    {"grad_norm", "lr"})."""
+    {"grad_norm", "lr"}).  ``gnorm`` is the gradients' global norm where
+    the caller holds only shards of them (the train step on a mesh);
+    by default :func:`global_norm` of ``grads``."""
     step = state.step + 1
     lr = schedule(step, lr=run_cfg.lr, warmup_steps=run_cfg.warmup_steps,
                   total_steps=run_cfg.total_steps)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.clamp(run_cfg.grad_clip / (gnorm + 1e-9), max=1.0) \
         if run_cfg.grad_clip > 0 else 1.0
     bc1 = 1.0 - torch.pow(b1, step.float())

@@ -1,4 +1,5 @@
-"""The train step: microbatched fp32 gradient accumulation and AdamW.
+"""The train step: microbatched fp32 gradient accumulation and AdamW, on
+one device or on a device mesh.
 
 The port of ``repro.train.train_step``.  The reference's jitted step
 becomes a plain function: ``torch.autograd.grad`` of ``model.loss`` with
@@ -7,15 +8,48 @@ passed in are never modified), the microbatches taken one after another
 (the reference's ``lax.scan``) with their gradients summed in fp32 and
 divided by their count, then ``compress_grads`` (int8
 quantize-dequantize) where the run asks for it, then AdamW.
+
+``make_train_step(model, run_cfg, mesh)`` is the counterpart of the
+reference's ``jax.jit`` with ``in_shardings`` from ``dist/sharding.py``.
+Its parameters and AdamW moments are DTensors laid out by
+``param_shardings`` and its batch is laid out by ``batch_shardings``.
+Each rank
+
+  1. gathers every sharded leaf whole (``full_tensor``: ZeRO-3), so that
+     the model, the flash forward and the backward kernels see plain
+     tensors, and takes the loss and gradients of its own rows of the
+     batch;
+  2. sums the gradients over the data ranks, divides by their number
+     and keeps its block of each leaf under the moments' placements (a
+     reduce-scatter where the leaf is sharded over data, an all-reduce
+     where it is not), and averages the loss and the model's metrics
+     over the data ranks;
+  3. takes the quantities that span every shard of a leaf globally: the
+     int8 scale of ``compress_grads`` (a max of the shards' maxima,
+     shared across a stack's layers as in ``compression.compress_tree``)
+     and the clip's gradient norm (a sum of the shards' sums of squares,
+     each block counted once);
+  4. applies AdamW to its blocks and returns new DTensors of the
+     inputs' placements.
+
+Its loss is the mean of the data ranks' per-row means, which is the
+global batch's mean for a loss that averages over rows; an MoE's
+load-balance loss is not such a mean, and the mesh step averages the
+ranks' values of it (ROADMAP Queue 3).  On a mesh of one rank every
+collective is a copy and the step is bitwise the step without a mesh.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from ..dist import compression
+from ..dist import sharding as sh
 from . import optimizer
 from .tree import leaves, tree_map, unflatten
 
@@ -45,35 +79,170 @@ def value_and_grad(model, params, batch, loss_kwargs=None):
         unflatten(params, grads)
 
 
-def make_train_step(model, run_cfg, *, loss_kwargs: Optional[dict] = None):
+def _loss_and_grads(model, params, batch, m: int, loss_kwargs):
+    """(loss, metrics, grads) over ``m`` microbatches: their fp32
+    gradient sums and losses divided by m, and no model metrics when
+    m > 1, as the reference gives."""
+    if m == 1:
+        return value_and_grad(model, params, batch, loss_kwargs)
+    grads = tree_map(lambda p: torch.zeros(
+        p.shape, dtype=torch.float32, device=p.device), params)
+    loss = None
+    for i in range(m):
+        l, _, g = value_and_grad(model, params, _microbatch(batch, m, i),
+                                  loss_kwargs)
+        grads = tree_map(lambda a, b: a + b.float(), grads, g)
+        loss = l if loss is None else loss + l
+    return loss / m, {}, tree_map(lambda g: g / m, grads)
+
+
+def make_train_step(model, run_cfg, mesh=None, *,
+                    loss_kwargs: Optional[dict] = None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics {"loss", "grad_norm", "lr", and the model's metrics at one
-    microbatch}), each metric a 0-d tensor on the model's device."""
+    microbatch}), each metric a 0-d tensor on the model's device.
+
+    With ``mesh`` (a ``DeviceMesh`` with the data axes of
+    ``dist.sharding``), the parameters, the AdamW moments and the batch
+    are laid out over it (DTensors; a plain tensor is taken as
+    replicated) and the step runs as the module's docstring says."""
     loss_kwargs = dict(loss_kwargs or {})
     m = max(1, run_cfg.microbatches)
+    if mesh is not None:
+        return _placed_step(model, run_cfg, mesh, m, loss_kwargs)
 
     def train_step(params, opt_state, batch):
-        if m == 1:
-            loss, metrics, grads = value_and_grad(model, params, batch,
-                                                   loss_kwargs)
-        else:
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            loss = None
-            for i in range(m):
-                l, _, g = value_and_grad(model, params,
-                                          _microbatch(batch, m, i),
-                                          loss_kwargs)
-                grads = tree_map(lambda a, b: a + b.float(), grads, g)
-                loss = l if loss is None else loss + l
-            grads = tree_map(lambda g: g / m, grads)
-            loss = loss / m
-            metrics = {}
+        loss, metrics, grads = _loss_and_grads(model, params, batch, m,
+                                               loss_kwargs)
         if run_cfg.compress_grads:
             grads = compression.compress_tree(grads, model.stacked)
         params, opt_state, opt_metrics = optimizer.apply(
             params, grads, opt_state, run_cfg)
         return params, opt_state, {"loss": loss, **opt_metrics, **metrics}
+
+    return train_step
+
+
+def _all_reduce(t: torch.Tensor, mesh, dims, op=dist.ReduceOp.SUM):
+    """``t`` reduced in place over the ranks of mesh dims ``dims``, one
+    collective a dim."""
+    for i in dims:
+        dist.all_reduce(t, op=op, group=mesh.get_group(i))
+    return t
+
+
+def _placed_step(model, run_cfg, mesh, m: int, loss_kwargs):
+    names = mesh.mesh_dim_names
+    # the batch's axes, as dist.sharding.batch_specs lays the batch out
+    data = [names.index(a) for a in (sh.data_axes(mesh) or names[:1])]
+    n_data = math.prod(mesh.size(i) for i in data)
+    every = range(mesh.ndim)
+    partial = tuple(Partial() if i in data else Replicate() for i in every)
+
+    def reduced(g: torch.Tensor, placements) -> torch.Tensor:
+        """This rank's block under ``placements`` of the gradient summed
+        over the data ranks, divided by their number."""
+        d = DTensor.from_local(g, mesh, partial, run_check=False,
+                               shape=g.shape, stride=g.stride())
+        return d.redistribute(mesh, placements).to_local() / n_data
+
+    def counted_once(placements) -> bool:
+        """Whether this rank's block of a leaf so placed is the one that
+        counts for it in a sum over every rank: the first of the ranks
+        that hold the same block (coordinate 0 on each dim where the
+        leaf is replicated)."""
+        coords = mesh.get_coordinate()
+        return all(not isinstance(p, Replicate) or coords[i] == 0
+                   for i, p in enumerate(placements))
+
+    def layout(x) -> tuple:
+        """A leaf's placements (a plain tensor's: replicated)."""
+        if isinstance(x, DTensor):
+            return tuple(x.placements)
+        return (Replicate(),) * mesh.ndim
+
+    def block(x, placements) -> torch.Tensor:
+        """This rank's block of leaf ``x`` under ``placements``."""
+        if not isinstance(x, DTensor):
+            return sh.shard_of(x, mesh, placements)
+        if tuple(x.placements) == placements:
+            return x.to_local()
+        return x.redistribute(mesh, placements).to_local()
+
+    def train_step(params, opt_state, batch):
+        flat_p = leaves(params)
+        dev = sh.local(flat_p[0]).device
+        # ZeRO-3: each leaf whole for the model
+        with torch.no_grad():
+            whole = [sh.whole(p) for p in flat_p]
+        rows = {k: sh.local(v) for k, v in batch.items()}
+        loss, metrics, grads = _loss_and_grads(
+            model, unflatten(params, whole), rows, m, loss_kwargs)
+        del whole
+
+        # the loss and the model's metrics: means over the data ranks
+        keys = list(metrics)
+        stats = torch.stack([loss.float()] + [metrics[k].float()
+                                              for k in keys])
+        stats = _all_reduce(stats, mesh, data) / n_data
+        loss = stats[0].to(loss.dtype)
+        metrics = {k: stats[1 + i].to(metrics[k].dtype)
+                   for i, k in enumerate(keys)}
+
+        # each gradient summed over the data ranks, in the moments' layout
+        mu = leaves(opt_state.mu)
+        nu = leaves(opt_state.nu)
+        lay_p = [layout(p) for p in flat_p]
+        lay_o = [layout(u) for u in mu]
+        g_loc = [reduced(g, lay) for g, lay in zip(leaves(grads), lay_o)]
+        del grads
+        if run_cfg.compress_grads:
+            # the int8 scale of each leaf: a max over all of its blocks
+            amax = leaves(compression._amax(unflatten(params, g_loc),
+                                            model.stacked))
+            amax = _all_reduce(torch.stack(amax), mesh, every,
+                               dist.ReduceOp.MAX)
+            g_loc = [compression.quantize_dequantize(g, a)
+                     for g, a in zip(g_loc, amax.unbind())]
+        # the clip's norm: each block's sum of squares counted once
+        sq = torch.stack([
+            torch.sum(torch.square(g.float())) if counted_once(lay)
+            else torch.zeros((), dtype=torch.float32, device=dev)
+            for g, lay in zip(g_loc, lay_o)])
+        sq = _all_reduce(sq, mesh, every)
+        gnorm = torch.sqrt(sum(sq.unbind()))
+
+        # AdamW on this rank's blocks, in the moments' layout
+        p_loc = [block(p, lo) for p, lo in zip(flat_p, lay_o)]
+        state = optimizer.AdamWState(
+            step=sh.local(opt_state.step),
+            mu=unflatten(opt_state.mu, [sh.local(u) for u in mu]),
+            nu=unflatten(opt_state.nu, [sh.local(v) for v in nu]))
+        new_p, new_state, opt_metrics = optimizer.apply(
+            unflatten(params, p_loc), unflatten(params, g_loc), state,
+            run_cfg, gnorm=gnorm)
+
+        def placed(x, like, lay):
+            return DTensor.from_local(x, mesh, lay, run_check=False,
+                                      shape=like.shape, stride=like.stride())
+
+        new_params = []
+        for x, p, lp, lo in zip(leaves(new_p), flat_p, lay_p, lay_o):
+            d = placed(x, p, lo)
+            new_params.append(d if lp == lo else d.redistribute(mesh, lp))
+        step = new_state.step
+        if isinstance(opt_state.step, DTensor):
+            step = placed(step, opt_state.step, opt_state.step.placements)
+        new_state = optimizer.AdamWState(
+            step=step,
+            mu=unflatten(opt_state.mu, [placed(x, u, lo) for x, u, lo in
+                                        zip(leaves(new_state.mu), mu,
+                                            lay_o)]),
+            nu=unflatten(opt_state.nu, [placed(x, v, lo) for x, v, lo in
+                                        zip(leaves(new_state.nu), nu,
+                                            lay_o)]))
+        return unflatten(params, new_params), new_state, \
+            {"loss": loss, **opt_metrics, **metrics}
 
     return train_step
 

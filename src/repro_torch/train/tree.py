@@ -69,3 +69,24 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
     if any(len(f) != len(flats[0]) for f in flats):
         raise ValueError("trees differ in their number of leaves")
     return unflatten(tree, [fn(*xs) for xs in zip(*flats)])
+
+
+def leaves_up_to(like, tree) -> list:
+    """The subtrees of ``tree`` at the places of ``like``'s leaves, in
+    leaf order: ``tree`` has ``like``'s structure down to those places
+    and anything below them (a spec tuple, say) is taken whole."""
+    if not _is_node(like):
+        return [tree]
+    out = []
+    if isinstance(like, dict):
+        for k, v in _children(like):
+            out += leaves_up_to(v, tree[k])
+    elif isinstance(like, tuple) and hasattr(like, "_fields"):
+        for k, v in _children(like):
+            out += leaves_up_to(v, getattr(tree, k))
+    else:
+        if len(like) != len(tree):
+            raise ValueError("trees differ in their number of leaves")
+        for v, t in zip(like, tree):
+            out += leaves_up_to(v, t)
+    return out

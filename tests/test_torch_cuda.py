@@ -285,6 +285,64 @@ def test_cuda_world1_funnel_is_the_single_card_run(cuda):
         dist.destroy_process_group()
 
 
+@pytest.mark.cuda
+def test_cuda_world1_placed_train_step_is_the_unplaced_step(cuda):
+    """``make_train_step(model, run_cfg, mesh)`` on a world-1 NCCL
+    ("data", "model") mesh, the parameters and AdamW state laid out by
+    ``param_shardings`` and the batch by ``batch_shardings``: two steps of
+    a reduced bf16 granite (2 layers, hd 64, through the flash kernels)
+    bitwise the steps without a mesh, losses and every leaf."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import optimizer
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.tree import leaves, tree_map
+
+    assert not dist.is_initialized()
+    cfg = get_config("granite-3-8b").reduced(n_layers=2, dtype="bfloat16",
+                                             head_dim=64)
+    model = build_model(cfg, device=cuda)
+    p0 = model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = _rng(7)
+    batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))
+                                    .astype(np.int32)).to(cuda)
+                for k in ("tokens", "targets")} for _ in range(2)]
+    rc = RunConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    p, o = p0, optimizer.init(p0)
+    plain = make_train_step(model, rc)
+    want = []
+    for b in batches:
+        p, o, met = plain(p, o, b)
+        want.append(float(met["loss"]))
+    mesh = make_mesh((1, 1), ("data", "model"))
+    try:
+        assert dist.get_backend() == "nccl"
+
+        def place(tree, shardings):
+            return tree_map(lambda x, s: s.place(x), tree, shardings)
+
+        state = (p0, optimizer.init(p0))
+        pm, om = place(state, sh.param_shardings(state, mesh))
+        step = make_train_step(model, rc, mesh)
+        ops.reset_launch_counts()
+        got = []
+        for b in batches:
+            pm, om, met = step(pm, om, place(b, sh.batch_shardings(mesh, b)))
+            got.append(float(met["loss"]))
+        counts = ops.launch_counts()
+        assert got == want
+        assert all(torch.equal(sh.whole(a), b)
+                   for a, b in zip(leaves((pm, om)), leaves((p, o))))
+        assert counts["flash_attention_wgmma"] == 2 * 2 * cfg.n_layers
+        assert counts["flash_attention_bwd_wgmma_dq"] == 2 * cfg.n_layers
+    finally:
+        dist.destroy_process_group()
+
+
 def _random_csr(rng, n, m, dev):
     e = rng.integers(0, n, (m, 2))
     e = e[e[:, 0] != e[:, 1]]

@@ -1,9 +1,10 @@
 """The ranks of the multi-process tests of ``repro_torch``'s funnel
-(tests/test_torch_dist.py): each joins a gloo group from a ``file://``
-store, runs one task on the CPU and saves its outputs for the test
-process to compare.  It imports torch, numpy and ``repro_torch`` only:
-the test process computes the JAX reference and hands the inputs over as
-``.npy`` files.
+(tests/test_torch_dist.py) and of its distributed training
+(tests/test_torch_dist_train.py): each joins a gloo group from a
+``file://`` store, runs one task on the CPU and saves its outputs for
+the test process to compare.  It imports torch, numpy and
+``repro_torch`` only: the test process computes the JAX reference and
+hands the inputs over as ``.npy`` files.
 """
 
 from __future__ import annotations
@@ -127,4 +128,126 @@ def world3(mesh, tmp: Path) -> dict:
             "approx_linkage": res.linkage, "approx_labels": res.labels}
 
 
-TASKS = {"world4": world4, "world3": world3}
+def _place(tree, shardings):
+    from repro_torch.train.tree import tree_map
+    return tree_map(lambda x, s: s.place(x), tree, shardings)
+
+
+def _flat(tree) -> list:
+    from repro_torch.dist import sharding as sh
+    from repro_torch.train.tree import leaves
+    return [_np(sh.whole(x)) for x in leaves(tree)]
+
+
+def train4(mesh, tmp: Path) -> dict:
+    """Distributed training over 4 ranks: the placed train step on (4, 1)
+    and (2, 2) ("data", "model") meshes (with and without int8
+    compression; on (2, 2) also with the parameters TP-sharded only;
+    leaves of 512 elements and up sharded, so that the reduced model's
+    layout is not all replicated), ``remesh`` and
+    ``restore(shardings=)`` from (4, 1) to (2, 2), checkpoints read
+    across a plain run and a mesh run, ``psum_compressed`` over the data
+    axis, and the block each rank holds of a leaf sharded over
+    ("pod", "data")."""
+    import torch
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.dist import compression
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import checkpoint, elastic, optimizer
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.tree import leaves, tree_map
+
+    sh._MIN_SHARD_ELEMS = 512
+    cfg = get_config("granite-3-8b").reduced(n_layers=2)
+    model = build_model(cfg, device="cpu")
+    p0 = model.init(torch.Generator().manual_seed(0))
+    state0 = (p0, optimizer.init(p0))
+    data = np.load(tmp / "train4.npz")
+    batches = [{k: torch.from_numpy(data[f"{k}{s}"])
+                for k in ("tokens", "targets")} for s in range(2)]
+    out = {}
+    meshes = {"4x1": make_mesh((4, 1), ("data", "model"), device="cpu"),
+              "2x2": make_mesh((2, 2), ("data", "model"), device="cpu")}
+    # "2x2tp": ZeRO-1, the parameters TP-sharded only, the moments 2-D
+    for name, m, mode in (("4x1", meshes["4x1"], "2d"),
+                          ("2x2", meshes["2x2"], "2d"),
+                          ("2x2tp", meshes["2x2"], "tp_only")):
+        layout = (sh.param_shardings(p0, m, weights_mode=mode),
+                  sh.param_shardings(state0[1], m))
+        out[f"sharded_{name}"] = np.array([
+            any(isinstance(pl, Shard) for pl in s.placements)
+            for s in leaves(layout)])
+        out[f"zero1_{name}"] = np.array(sum(
+            a.placements != b.placements for a, b in
+            zip(leaves(layout[0]), leaves(layout[1].mu))))
+        for compress in (False, True) if mode == "2d" else (False,):
+            rc = RunConfig(lr=1e-5, warmup_steps=1, total_steps=10,
+                           compress_grads=compress)
+            step = make_train_step(model, rc, m)
+            p, o = _place(state0, layout)
+            losses, norms = [], []
+            for b in batches:
+                p, o, met = step(p, o, _place(b, sh.batch_shardings(m, b)))
+                losses.append(float(met["loss"]))
+                norms.append(float(met["grad_norm"]))
+            key = f"{name}_{int(compress)}"
+            out[f"loss_{key}"] = np.array(losses)
+            out[f"gnorm_{key}"] = np.array(norms)
+            out[f"layout_kept_{key}"] = np.array(all(
+                tuple(x.placements) == s.placements
+                for x, s in zip(leaves((p, o)), leaves(layout))))
+            for i, a in enumerate(_flat(p)):
+                out[f"p_{key}_{i}"] = a
+            if name == "4x1" and not compress:
+                trained = (p, o)
+
+    # from (4, 1) to (2, 2): remesh, and a checkpoint saved on one and
+    # restored on the other; the plain run's checkpoint onto (4, 1)
+    new = meshes["2x2"]
+    moved = elastic.remesh(trained, new)
+    ck = str(tmp / "ckpt_mesh")
+    checkpoint.save(trained, ck, 2)
+    got, step_read, _ = checkpoint.restore(
+        trained, ck, shardings=sh.param_shardings(trained, new))
+    want = _flat(trained)
+    out["remesh_bitwise"] = np.array(all(
+        np.array_equal(a, b) for a, b in zip(_flat(moved), want)))
+    out["restore_bitwise"] = np.array(step_read == 2 and all(
+        np.array_equal(a, b) for a, b in zip(_flat(got), want)))
+    lay_new = [s.placements for s in leaves(sh.param_shardings(trained,
+                                                               new))]
+    out["placed_on_new"] = np.array(all(
+        x.device_mesh == new and tuple(x.placements) == tuple(pl)
+        for x, pl in zip(leaves(moved) + leaves(got), lay_new + lay_new)))
+    plain, _, _ = checkpoint.restore(
+        state0, str(tmp / "ckpt_plain"),
+        shardings=sh.param_shardings(state0, meshes["4x1"]))
+    out["plain_read_bitwise"] = np.array(all(
+        np.array_equal(a, b) for a, b in zip(_flat(plain), _flat(state0))))
+
+    # psum_compressed over the data axis of (4, 1): each rank its own
+    # gradients, from the rank's seed
+    rank = meshes["4x1"].get_coordinate()[0]
+    r = np.random.default_rng(100 + rank)
+    g = {"w": torch.from_numpy((r.normal(size=(33, 17)) * 1e-2)
+                               .astype(np.float32)),
+         "b": torch.from_numpy(r.normal(size=(9,)).astype(np.float32))}
+    summed = compression.psum_compressed(g, "data", meshes["4x1"])
+    out["psum_w"], out["psum_b"] = _np(summed["w"]), _np(summed["b"])
+
+    # the block of a leaf sharded over ("pod", "data") on each rank
+    pod = make_mesh((2, 2), ("pod", "data"), device="cpu")
+    x = torch.arange(8 * 3, dtype=torch.float32).reshape(8, 3)
+    d = sh.from_whole(x, pod, sh.placements_of((("pod", "data"), None),
+                                                pod))
+    out["nested_block"] = _np(d.to_local())
+    out["nested_coords"] = np.array(pod.get_coordinate())
+    out["nested_whole"] = _np(d.full_tensor())
+    return out
+
+
+TASKS = {"world4": world4, "world3": world3, "train4": train4}
