@@ -82,7 +82,8 @@ Phases (any failure exits non-zero; no phase is skipped):
    bitwise-equal linkage on one S (OPT, HEAP with its exact squarings,
    and approx), agreeing labels (ARI >= 0.99) from one X, and at
    sim_k = n-1 the sparse TMFG from X is bitwise the dense OPT TMFG.
-7. TMFG loops at n = 2000: for the dense source with the top-64 table,
+7. TMFG loops at n = 2000 (at LOOP_N_SMALL where the projected finish
+   passes 600 s): for the dense source with the top-64 table,
    without it, and the table-first source from Z, the cached loop
    program (the main path's: ``dense_program``, ``sparse_lazy_tmfg``)
    on one input, then replayed on a second input bitwise the same step
@@ -279,7 +280,7 @@ Phases (any failure exits non-zero; no phase is skipped):
    ``checkpoint.restore(shardings=)``, bitwise ``elastic.remesh`` of the
    state, and one more step there, bitwise 13b's profiled step.  (c)
    ``launch.train.main`` on xlstm-125m at full width and depth (batch 8,
-   256 tokens), its state and batches laid out on a world-1 ("data",
+   TRAIN_CLI_SEQ tokens), its state and batches laid out on a world-1 ("data",
    "model") mesh and stepped by the mesh step, to TRAIN_CLI_STEPS steps
    with a checkpoint every TRAIN_CLI_EVERY, then the same call to
    TRAIN_CLI_MORE steps, which must resume (through
@@ -297,7 +298,18 @@ Phases (any failure exits non-zero; no phase is skipped):
    sequence, counts reset just before and read just after: two fp32
    flash launches a layer a step (each saving the lse) and one of each
    split-TF32 backward kernel, and no other kernel (none of the
-   CUDA-core backward's).
+   CUDA-core backward's).  (g, ``step_cost`` and ``dryrun_phase``) The
+   cost walker (``launch/cost.py``) over one more step of 13b's
+   granite-3-8b and of 13d's gemma3-4b, a call of its own after the
+   timed steps: flops, HBM bytes and wire bytes on the card (each
+   kernel charged by its formula), the same step's count on the meta
+   device (the plain routes; flops equal, bytes within 1%), 6 N tokens
+   and the useful share, and from 13b's and 13d's median s/step the
+   achieved TFLOP/s and its share of the card's 989 dense bf16.  Then
+   the dry run (``launch/dryrun.py``) of DRYRUN_CELLS, each on a fake
+   process group of 256 or 512 ranks in a subprocess that uses no card,
+   after the timed phases: each cell ``ok``, its ``n_devices`` and
+   ``fits_hbm``, its seconds.
 
 The line before the last is the JSON object of per-kernel numbers (with
 each kernel's launches on phase 11's approx and dense funnels, on
@@ -385,6 +397,12 @@ REPEAT_DATASET = "CBF"
 STAGED_BUDGET_S = 600.0
 APPROX_PER_DENSE = 3.0
 PARITY_S = 190.0
+# phase 7's loops: their expected seconds in all at n = PARITY_N (the
+# eager reference steps, 1.4-3.0 ms a pop on the host, take most of
+# them), and the n they run at where the projected finish passes the
+# budget
+LOOP_S = 150.0
+LOOP_N_SMALL = 1000
 # phase 8 (the sparse tail and the batch entry points): its expected
 # seconds in all, and those of its n = PARITY_N part (8b), which runs at
 # REPEAT_DATASET's n where it would take the script past the budget
@@ -452,8 +470,10 @@ KVQ_FREE_COSINE = 0.95
 # (13a); granite-3-8b at full width cut to TRAIN_LAYERS layers, trained
 # in bf16 on one sequence of
 # TRAIN_SEQ tokens for TRAIN_STEPS steps (13b); launch.train.main on
-# xlstm-125m at full width and depth, TRAIN_CLI_STEPS steps with a
-# checkpoint every TRAIN_CLI_EVERY, then resumed to TRAIN_CLI_MORE (13c);
+# xlstm-125m at full width and depth, TRAIN_CLI_STEPS steps of 8
+# sequences of TRAIN_CLI_SEQ tokens with a checkpoint every
+# TRAIN_CLI_EVERY, then resumed to TRAIN_CLI_MORE (13c; its loops over
+# positions take 10-18 s a step at 256 tokens);
 # gemma3-4b (hd 256) at full width cut to TRAIN_HD256_LAYERS layers,
 # TRAIN_HD256_STEPS steps through the wide bf16 backward (13d); 13b's
 # steps again on a world-1 mesh, checkpointed and restored onto another
@@ -479,7 +499,17 @@ TRAIN_HD256_STEPS = 3
 # steps of one TRAIN_SEQ-token sequence
 TRAIN_FP32_LAYERS = 2
 TRAIN_FP32_STEPS = 2
+# the dry run's cells (13g): (arch, shape, mesh); the reference test's
+# cell and one training cell at full depth; the subprocess runs after the
+# timed phases, on the host's CPU; DRYRUN_S its seconds with the walks
+# of 13g (a), for the projected finish
+DRYRUN_CELLS = (("xlstm-125m", "decode_32k", "multi"),
+                ("granite-3-8b", "train_4k", "single"))
+DRYRUN_S = 90.0
+DRYRUN_TIMEOUT_S = 300.0
+BF16_TFLOPS = 989.0
 TRAIN_CLI_ARCH = "xlstm-125m"
+TRAIN_CLI_SEQ = 64
 TRAIN_CLI_STEPS = 2
 TRAIN_CLI_EVERY = 1
 TRAIN_CLI_MORE = 3
@@ -826,8 +856,8 @@ def serve_zoo(seed: int) -> dict:
             drops, routes = [], {"cuda": [], "torch": []}
             real_dispatch = moe_mod.dispatch
 
-            def counting_dispatch(topi, C, E):
-                o = real_dispatch(topi, C, E)
+            def counting_dispatch(*args):
+                o = real_dispatch(*args)
                 drops.append(int((~o[2]).sum()))
                 return o
 
@@ -1280,6 +1310,14 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
                                "profiler",
         seconds=time.perf_counter() - t0)
     log(f"[train] {TRAIN_ARCH}: {json.dumps(out['granite'])}")
+    # 13g (a, b): the cost walker over one more step, on the card and meta
+    t1 = time.perf_counter()
+    rc13b = RunConfig(lr=3e-5, warmup_steps=1, total_steps=TRAIN_STEPS)
+    out["granite_cost"] = step_cost(
+        cfg, lambda m_: make_train_step(m_, rc13b), params, opt,
+        pipe.batch(TRAIN_STEPS + 1))
+    out["granite_cost"]["seconds"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
     ref = dict(losses=losses, after=after, next_loss=next_loss,
                next=(params, opt), s_per_step=s_step)
     del params, opt, model, met, batch, batch0, after
@@ -1293,7 +1331,8 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
     # 13c. launch.train.main at full width and depth, resumed
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=HERE / "build") as ck:
-        args = ["--arch", TRAIN_CLI_ARCH, "--batch", "8", "--seq", "256",
+        args = ["--arch", TRAIN_CLI_ARCH, "--batch", "8",
+                "--seq", str(TRAIN_CLI_SEQ),
                 "--ckpt-dir", ck, "--ckpt-every", str(TRAIN_CLI_EVERY),
                 "--log-every", "1", "--device", device]
         runs = []
@@ -1312,7 +1351,8 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
               f"train: {TRAIN_CLI_ARCH} did not resume from step "
               f"{TRAIN_CLI_STEPS}: {runs[1]['log']}")
     resumed = TRAIN_CLI_MORE - TRAIN_CLI_STEPS
-    out["cli"] = dict(arch=TRAIN_CLI_ARCH, batch=8, seq=256, runs=runs,
+    out["cli"] = dict(arch=TRAIN_CLI_ARCH, batch=8, seq=TRAIN_CLI_SEQ,
+                      runs=runs,
                       s_per_step_resumed=runs[1]["seconds"] / resumed,
                       seconds=time.perf_counter() - t0)
 
@@ -1379,6 +1419,12 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
                            min_leaf_grad_cosine=min(cos)),
         seconds=time.perf_counter() - t0)
     log(f"[train] {TRAIN_HD256_ARCH}: {json.dumps(out['hd256'])}")
+    t1 = time.perf_counter()
+    rc13d = RunConfig(lr=3e-5, warmup_steps=1, total_steps=TRAIN_HD256_STEPS)
+    out["hd256_cost"] = step_cost(
+        cfg, lambda m_: make_train_step(m_, rc13d), params, opt,
+        pipe.batch(TRAIN_HD256_STEPS + 1))
+    out["hd256_cost"]["seconds"] = time.perf_counter() - t1
     del params, opt, model, met, batch, batch0
     torch.cuda.empty_cache()
 
@@ -1449,6 +1495,97 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
     log(f"[train] {TRAIN_ARCH} fp32: {json.dumps(out['fp32'])}")
     del params, opt, model, met, batch, batch0
     torch.cuda.empty_cache()
+    return out
+
+
+def step_cost(cfg, make_step, params, opt, batch) -> dict:
+    """Phase 13g (a, b): the cost walker over one step of ``make_step``
+    (a function of the model) on the card, a call of its own, and over
+    the same step on the meta device, its state and batch of the same
+    shapes; the two counts must agree, flops exactly and HBM bytes
+    within 1%.  Returns the card's totals, the meta count, 6 N tokens
+    and the useful share."""
+    import torch
+    from repro_torch.launch import cost
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.tree import tree_map
+
+    _, card = cost.walk(make_step(build_model(cfg, device=params_device(
+        params))), params, opt, batch)
+    torch.cuda.synchronize()
+
+    def meta(x):
+        return torch.empty_like(x, device="meta")
+
+    _, on_meta = cost.walk(make_step(build_model(cfg, device="meta")),
+                           tree_map(meta, params), tree_map(meta, opt),
+                           {k: meta(v) for k, v in batch.items()})
+    t, m = card.totals, on_meta.totals
+    tokens = sum(v.numel() for k, v in batch.items() if k == "tokens")
+    model_flops = 6.0 * cfg.active_param_count() * tokens
+    rel = abs(t.hbm_bytes - m.hbm_bytes) / max(m.hbm_bytes, 1.0)
+    check(t.flops == m.flops and rel <= 0.01,
+          f"cost: {cfg.name} on the card {t.flops} flops, {t.hbm_bytes} B; "
+          f"on meta {m.flops}, {m.hbm_bytes}")
+    top = sorted(card.table.items(), key=lambda kv: -kv[1][1])[:6]
+    return dict(flops=t.flops, hbm_bytes=t.hbm_bytes,
+                wire_bytes=t.collective_wire_bytes,
+                meta_flops=m.flops, meta_hbm_bytes=m.hbm_bytes,
+                bytes_rel_diff=rel, model_flops=model_flops,
+                useful_flops_ratio=model_flops / t.flops,
+                kernel_flops={k: v[1] for k, v in card.table.items()
+                              if k.startswith("kernel.")},
+                top_ops={k: v for k, v in top})
+
+
+def params_device(params):
+    from repro_torch.train.tree import leaves
+    return leaves(params)[0].device
+
+
+def dryrun_phase(out_dir: Path) -> dict:
+    """Phase 13g (c), after the timed phases: the dry run of DRYRUN_CELLS
+    in one subprocess with no card (``CUDA_VISIBLE_DEVICES`` empty, its
+    fake tensors on the CPU, one thread), its records under ``out_dir``;
+    each cell's record checked: ``ok``, ``n_devices`` (256 single, 512
+    multi) and ``fits_hbm``, its seconds."""
+    import os
+    import shutil
+    shutil.rmtree(out_dir, ignore_errors=True)
+    code = ("from repro_torch.launch import dryrun\n"
+            "for arch, shape, mesh in %r:\n"
+            "    dryrun.main(['--arch', arch, '--shape', shape,\n"
+            "                 '--mesh', mesh, '--out', %r])\n"
+            % (DRYRUN_CELLS, str(out_dir)))
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-c", code], env=env,
+                              capture_output=True, text=True,
+                              timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"dry run: not done in {DRYRUN_TIMEOUT_S} s")
+    out = dict(subprocess_s=time.perf_counter() - t0, cells={})
+    check(proc.returncode == 0 and proc.stdout.count(
+              "dry-run complete: 1/1 cells OK") == len(DRYRUN_CELLS),
+          f"dry run: exit {proc.returncode}: {proc.stdout[-1500:]} "
+          f"{proc.stderr[-1500:]}")
+    for arch, shape, mesh in DRYRUN_CELLS:
+        path = out_dir / f"{arch}__{shape}__{mesh}.json"
+        rec = json.loads(path.read_text())
+        want = 512 if mesh == "multi" else 256
+        check(rec["ok"] and rec["n_devices"] == want and rec["fits_hbm"],
+              f"dry run: {path.name}: ok {rec['ok']}, n_devices "
+              f"{rec.get('n_devices')}, fits_hbm {rec.get('fits_hbm')}, "
+              f"{rec.get('error')}")
+        out["cells"][f"{arch} {shape} {mesh}"] = dict(
+            trace_s=rec["trace_s"], wall_s=rec["wall_s"],
+            memory=rec["memory"], fits_hbm=rec["fits_hbm"],
+            n_devices=rec["n_devices"], hw=rec["hw"],
+            roofline=rec["roofline"])
     return out
 
 
@@ -2555,7 +2692,8 @@ def main() -> None:
 
     log(f"[time] parity phase done at {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 7. the TMFG device loops at n = 2000 ---------------------------
+    # ---- 7. the TMFG device loops at n = 2000 (LOOP_N_SMALL past the
+    # budget) -------------------------------------------------------------
     # the main path's cached loop program (T steps a CUDA-graph replay)
     # for each value source: a first run on one input, a replay on a
     # second input against the same step run eagerly on it, and a replay
@@ -2576,8 +2714,7 @@ def main() -> None:
                                                       stats=st_)
             return r_, st_["host_syncs"], w_, c_
         S_, tab_ = inp
-        prog = tmfg_mod.dense_program(PARITY_N, 0 if tab_ is None else 64,
-                                      dev)
+        prog = tmfg_mod.dense_program(n7, 0 if tab_ is None else 64, dev)
         with prog.lock:
             prog.d.S.copy_(S_)
             if tab_ is not None:
@@ -2596,8 +2733,17 @@ def main() -> None:
         check(bool(torch.equal(a_[2], b_[2])) and a_[3] == b_[3],
               f"{what}: edge values or counters differ from {against}")
 
-    X2, _ = make_dataset(PARITY_N, 46, 8, noise=0.5, seed=args.seed + 2)
-    inputs = (loop_inputs(Xpd), loop_inputs(torch.from_numpy(X2).to(dev)))
+    n7, X1 = PARITY_N, Xpd
+    projected = (time.perf_counter() - t_start + LOOP_S + SPARSE_S
+                 + FILTER_S + STREAM_S)
+    if projected > STAGED_BUDGET_S:
+        n7 = LOOP_N_SMALL
+        X1 = torch.from_numpy(make_dataset(n7, 46, 8, noise=0.5,
+                                           seed=args.seed + 3)[0]).to(dev)
+        log(f"[loops] projected finish {projected:.1f} s > "
+            f"{STAGED_BUDGET_S} s: the loops run at n={n7}")
+    X2, _ = make_dataset(n7, 46, 8, noise=0.5, seed=args.seed + 2)
+    inputs = (loop_inputs(X1), loop_inputs(torch.from_numpy(X2).to(dev)))
     loops = {}
     for what in inputs[0]:
         sync()
@@ -2627,11 +2773,11 @@ def main() -> None:
                            eager_s=t4 - t3, graph_syncs=got[1],
                            eager_syncs=want[1], fallbacks=got[3].fallbacks,
                            pair_misses=got[3].pair_misses)
-    log(f"[loops] n={PARITY_N}, T={tmfg_mod.STEPS_PER_SYNC}: the cached "
+    log(f"[loops] n={n7}, T={tmfg_mod.STEPS_PER_SYNC}: the cached "
         f"program's replay on a second input bitwise the eager steps, and "
         f"its replay on the first input bitwise its first run, for every "
         f"source: {json.dumps(loops)}")
-    del inputs, first, got, again, want
+    del inputs, first, got, again, want, X1
     # CORR and PAR-10 end to end: the masked-argmax kernel in every CORR
     # step and ORIG round against masked_argmax_ref, min-plus and HAC as
     # on the other paths
@@ -3399,7 +3545,8 @@ def main() -> None:
     # there (at world size 1 the two calls are the same program)
     na, Xa_np, ka = n, X_np, k
     Za_ref, labels_a_ref = Z5, labels5
-    projected = time.perf_counter() - t_start + MESH_S + ZOO_S + TRAIN_S
+    projected = (time.perf_counter() - t_start + MESH_S + ZOO_S + TRAIN_S
+                 + DRYRUN_S)
     if projected > STAGED_BUDGET_S:
         na, ka = PARITY_N, 8
         Xa_np, _ = make_dataset(na, 46, 8, noise=0.5, seed=args.seed + 1)
@@ -3607,6 +3754,21 @@ def main() -> None:
     train_s = time.perf_counter() - t13
     log(f"[time] train phase done at {time.perf_counter() - t_start:.1f} s"
         f" ({train_s:.1f} s)")
+    # 13g: the walker's counts against the steps' times, then the dry run
+    t13g = time.perf_counter()
+    for key, run in (("granite_cost", "granite"), ("hd256_cost", "hd256")):
+        c_ = train[key]
+        tflops = c_["flops"] / train[run]["s_per_step_median"] / 1e12
+        c_.update(s_per_step_median=train[run]["s_per_step_median"],
+                  achieved_tflops=tflops,
+                  share_of_bf16_peak=tflops / BF16_TFLOPS)
+        log(f"[cost] {train[run]['arch']}: {json.dumps(c_)}")
+    train["dryrun"] = dryrun_phase(HERE / "build" / "dryrun_13g")
+    log(f"[dryrun] {json.dumps(train['dryrun'])}")
+    train["cost_phase_s"] = time.perf_counter() - t13g + sum(
+        train[k]["seconds"] for k in ("granite_cost", "hd256_cost"))
+    log(f"[time] 13g done at {time.perf_counter() - t_start:.1f} s "
+        f"({train['cost_phase_s']:.1f} s)")
     # the four backward kernels' lines: each with its head case, its
     # cases in 13a, and its launches on the training path that takes it
     # (the wgmma one on 13b's granite-3-8b, the wide one on 13d's

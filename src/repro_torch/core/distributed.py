@@ -253,8 +253,11 @@ def apsp_hub_sharded(W, mesh, *, axis: str = "data",
     strength = dist_sh.gather_rows(part, n, mesh, axis)
     hubs = torch.sort(strength, descending=True, stable=True)[1][:h]
     D_h = torch.full((h, n), float("inf"), device=Wl.device)
-    mine = (hubs >= r0) & (hubs < r0 + nl)
-    D_h[mine] = Wl[hubs[mine] - r0]
+    if nl:
+        # the hubs' rows of W from their owners, +inf from the others
+        mine = (hubs >= r0) & (hubs < r0 + nl)
+        D_h = torch.where(mine[:, None], Wl[(hubs - r0).clamp(0, nl - 1)],
+                          D_h)
     dist.all_reduce(D_h, op=dist.ReduceOp.MIN, group=grp)
 
     i, changed = 0, True
@@ -263,7 +266,7 @@ def apsp_hub_sharded(W, mesh, *, axis: str = "data",
                            backend=backend)
         dist.all_reduce(part, op=dist.ReduceOp.MIN, group=grp)
         D2 = torch.minimum(D_h, part)
-        changed = bool((D2 < D_h).any())                 # one sync per round
+        changed = _lowered(D2, D_h)
         D_h = D2
         i += 1
     if stats is not None:
@@ -273,6 +276,12 @@ def apsp_hub_sharded(W, mesh, *, axis: str = "data",
     torch.minimum(est, Wl, out=est)
     return dist_sh.as_dtensor(est, mesh, axis, dist_sh.timeseries_spec(axis),
                               (n, n))
+
+
+def _lowered(new: torch.Tensor, old: torch.Tensor) -> bool:
+    """Whether a round lowered any distance: the hub APSP's one read of
+    data a round (one sync)."""
+    return bool((new < old).any())
 
 
 # ---------------------------------------------------------------------------

@@ -21,17 +21,35 @@ computes on whole local tensors (``train/train_step.py``), and a
 constraint changes a layout, never a value.  Contexts nest; inner
 bindings shadow outer ones, and binding a name to ``None`` un-pins it
 for the inner scope.
+
+One binding carries no layout: ``moe_data``, a :class:`DataRanks` set by
+the mesh train step (``train/train_step.py``), tells ``models/moe.py``
+that the batch's rows are split over data ranks, so that it forms the
+reference's dispatch groups over the global batch.
 """
 
 from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
-from typing import Any, Dict, Iterator, Optional
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterator, Optional
 
+import torch
 from torch.distributed.tensor import DTensor
 
 _local = threading.local()
+
+
+@dataclass(frozen=True)
+class DataRanks:
+    """The data ranks a batch's rows are split over: ``size`` ranks, each
+    holding the same number of rows, rank r's rows before rank r + 1's in
+    the global batch; this rank is the ``index``-th.  ``all_reduce(t)``
+    sums ``t`` over them in place and returns it."""
+    size: int
+    index: int
+    all_reduce: Callable[[torch.Tensor], torch.Tensor]
 
 
 def _stack() -> list:

@@ -18,10 +18,11 @@ restarted run sees the same data) by ``batch_shardings``, and the step
 is ``make_train_step(model, run_cfg, mesh)``.  It checkpoints
 asynchronously every ``--ckpt-every`` steps and at the end (each leaf
 whole), and resumes from the latest checkpoint under ``--ckpt-dir``
-through ``checkpoint.restore(..., shardings=)``.  A checkpoint is named
-by the number of steps done; the reference names its mid-run ones by the
-index of the step just run, so that resuming from one runs that step
-twice.
+through ``checkpoint.restore(..., shardings=)``.  As in the reference, a
+mid-run checkpoint is named by the index of the step just run (after
+step s, for s > 0 a multiple of ``--ckpt-every``) and the last by
+``--steps``; a run resumed from a mid-run checkpoint starts at its
+index, so that it runs that step again, as the reference's does.
 """
 
 from __future__ import annotations
@@ -134,9 +135,8 @@ def _run(args, cfg, model, run_cfg):
                       f"gnorm {metrics['grad_norm']:.3f} "
                       f"lr {metrics['lr']:.2e} "
                       f"({time.time() - t0:.2f}s/step)")
-            done = step + 1
-            if ckpt and done % args.ckpt_every == 0 and done < args.steps:
-                ckpt.save((params, opt_state), done)
+            if ckpt and step > 0 and step % args.ckpt_every == 0:
+                ckpt.save((params, opt_state), step)
         if ckpt:
             ckpt.save((params, opt_state), args.steps)
     finally:

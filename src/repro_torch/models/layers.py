@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..dist import hints
+
 MLP_KINDS = ("swiglu", "relu2", "gelu")
 
 
@@ -158,7 +160,16 @@ def token_ce(logits: torch.Tensor, targets, vocab: int) -> torch.Tensor:
 def remat(fn, *args, enabled: bool = True):
     """``fn(*args)``, its activations recomputed in the backward
     (``torch.utils.checkpoint``, non-reentrant) where ``enabled`` and
-    autograd records: the port's ``jax.checkpoint`` of one layer."""
+    autograd records: the port's ``jax.checkpoint`` of one layer.  The
+    recomputation runs under the hints of the forward (``dist.hints``):
+    on the card the backward runs in autograd's own thread, which sees
+    no binding of its own."""
     if enabled and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        scope = hints.current()
+
+        def run(*a):
+            with hints.hints(**scope):
+                return fn(*a)
+
+        return checkpoint(run, *args, use_reentrant=False)
     return fn(*args)

@@ -22,8 +22,9 @@ Each rank
   2. sums the gradients over the data ranks, divides by their number
      and keeps its block of each leaf under the moments' placements (a
      reduce-scatter where the leaf is sharded over data, an all-reduce
-     where it is not), and averages the loss and the model's metrics
-     over the data ranks;
+     where it is not; with microbatches, each microbatch's gradients in
+     fp32 as they come, their blocks added up in fp32), and averages the
+     loss and the model's metrics over the data ranks;
   3. takes the quantities that span every shard of a leaf globally: the
      int8 scale of ``compress_grads`` (a max of the shards' maxima,
      shared across a stack's layers as in ``compression.compress_tree``)
@@ -32,11 +33,19 @@ Each rank
   4. applies AdamW to its blocks and returns new DTensors of the
      inputs' placements.
 
-Its loss is the mean of the data ranks' per-row means, which is the
-global batch's mean for a loss that averages over rows; an MoE's
-load-balance loss is not such a mean, and the mesh step averages the
-ranks' values of it (ROADMAP Queue 3).  On a mesh of one rank every
-collective is a copy and the step is bitwise the step without a mesh.
+With ``m`` microbatches the reference's microbatch i is rows [i B/m,
+(i + 1) B/m) of the global batch; one all-gather of the batch at the
+start of the step gives each rank its share of every one of them, rank
+r holding the r-th block of each.  Its loss is the mean of the data
+ranks' per-row means, which is the global batch's mean for a loss that
+averages over rows.  An MoE's load-balance loss is not such a mean: its
+dispatch groups, their capacity and the aux loss of each group are the
+global batch's, which the step tells ``models/moe.py`` by binding
+``moe_data`` (``dist.hints.DataRanks``: the data ranks, this rank's
+place among them and a sum over them); the mean over the data ranks of
+the ranks' aux values and gradients is the reference's.  On a mesh of
+one rank every collective is a copy and the step is bitwise the step
+without a mesh.
 """
 
 from __future__ import annotations
@@ -46,12 +55,12 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from ..dist import compression
+from ..dist import compression, hints
 from ..dist import sharding as sh
 from . import optimizer
-from .tree import leaves, tree_map, unflatten
+from .tree import leaves, unflatten
 
 
 def _microbatch(batch: Dict[str, Any], m: int, i: int) -> Dict[str, Any]:
@@ -79,21 +88,40 @@ def value_and_grad(model, params, batch, loss_kwargs=None):
         unflatten(params, grads)
 
 
-def _loss_and_grads(model, params, batch, m: int, loss_kwargs):
+def _loss_and_grads(model, params, batch, m: int, loss_kwargs,
+                    reduce=None):
     """(loss, metrics, grads) over ``m`` microbatches: their fp32
     gradient sums and losses divided by m, and no model metrics when
-    m > 1, as the reference gives."""
-    if m == 1:
-        return value_and_grad(model, params, batch, loss_kwargs)
-    grads = tree_map(lambda p: torch.zeros(
-        p.shape, dtype=torch.float32, device=p.device), params)
-    loss = None
+    m > 1, as the reference gives.  ``reduce(j, g)``, where given, maps
+    leaf j's gradient of each microbatch (at m > 1 in fp32) before it is
+    added up, and each gradient is dropped once it is mapped."""
+    if reduce is None:
+        def reduce(j, g):
+            return g
+    acc, loss, metrics = None, None, {}
     for i in range(m):
-        l, _, g = value_and_grad(model, params, _microbatch(batch, m, i),
-                                  loss_kwargs)
-        grads = tree_map(lambda a, b: a + b.float(), grads, g)
-        loss = l if loss is None else loss + l
-    return loss / m, {}, tree_map(lambda g: g / m, grads)
+        l, met, g = value_and_grad(
+            model, params, batch if m == 1 else _microbatch(batch, m, i),
+            loss_kwargs)
+        g = leaves(g)
+        part = []
+        for j in range(len(g)):
+            part.append(reduce(j, g[j] if m == 1 else g[j].float()))
+            g[j] = None
+        if acc is None:
+            acc = part
+        else:
+            # leaf by leaf: one set of fp32 sums, not two; a new tensor the
+            # first time (a gradient may be a view autograd shares), then
+            # in place
+            for j, b in enumerate(part):
+                acc[j] = acc[j] + b if i == 1 else acc[j].add_(b)
+        del part
+        loss, metrics = (l, met) if loss is None else (loss + l, {})
+    if m > 1:
+        acc = [a.div_(m) for a in acc]
+        loss = loss / m
+    return loss, metrics, unflatten(params, acc)
 
 
 def make_train_step(model, run_cfg, mesh=None, *,
@@ -169,16 +197,59 @@ def _placed_step(model, run_cfg, mesh, m: int, loss_kwargs):
             return x.to_local()
         return x.redistribute(mesh, placements).to_local()
 
+    def data_rows(batch):
+        """(this rank's rows of the batch, microbatch-major: its block of
+        each of the reference's m microbatches in turn; the DataRanks
+        they are split over)."""
+        first = next(iter(batch.values()))
+        if not (isinstance(first, DTensor) and any(
+                isinstance(p, Shard) for p in first.placements)):
+            # a batch replicated on every rank: each rank takes it whole
+            return {k: sh.local(v) for k, v in batch.items()}, \
+                hints.DataRanks(1, 0, lambda t: t)
+        coords = mesh.get_coordinate()
+        q = 0
+        for i in data:
+            q = q * mesh.size(i) + coords[i]
+        ranks = hints.DataRanks(n_data, q,
+                                lambda t: _all_reduce(t, mesh, data))
+        if m == 1 or n_data == 1:
+            return {k: sh.local(v) for k, v in batch.items()}, ranks
+
+        def mine(x):
+            B = x.shape[0]
+            if B % (m * n_data):
+                raise ValueError(f"batch {B} % (microbatches {m} x data "
+                                 f"ranks {n_data}) != 0")
+            b = B // (m * n_data)
+            return torch.cat([x[i * (B // m) + q * b:][:b] for i in range(m)])
+
+        with torch.no_grad():
+            return {k: mine(sh.whole(v)) for k, v in batch.items()}, ranks
+
     def train_step(params, opt_state, batch):
         flat_p = leaves(params)
         dev = sh.local(flat_p[0]).device
         # ZeRO-3: each leaf whole for the model
         with torch.no_grad():
             whole = [sh.whole(p) for p in flat_p]
-        rows = {k: sh.local(v) for k, v in batch.items()}
-        loss, metrics, grads = _loss_and_grads(
-            model, unflatten(params, whole), rows, m, loss_kwargs)
+        rows, ranks = data_rows(batch)
+        mu = leaves(opt_state.mu)
+        nu = leaves(opt_state.nu)
+        lay_p = [layout(p) for p in flat_p]
+        lay_o = [layout(u) for u in mu]
+        model_params = unflatten(params, whole)
         del whole
+        # each microbatch's gradients summed over the data ranks into this
+        # rank's blocks as they come (the reference's reduce-scatter a
+        # microbatch), added up in fp32 there at m > 1: no whole fp32 sums
+        # beside the whole leaves
+        with hints.hints(moe_data=ranks):
+            loss, metrics, g_loc = _loss_and_grads(
+                model, model_params, rows, m, loss_kwargs,
+                reduce=lambda j, g: reduced(g, lay_o[j]))
+        del model_params
+        g_loc = leaves(g_loc)
 
         # the loss and the model's metrics: means over the data ranks
         keys = list(metrics)
@@ -189,13 +260,6 @@ def _placed_step(model, run_cfg, mesh, m: int, loss_kwargs):
         metrics = {k: stats[1 + i].to(metrics[k].dtype)
                    for i, k in enumerate(keys)}
 
-        # each gradient summed over the data ranks, in the moments' layout
-        mu = leaves(opt_state.mu)
-        nu = leaves(opt_state.nu)
-        lay_p = [layout(p) for p in flat_p]
-        lay_o = [layout(u) for u in mu]
-        g_loc = [reduced(g, lay) for g, lay in zip(leaves(grads), lay_o)]
-        del grads
         if run_cfg.compress_grads:
             # the int8 scale of each leaf: a max over all of its blocks
             amax = leaves(compression._amax(unflatten(params, g_loc),

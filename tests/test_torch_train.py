@@ -26,6 +26,7 @@ with free routing: at these seeds its router's top-k agrees with JAX's.
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -506,39 +507,99 @@ def test_token_pipeline_and_synthetic_batch_bitwise():
             np.testing.assert_array_equal(b[k].numpy(), np.asarray(a[k]))
 
 
+def _settled_steps(d: str) -> list:
+    """The step directories under ``d`` once no checkpoint is being
+    written (the reference's writer thread outlives a crashed run)."""
+    for _ in range(600):
+        names = os.listdir(d)
+        if not any(n.startswith(".tmp") for n in names):
+            return sorted(n for n in names if n.startswith("step_"))
+        time.sleep(0.05)
+    raise TimeoutError(f"a checkpoint under {d} is still being written")
+
+
 def test_launch_train_runs_and_resumes_bitwise(tmp_path, capsys):
-    """Six steps straight, against four steps (a checkpoint at 2 and 4),
-    a crash in the fifth, and a rerun that resumes from step 4: the final
-    checkpoints are bitwise equal."""
-    args = ["--reduced", "--device", "cpu", "--steps", "6", "--batch", "2",
-            "--seq", "16", "--ckpt-every", "2", "--log-every", "1"]
-    a, b = str(tmp_path / "a"), str(tmp_path / "b")
-    met = ttrain.main(args + ["--ckpt-dir", a])
-    assert np.isfinite(met["loss"]) and checkpoint.latest_step(a) == 6
+    """``launch.train.main`` against ``repro.launch.train.main`` on the
+    same arguments (granite-3-8b reduced, 6 steps, a checkpoint every 2)
+    from the same weights (the port's seeded ``init``, handed to the JAX
+    model): six steps straight; then a crash in step 4 and a rerun.
+    Both write the same checkpoint names (a mid-run one by the index of
+    the step just run), both rerun from step 2 ("resumed from step 2",
+    step 2 run again) and every step's loss agrees within 1e-6 of its
+    value (fp32 sums in another order, over six steps)."""
+    args = ["--arch", "granite-3-8b", "--reduced", "--steps", "6",
+            "--batch", "2", "--seq", "16", "--ckpt-every", "2",
+            "--log-every", "1"]
+    cfg = get_config("granite-3-8b").reduced()
+    jm = jax_build(jax_get_config("granite-3-8b").reduced())
+    jm.init = lambda key, p=zoo.jax_params(build_model(cfg, device="cpu"),
+                                          jm): p
+    losses = {"jax": [], "torch": []}
 
-    real = ttrain.synthetic_batch
+    def recorded(make, pkg):
+        made = []
 
-    def crash_at_4(cfg, step, *rest, **kw):
-        if step == 4:
-            raise RuntimeError("killed")
-        return real(cfg, step, *rest, **kw)
+        def mk(*a, **kw):
+            # one step function for the three runs (the same arguments):
+            # JAX compiles it once
+            if made:
+                return made[0]
+            step = make(*a, **kw)
 
-    ttrain.synthetic_batch = crash_at_4
-    try:
-        with pytest.raises(RuntimeError, match="killed"):
-            ttrain.main(args + ["--ckpt-dir", b])
-    finally:
-        ttrain.synthetic_batch = real
-    assert checkpoint.latest_step(b) == 4
-    ttrain.main(args + ["--ckpt-dir", b])
-    assert "resumed from step 4" in capsys.readouterr().out
-    for d in (a, b):
-        assert checkpoint.latest_step(d) == 6
-    step_dir = "step_000000006"
-    for f in sorted(os.listdir(os.path.join(a, step_dir, "arrays"))):
-        np.testing.assert_array_equal(
-            np.load(os.path.join(a, step_dir, "arrays", f)),
-            np.load(os.path.join(b, step_dir, "arrays", f)))
+            def run(p, o, b):
+                p, o, met = step(p, o, b)
+                if pkg == "jax":
+                    jax.debug.callback(lambda v: losses["jax"].append(
+                        float(v)), met["loss"])
+                else:
+                    losses["torch"].append(float(met["loss"]))
+                return p, o, met
+            made.append(run)
+            return run
+        return mk
+
+    def crash_at_4(real):
+        def batch(cfg_, step, *rest, **kw):
+            if step == 4:
+                raise RuntimeError("killed")
+            return real(cfg_, step, *rest, **kw)
+        return batch
+
+    runs, names = {}, {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtrain, "build_model", lambda _cfg: jm)
+        mp.setattr(jtrain, "make_train_step",
+                   recorded(jtrain.make_train_step, "jax"))
+        mp.setattr(ttrain, "make_train_step",
+                   recorded(ttrain.make_train_step, "torch"))
+        for pkg, main, extra in (("jax", jtrain.main, []),
+                                 ("torch", ttrain.main,
+                                  ["--device", "cpu"])):
+            mod = jtrain if pkg == "jax" else ttrain
+            a, b = str(tmp_path / pkg / "a"), str(tmp_path / pkg / "b")
+            main(args + extra + ["--ckpt-dir", a])
+            real = mod.synthetic_batch
+            mp.setattr(mod, "synthetic_batch", crash_at_4(real))
+            with pytest.raises(RuntimeError, match="killed"):
+                main(args + extra + ["--ckpt-dir", b])
+            names[pkg, "crash"] = _settled_steps(b)
+            mp.setattr(mod, "synthetic_batch", real)
+            capsys.readouterr()
+            main(args + extra + ["--ckpt-dir", b])
+            runs[pkg] = capsys.readouterr().out
+            names[pkg, "a"] = _settled_steps(a)
+            names[pkg, "b"] = _settled_steps(b)
+    for run in ("crash", "a", "b"):
+        assert names["torch", run] == names["jax", run], run
+    assert names["torch", "crash"] == ["step_000000002"]
+    assert names["torch", "a"] == [f"step_00000000{s}" for s in (2, 4, 6)]
+    for pkg in ("jax", "torch"):
+        assert "resumed from step 2" in runs[pkg]
+    # 6 straight, 4 before the crash, 4 resumed (steps 2 to 5)
+    assert len(losses["torch"]) == len(losses["jax"]) == 14
+    np.testing.assert_allclose(losses["torch"], losses["jax"], rtol=1e-6,
+                               atol=0)
+    assert losses["torch"][2:4] != losses["torch"][10:12]
 
 
 @pytest.fixture

@@ -1,6 +1,6 @@
 """The ranks of the multi-process tests of ``repro_torch``'s funnel
 (tests/test_torch_dist.py) and of its distributed training
-(tests/test_torch_dist_train.py): each joins a gloo group from a
+(tests/test_torch_dist_train.py, tests/test_torch_moe_mesh.py): each joins a gloo group from a
 ``file://`` store, runs one task on the CPU and saves its outputs for
 the test process to compare.  It imports torch, numpy and
 ``repro_torch`` only: the test process computes the JAX reference and
@@ -250,4 +250,64 @@ def train4(mesh, tmp: Path) -> dict:
     return out
 
 
-TASKS = {"world4": world4, "world3": world3, "train4": train4}
+MOE_CASES = ("small1", "small2", "large1", "large2")
+
+
+def moe_mesh(mesh, tmp: Path) -> dict:
+    """One train step of a reduced deepseek-moe-16b (1 layer, capacity
+    factor 0.5, aux weight 1) on a ("data",) mesh of the group's ranks,
+    for each case of ``moe_mesh.npz`` (its microbatches and global
+    batch): the metrics, the updated parameters and AdamW moments whole,
+    and the pairs this rank's dispatches dropped in the forward (not in
+    the backward's recomputation)."""
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models import moe
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    sh._MIN_SHARD_ELEMS = 512
+    cfg = get_config("deepseek-moe-16b").reduced(n_layers=1,
+                                                 capacity_factor=0.5)
+    model = build_model(cfg, device="cpu")
+    p0 = model.init(torch.Generator().manual_seed(0))
+    state0 = (p0, optimizer.init(p0))
+    layout = sh.param_shardings(state0, mesh)
+    data = np.load(tmp / "moe_mesh.npz")
+    dispatch, drops = moe.dispatch, [0]
+
+    def counted(*args):
+        got = dispatch(*args)
+        if torch._C._current_graph_task_id() == -1:    # not a recompute
+            drops[0] += int((~got[2]).sum())
+        return got
+
+    moe.dispatch = counted
+    out = {}
+    try:
+        for case in MOE_CASES:
+            rc = RunConfig(lr=1e-5, warmup_steps=1, total_steps=10,
+                           microbatches=int(data[f"{case}_m"]))
+            step = make_train_step(model, rc, mesh,
+                                   loss_kwargs={"aux_weight": 1.0})
+            b = {k: torch.from_numpy(data[f"{case}_{k}"])
+                 for k in ("tokens", "targets")}
+            p, o = _place(state0, layout)
+            drops[0] = 0
+            p, o, met = step(p, o, _place(b, sh.batch_shardings(mesh, b)))
+            out[f"{case}_drops"] = np.array(drops[0])
+            for k, v in met.items():
+                out[f"{case}_met_{k}"] = _np(v)
+            for name, tree in (("p", p), ("mu", o.mu), ("nu", o.nu)):
+                for i, a in enumerate(_flat(tree)):
+                    out[f"{case}_{name}_{i}"] = a
+    finally:
+        moe.dispatch = dispatch
+    return out
+
+
+TASKS = {"world4": world4, "world3": world3, "train4": train4,
+         "moe_mesh": moe_mesh}
