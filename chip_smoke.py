@@ -309,7 +309,15 @@ Phases (any failure exits non-zero; no phase is skipped):
    the dry run (``launch/dryrun.py``) of DRYRUN_CELLS, each on a fake
    process group of 256 or 512 ranks in a subprocess that uses no card,
    after the timed phases: each cell ``ok``, its ``n_devices`` and
-   ``fits_hbm``, its seconds.
+   ``fits_hbm``, its seconds, peak bytes and flops per rank (the dense,
+   MoE and VLM steps split over the mesh's ``model`` ranks).  (h,
+   ``head_split_phase``) The heads each of t model ranks computes in
+   the placed step (``models.attention.head_plan``) through the bf16
+   flash forward and backward kernels at HEAD_SPLIT_CASES (granite-3-8b
+   and gemma3-4b at t dividing H, granite-34b's 48 heads and one kv head
+   at t = 16): o and dq concatenated over the ranks bitwise the whole
+   call's, dk and dv too where t <= KV, and where t > KV summed over the
+   ranks that share a kv head within ``bf16_gate`` of the whole call's.
 
 The line before the last is the JSON object of per-kernel numbers (with
 each kernel's launches on phase 11's approx and dense funnels, on
@@ -478,7 +486,7 @@ KVQ_FREE_COSINE = 0.95
 # TRAIN_HD256_STEPS steps through the wide bf16 backward (13d); 13b's
 # steps again on a world-1 mesh, checkpointed and restored onto another
 # (13f)
-TRAIN_S = 125.0
+TRAIN_S = 135.0
 BWD_CASES = [
     ("granite-3-8b causal", (1, 4096, 32, 8, 128), 0, True),
     ("gemma3-4b local", (1, 4096, 8, 4, 256), 1024, True),
@@ -505,7 +513,15 @@ TRAIN_FP32_STEPS = 2
 # of 13g (a), for the projected finish
 DRYRUN_CELLS = (("xlstm-125m", "decode_32k", "multi"),
                 ("granite-3-8b", "train_4k", "single"))
-DRYRUN_S = 90.0
+DRYRUN_S = 150.0
+# the heads of each model rank through the flash kernels (13h): (case,
+# (B, T, H, KV, hd), window, the degrees t of the model axis); each
+# degree divides H, and t > KV has ranks share a kv head
+HEAD_SPLIT_CASES = (
+    ("granite-3-8b", (1, 4096, 32, 8, 128), 0, (2, 4, 8, 16)),
+    ("gemma3-4b local", (1, 4096, 8, 4, 256), 1024, (2, 4, 8)),
+    ("granite-34b", (1, 4096, 48, 1, 128), 0, (16,)),
+)
 DRYRUN_TIMEOUT_S = 300.0
 BF16_TFLOPS = 989.0
 TRAIN_CLI_ARCH = "xlstm-125m"
@@ -1495,6 +1511,97 @@ def train_phase(seed: int, cuda_ms, device: str = "cuda") -> dict:
     log(f"[train] {TRAIN_ARCH} fp32: {json.dumps(out['fp32'])}")
     del params, opt, model, met, batch, batch0
     torch.cuda.empty_cache()
+
+    # 13h. each model rank's heads through the flash kernels
+    out["head_split"] = head_split_phase(seed, device)
+    return out
+
+
+def head_split_phase(seed: int, device: str = "cuda") -> dict:
+    """Phase 13h: the heads that each of t model ranks computes in the
+    placed step (``models.attention.head_plan``: H / t q heads and the kv
+    heads they read) through the bf16 flash forward and its backward, at
+    HEAD_SPLIT_CASES, against the whole call on the same inputs: o and
+    dq concatenated over the ranks bitwise the whole call's, dk and dv
+    too where t <= KV; where t > KV, each kv head's dk and dv summed
+    over the ranks that share it within ``bf16_gate`` of the whole
+    call's."""
+    import types
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import head_plan
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 138)
+    sync = torch.cuda.synchronize
+
+    def fwd_bwd(q, k, v, do, kw):
+        o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        grads, launches = fa.bwd_launches(q, k, v, o, do, lse=lse, **kw)
+        for _, launch in launches:
+            launch()
+        return (o,) + tuple(grads)
+
+    cases = []
+    for label, (B, T, H, KV, hd), win, degrees in HEAD_SPLIT_CASES:
+        q, k, v, do = (torch.randn(s_, generator=gen, device=dev)
+                       .to(torch.bfloat16) for s_ in
+                       ((B, T, H, hd), (B, T, KV, hd), (B, T, KV, hd),
+                        (B, T, H, hd)))
+        kw = dict(causal=True, window=win)
+        o, dq, dk, dv = fwd_bwd(q, k, v, do, kw)
+        cfg = types.SimpleNamespace(name=label, n_heads=H, n_kv_heads=KV)
+        for t in degrees:
+            parts = []
+            for m in range(t):
+                q0, Hl, k0, KVl, _ = head_plan(cfg, t, m)
+                qs, ds = (x[:, :, q0:q0 + Hl].contiguous() for x in (q, do))
+                ks, vs = (x[:, :, k0:k0 + KVl].contiguous() for x in (k, v))
+                parts.append(((q0, Hl, k0, KVl),
+                              fwd_bwd(qs, ks, vs, ds, kw)))
+            sync()
+            row = dict(case=label, shape=[B, T, H, KV, hd], window=win,
+                       t=t, q_heads=H // t, kv_heads=parts[0][0][3])
+            for i, name in ((0, "o"), (1, "dq")):
+                got = torch.cat([r[i] for _, r in parts], dim=2)
+                row[f"{name}_bitwise"] = bool(torch.equal(
+                    got, (o, dq)[i]))
+            for i, name, want in ((2, "dk", dk), (3, "dv", dv)):
+                got = torch.zeros(want.shape, dtype=torch.float32,
+                                  device=dev)
+                for (_, _, k0, KVl), r in parts:
+                    got[:, :, k0:k0 + KVl] += r[i].float()
+                if t <= KV:
+                    row[f"{name}_bitwise"] = bool(torch.equal(
+                        got.to(want.dtype), want))
+                else:
+                    # at unit scale (a power of two, exact in bf16):
+                    # bf16_gate caps its largest error at 2e-2, below one
+                    # ulp of a gradient past 2.56
+                    sc = 2.0 ** -math.ceil(math.log2(float(
+                        want.float().abs().max())))
+                    ok, nums = bf16_gate((got * sc).to(want.dtype),
+                                         want * sc)
+                    row[f"{name}_gate"] = dict(ok=ok, scale=sc, **nums)
+            del parts
+            log(f"[head split] {json.dumps(row)}")
+            check(row["o_bitwise"] and row["dq_bitwise"],
+                  f"head split: o or dq of the ranks' heads differ from the "
+                  f"whole call: {row}")
+            check(all(row.get(f"{n_}_bitwise", True)
+                      and row.get(f"{n_}_gate", {}).get("ok", True)
+                      for n_ in ("dk", "dv")),
+                  f"head split: dk or dv of the ranks' heads differ from "
+                  f"the whole call: {row}")
+            cases.append(row)
+        del q, k, v, do, o, dq, dk, dv
+        torch.cuda.empty_cache()
+    out = dict(cases=cases, seconds=time.perf_counter() - t0)
+    log(f"[time] 13h done in {out['seconds']:.1f} s")
     return out
 
 
@@ -1583,6 +1690,9 @@ def dryrun_phase(out_dir: Path) -> dict:
               f"{rec.get('error')}")
         out["cells"][f"{arch} {shape} {mesh}"] = dict(
             trace_s=rec["trace_s"], wall_s=rec["wall_s"],
+            peak_bytes=rec["memory"]["peak_bytes"],
+            flops_per_rank=rec["roofline"]["hlo_flops_per_dev"],
+            useful_flops_ratio=rec["roofline"]["useful_flops_ratio"],
             memory=rec["memory"], fits_hbm=rec["fits_hbm"],
             n_devices=rec["n_devices"], hw=rec["hw"],
             roofline=rec["roofline"])

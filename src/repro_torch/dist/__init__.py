@@ -17,8 +17,14 @@ over ``torch.distributed``.
   ``activations``, ``moe_expert``) and algorithm variants
   (``onehot_embed``) without threading them through every model
   signature.
+
+* :mod:`repro_torch.dist.tensor_parallel` -- the dense, MoE and VLM
+  models' work split over a mesh's ``model`` ranks: each stored leaf's
+  compute block (gathered over the data ranks a layer at a time), the
+  products' collectives and the vocabulary-parallel lookup and cross
+  entropy.
 """
 
-from . import compression, hints, sharding  # noqa: F401
+from . import compression, hints, sharding, tensor_parallel  # noqa: F401
 
-__all__ = ["compression", "hints", "sharding"]
+__all__ = ["compression", "hints", "sharding", "tensor_parallel"]

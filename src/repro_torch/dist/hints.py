@@ -16,16 +16,19 @@ act when ``jax.jit`` traces; the port runs eagerly, so a binding acts on
 every call made inside its scope.
 
 :func:`constrain` redistributes a ``DTensor`` to the placements bound to
-its name.  On a plain tensor it is the identity: the port's train step
-computes on whole local tensors (``train/train_step.py``), and a
+its name.  On a plain tensor it is the identity: the port's models
+compute on local tensors (``dist/tensor_parallel.py``), and a
 constraint changes a layout, never a value.  Contexts nest; inner
 bindings shadow outer ones, and binding a name to ``None`` un-pins it
 for the inner scope.
 
-One binding carries no layout: ``moe_data``, a :class:`DataRanks` set by
+Two bindings carry no layout: ``moe_data``, a :class:`DataRanks` set by
 the mesh train step (``train/train_step.py``), tells ``models/moe.py``
 that the batch's rows are split over data ranks, so that it forms the
-reference's dispatch groups over the global batch.
+reference's dispatch groups over the global batch; ``model_ranks``, a
+:class:`ModelRanks` (``dist.tensor_parallel.bind``), tells the dense,
+MoE and VLM models that their work is split over the mesh's ``model``
+ranks (``dist/tensor_parallel.py``).
 """
 
 from __future__ import annotations
@@ -50,6 +53,19 @@ class DataRanks:
     size: int
     index: int
     all_reduce: Callable[[torch.Tensor], torch.Tensor]
+
+
+@dataclass(frozen=True)
+class ModelRanks:
+    """The ranks of a mesh's ``model`` dim, over which a layer's work is
+    split: ``size`` ranks (the degree t), this rank the ``index``-th,
+    ``group`` their process group (None at size 1), ``dim`` the model dim
+    of ``mesh`` (None where the mesh has none)."""
+    size: int
+    index: int
+    group: Any
+    mesh: Any
+    dim: Optional[int]
 
 
 def _stack() -> list:

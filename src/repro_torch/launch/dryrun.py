@@ -25,8 +25,16 @@ state and batch are fake tensors (``FakeTensorMode``: shapes, dtypes
 and devices without storage) laid out by ``dist.sharding``'s
 ``param_shardings`` and ``batch_shardings`` from
 ``registry.input_specs``; the traced step is the port's own, as it runs
-on a mesh: each leaf gathered whole (ZeRO-3), the rank's rows of the
-batch, the gradients reduce-scattered.  The hand-written kernels are
+on a mesh, on the rank's rows of the batch.  The dense, MoE and VLM
+families split their work over ``model`` as the reference's GSPMD
+program does (``dist/tensor_parallel.py``): each layer's leaves
+gathered over the data axes as the forward (and the backward's
+recomputation) reaches it, the rank's heads, d_ff columns and
+vocabulary rows, the gradients reduce-scattered back into the stored
+layout; ``prefill`` forms the last position's logits only, and
+``decode_step`` reads caches split by sequence over ``model`` on the
+rank's slots.  The other families gather each leaf whole (ZeRO-3) and
+decode on caches gathered over ``model``.  The hand-written kernels are
 charged by formula (``kernels/charges.py``) and, under the walk, give
 outputs of their shapes without running their plain versions, whose
 (T, T) attention scores the card never holds.  ``trace_s`` takes the
@@ -75,6 +83,7 @@ from ..configs import ARCH_IDS, RunConfig, get_config
 from ..configs.shapes import shapes_for
 from ..dist import hints as hints_mod
 from ..dist import sharding as sh
+from ..dist import tensor_parallel
 from ..models.registry import build_model, input_specs
 from ..train import optimizer
 from ..train.train_step import make_train_step
@@ -230,7 +239,8 @@ def build_train(cfg, shape, mesh, knobs, variant: str = "baseline"):
 
 
 def _whole_params(params):
-    """Each parameter leaf gathered whole, as the train step gathers it."""
+    """Each parameter leaf gathered whole: the serving steps of the
+    families that do not split their work over ``model``."""
     with torch.no_grad():
         return tree_map(sh.whole, params)
 
@@ -244,18 +254,23 @@ def build_prefill(cfg, shape, mesh, knobs, variant: str = "baseline"):
     batch = _fake_inputs(input_specs(cfg, shape, kind="prefill"))
     batch = _place(batch, sh.batch_shardings(mesh, batch))
     extra = dict(onehot_embed=True) if variant.startswith("opt") else {}
+    split = getattr(model, "model_parallel", False)
 
     def serve_prefill(params, batch):
+        if split:
+            # the stored leaves and the placed batch: the model takes its
+            # rows and splits its work over model
+            with hints_mod.hints(**extra), tensor_parallel.bind(mesh):
+                return model.prefill(params, batch["tokens"],
+                                     batch.get("frontend"),
+                                     max_len=shape.seq_len)
         whole = _whole_params(params)
         rows = {k: sh.local(v) for k, v in batch.items()}
         with hints_mod.hints(**extra):
             if cfg.is_encdec:
                 return model.prefill(whole, rows["tokens"], rows["frontend"],
                                      max_len=shape.seq_len)
-            if cfg.family == "ssm":
-                return model.prefill(whole, rows["tokens"],
-                                     max_len=shape.seq_len)
-            return model.prefill(whole, rows["tokens"], rows.get("frontend"),
+            return model.prefill(whole, rows["tokens"],
                                  max_len=shape.seq_len)
 
     return serve_prefill, (params, batch)
@@ -278,6 +293,15 @@ def build_decode(cfg, shape, mesh, knobs, variant: str = "baseline"):
     token = sh.NamedSharding(mesh, sh.placements_of(tok_spec, mesh)).place(
         torch.zeros((B,), dtype=torch.int32, device=DEVICE))
     pos = shape.seq_len - 1              # the cache's last position
+
+    if getattr(model, "model_parallel", False):
+        def serve_decode(params, state, token, pos):
+            # the caches' sequence stays split over model: each rank reads
+            # its slots and writes the slot it owns
+            with tensor_parallel.bind(mesh):
+                return model.decode_step(params, state, token, pos)
+
+        return serve_decode, (params, state, token, pos)
 
     model_dim = mesh.mesh_dim_names.index("model")
 

@@ -27,6 +27,17 @@ rotation (RoPE is applied at write time with absolute positions).
 Unlike the reference, whose arrays are immutable, the cache functions
 write into the cache's tensors in place and return the same cache: a
 copy per decode step would double the cache's memory traffic.
+
+Under ``model_ranks`` (``dist/tensor_parallel.py``) the leaves are a
+rank's blocks (:func:`tp_blocks`).  In the full-sequence form each rank
+projects its q heads (:func:`head_plan`: H / t of them, or one head
+that t / H ranks compute and the first of them keeps where H < t) and
+the kv heads they read, runs the flash kernel on those heads and sums
+the row-parallel ``wo`` products over the model ranks.  In decode each
+rank projects its columns of q, k and v (gathered over the ranks), and
+a cache split by sequence over the model ranks (``seq``) is read over
+the rank's slots only, the partial (max, sum, output) combined over the
+ranks; only the rank that owns slot ``pos % S`` writes it.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from typing import NamedTuple
 import torch
 
 from ..dist import hints
+from ..dist import tensor_parallel as tp_mod
 from ..kernels import ops
 from ..kernels.ref import ATTN_NEG
 from .layers import apply_mrope, apply_rope, dense_init
@@ -53,16 +65,65 @@ def attn_init(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
     }
 
 
-def _project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):
+def head_plan(cfg, t=None, m=None):
+    """(the first q head, the q heads, the first kv head, the kv heads,
+    owner) of model rank m's share of the attention over t ranks (this
+    rank's under ``model_ranks`` by default): H / t heads each where t
+    divides H, else (t / H ranks a head) the head of index m // (t / H),
+    kept by the first of its ranks (the others' outputs zeroed,
+    ``owner`` False); the kv heads those q heads read.  The whole
+    attention, owned, at degree 1."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if t is None:
+        tp = tp_mod.current()
+        t, m = (1, 0) if tp is None else (tp.size, tp.index)
+    G = H // KV
+    if H % t == 0:
+        q0, Hl, owner = m * (H // t), H // t, True
+    elif t % H == 0:
+        q0, Hl, owner = m // (t // H), 1, m % (t // H) == 0
+    else:
+        raise ValueError(f"{cfg.name}: {H} heads over {t} model ranks")
+    k0 = q0 // G
+    KVl = (q0 + Hl - 1) // G + 1 - k0
+    if not (KVl == 1 or (q0 % G == 0 and Hl % G == 0)):
+        raise ValueError(f"{cfg.name}: {Hl} q heads from {q0} cut a kv "
+                         f"group of {G}")
+    return q0, Hl, k0, KVl, owner
+
+
+def tp_blocks(cfg, decode: bool = False) -> dict:
+    """The attention leaves' compute blocks over the model ranks: the
+    heads of :func:`head_plan` (``wo`` on its rows), or in decode even
+    column blocks of q, k and v and row blocks of ``wo``."""
+    hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    if decode:
+        kv = tp_mod.split(1, KV * hd)
+        return {"wq": tp_mod.split(1, H * hd), "wk": kv, "wv": kv,
+                "wo": tp_mod.split(0, H * hd)}
+    q0, Hl, k0, KVl, _ = head_plan(cfg)
+    kv = tp_mod.Block(1, k0 * hd, KVl * hd)
+    return {"wq": tp_mod.Block(1, q0 * hd, Hl * hd), "wk": kv, "wv": kv,
+            "wo": tp_mod.Block(0, q0 * hd, Hl * hd)}
+
+
+def _project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor,
+                 gathered: bool = False):
     """q (B, T, H, hd), k and v (B, T, KV, hd), RoPE applied at
     ``positions``: (B, T), or (3, B, T) M-RoPE streams (a (B, T) array
     broadcasts to three equal streams under M-RoPE, and a (3, B, T) one
-    gives its first stream to plain RoPE)."""
+    gives its first stream to plain RoPE).  The head counts are the
+    weights' (a rank's heads under ``model_ranks``); ``gathered``: the
+    ranks' column blocks of each product concatenated first."""
     B, T, _ = x.shape
-    hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = (x @ p["wq"]).reshape(B, T, H, hd)
-    k = (x @ p["wk"]).reshape(B, T, KV, hd)
-    v = (x @ p["wv"]).reshape(B, T, KV, hd)
+    hd = cfg.head_dim
+
+    def proj(w):
+        y = x @ w
+        return (tp_mod.gather_last(y) if gathered else y).reshape(
+            B, T, -1, hd)
+
+    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
     if cfg.mrope:
         pos3 = positions if positions.dim() == 3 else \
             positions.expand((3,) + tuple(positions.shape))
@@ -84,7 +145,11 @@ def attention_full(p, x: torch.Tensor, positions: torch.Tensor, *, cfg,
     cache.  Differentiable: on the card through the flash kernels'
     ``ops.FlashAttentionFn``.  The reference's ``q_chunk``, ``kv_chunk``,
     ``block_skip`` and ``unroll_q`` are taken and ignored: they change
-    only the order in which XLA sums."""
+    only the order in which XLA sums.  Under ``model_ranks`` ``p`` holds
+    the rank's heads (:func:`tp_blocks`), k and v are its kv heads, and
+    the output is summed over the model ranks."""
+    owner = head_plan(cfg)[4] if tp_mod.degree() > 1 else True
+    x = tp_mod.enter(x)
     q, k, v = _project_qkv(p, x, cfg, positions)
     # q scaled in its own dtype before the kernel's fp32 products, as the
     # reference's _flash scales it: the scale is rounded to that dtype (a
@@ -94,8 +159,10 @@ def attention_full(p, x: torch.Tensor, positions: torch.Tensor, *, cfg,
     out = ops.flash_attention(q * scale, k, v, causal=causal, window=window,
                               scale=1.0, backend=backend)
     B, T = x.shape[0], x.shape[1]
+    out = tp_mod.only_owner(out.reshape(B, T, -1).to(x.dtype) @ p["wo"],
+                            owner)
     # the (k, v) copies carry the launcher's kv_cache layout hint
-    return out.reshape(B, T, -1).to(x.dtype) @ p["wo"], (
+    return tp_mod.leave(out), (
         hints.constrain(k, "kv_cache"), hints.constrain(v, "kv_cache"))
 
 
@@ -159,33 +226,86 @@ def cache_fill_from_prefill(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
     return cache
 
 
+def _write_slot(cache, pos_b: torch.Tensor, seq, values) -> None:
+    """Write each sequence's new entries (``values``: one per cache
+    field, slot_pos's excluded) into slot ``pos % S`` in place: of the
+    rank's slots only, where ``seq`` = (first slot, S) splits the cache
+    by sequence over the model ranks."""
+    B = pos_b.shape[0]
+    S_l = cache.k.shape[1]
+    bidx = torch.arange(B, device=pos_b.device)
+    fields, values = list(cache), list(values) + [pos_b]
+    if seq is None:
+        slot = (pos_b % S_l).long()
+        for f, v in zip(fields, values):
+            f[bidx, slot] = v
+        return
+    first, S = seq
+    slot = (pos_b % S).long() - first
+    own = (slot >= 0) & (slot < S_l)
+    slot = slot.clamp(0, S_l - 1)
+    for f, v in zip(fields, values):
+        keep = own.reshape((B,) + (1,) * (v.dim() - 1))
+        f[bidx, slot] = torch.where(keep, v, f[bidx, slot])
+
+
+def _attend(s: torch.Tensor, v: torch.Tensor, split: bool,
+            v_scale=None) -> torch.Tensor:
+    """softmax(s) (B, KV, G, S) times v (B, S, KV, hd), (B, KV, G, hd):
+    where ``split``, over the rank's slots, the max, the exponentials'
+    sum and the weighted values combined over the model ranks."""
+    if not split:
+        w = torch.softmax(s, dim=-1)
+        den = None
+    else:
+        mx = tp_mod.all_reduce(s.amax(-1, keepdim=True),
+                               torch.distributed.ReduceOp.MAX)
+        w = torch.exp(s - mx)
+        den = w.sum(-1, keepdim=True)
+    if v_scale is not None:
+        w = w * v_scale.movedim(1, 2)[:, :, None, :]
+    out = torch.einsum("bKgs,bsKh->bKgh", w, v.float())
+    if den is None:
+        return out
+    both = tp_mod.all_reduce(torch.cat([den, out], dim=-1))
+    return both[..., 1:] / both[..., :1]
+
+
+def _decode_qkv(p, x, cfg, pos):
+    """(pos_b, q (B, 1, H, hd), k and v (B, 1, KV, hd)): every head,
+    from the ranks' column blocks under ``model_ranks``."""
+    pos_b, pos_q = _decode_positions(pos, x.shape[0], cfg, x.device)
+    q, k, v = _project_qkv(p, x, cfg, pos_q, gathered=True)
+    return pos_b, q, k, v
+
+
+def _decode_out(p, out: torch.Tensor) -> torch.Tensor:
+    """out (B, 1, H hd) times ``wo``: the rank's rows, summed over the
+    model ranks."""
+    return tp_mod.leave(tp_mod.own_part(out) @ p["wo"])
+
+
 def attention_decode(p, x: torch.Tensor, cache: KVCache, pos, *, cfg,
-                     window: int):
+                     window: int, seq=None):
     """One-token decode.  x: (B, 1, d); pos: an int, or a (B,) tensor of
     per-sequence positions (continuous batching serves sequences at
     different depths in one batched step).  Writes the new key and value
-    into the cache in place; returns (out (B, 1, d), cache)."""
+    into the cache in place; returns (out (B, 1, d), cache).  ``seq`` =
+    (first slot, S): the cache is this rank's slots of S, split by
+    sequence over the model ranks."""
     B = x.shape[0]
     hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     G = H // KV
-    S = cache.k.shape[1]
-    pos_b, pos_q = _decode_positions(pos, B, cfg, x.device)
-    q, k_new, v_new = _project_qkv(p, x, cfg, pos_q)
-
-    slot = (pos_b % S).long()
-    bidx = torch.arange(B, device=x.device)
-    cache.k[bidx, slot] = k_new[:, 0]
-    cache.v[bidx, slot] = v_new[:, 0]
-    cache.slot_pos[bidx, slot] = pos_b
+    pos_b, q, k_new, v_new = _decode_qkv(p, x, cfg, pos)
+    _write_slot(cache, pos_b, seq, (k_new[:, 0], v_new[:, 0]))
 
     qh = q.reshape(B, KV, G, hd) / math.sqrt(hd)
     s = torch.einsum("bKgh,bsKh->bKgs", qh.float(), cache.k.float())
     valid = _valid_slots(cache.slot_pos, pos_b, window)
     s = torch.where(valid[:, None, None, :], s, ATTN_NEG)
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bKgs,bsKh->bKgh", w, cache.v.float())
+    out = _attend(s, cache.v, seq is not None)
     out = out.reshape(B, 1, H * hd).to(x.dtype)
-    return out @ p["wo"], cache
+    return _decode_out(p, out), cache
 
 
 # ---------------------------------------------------------------------------
@@ -251,26 +371,18 @@ def quant_cache_fill_from_prefill(cache: QuantKVCache, k: torch.Tensor,
 
 
 def attention_decode_quant(p, x: torch.Tensor, cache: QuantKVCache, pos, *,
-                           cfg, window: int):
+                           cfg, window: int, seq=None):
     """One-token decode against an int8 cache (dequantized on read): the
     new key and value quantized into the cache in place; returns (out
-    (B, 1, d), cache)."""
+    (B, 1, d), cache).  ``seq`` as in :func:`attention_decode`."""
     B = x.shape[0]
     hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     G = H // KV
-    S = cache.k.shape[1]
-    pos_b, pos_q = _decode_positions(pos, B, cfg, x.device)
-    q, k_new, v_new = _project_qkv(p, x, cfg, pos_q)
+    pos_b, q, k_new, v_new = _decode_qkv(p, x, cfg, pos)
 
     qk, sk = _quant(k_new[:, 0])
     qv, sv = _quant(v_new[:, 0])
-    slot = (pos_b % S).long()
-    bidx = torch.arange(B, device=x.device)
-    cache.k[bidx, slot] = qk
-    cache.v[bidx, slot] = qv
-    cache.k_scale[bidx, slot] = sk
-    cache.v_scale[bidx, slot] = sv
-    cache.slot_pos[bidx, slot] = pos_b
+    _write_slot(cache, pos_b, seq, (qk, qv, sk, sv))
 
     qh = q.reshape(B, KV, G, hd) / math.sqrt(hd)
     # the int8 product, then the per-slot rescale
@@ -278,11 +390,9 @@ def attention_decode_quant(p, x: torch.Tensor, cache: QuantKVCache, pos, *,
     s = s * cache.k_scale.movedim(1, 2)[:, :, None, :]       # (B, KV, 1, S)
     valid = _valid_slots(cache.slot_pos, pos_b, window)
     s = torch.where(valid[:, None, None, :], s, ATTN_NEG)
-    w = torch.softmax(s, dim=-1)
-    wv = w * cache.v_scale.movedim(1, 2)[:, :, None, :]
-    out = torch.einsum("bKgs,bsKh->bKgh", wv, cache.v.float())
+    out = _attend(s, cache.v, seq is not None, cache.v_scale)
     out = out.reshape(B, 1, H * hd).to(x.dtype)
-    return out @ p["wo"], cache
+    return _decode_out(p, out), cache
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..dist import hints
+from ..dist import tensor_parallel as tp_mod
 
 MLP_KINDS = ("swiglu", "relu2", "gelu")
 
@@ -121,14 +122,29 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, kind: str,
 
 
 def mlp_apply(p, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The MLP of x (..., d).  Under ``model_ranks`` ``p`` holds this
+    rank's blocks (:func:`mlp_blocks`): column-parallel up, row-parallel
+    down, the partial outputs summed over the model ranks."""
+    x = tp_mod.enter(x)
     if kind == "swiglu":
-        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
-    h = x @ p["w1"]
-    if kind == "relu2":                  # nemotron squared-ReLU
-        h = torch.square(F.relu(h))
-    else:                                # jax.nn.gelu's default: tanh form
-        h = F.gelu(h, approximate="tanh")
-    return h @ p["w2"]
+        out = (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    else:
+        h = x @ p["w1"]
+        if kind == "relu2":                  # nemotron squared-ReLU
+            h = torch.square(F.relu(h))
+        else:                                # jax.nn.gelu's default: tanh
+            h = F.gelu(h, approximate="tanh")
+        out = h @ p["w2"]
+    return tp_mod.leave(out)
+
+
+def mlp_blocks(kind: str, ff: int) -> dict:
+    """Each MLP leaf's compute block over the model ranks: d_ff split,
+    the up projections on their columns, the down one on its rows."""
+    up, down = tp_mod.split(1, ff), tp_mod.split(0, ff)
+    if kind == "swiglu":
+        return {"wg": up, "wu": up, "wd": down}
+    return {"w1": up, "w2": down}
 
 
 def mlp_flops(cfg, tokens: int) -> int:
@@ -150,9 +166,13 @@ def mask_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
 def token_ce(logits: torch.Tensor, targets, vocab: int) -> torch.Tensor:
     """Mean next-token cross entropy of fp32 logits (..., vocab_padded)
     against integer targets (...), the padded vocab masked: the
-    reference's logsumexp minus the gold logit, averaged."""
-    logits = mask_vocab(logits, vocab)
+    reference's logsumexp minus the gold logit, averaged.  Under
+    ``model_ranks`` of degree t > 1 the logits are this rank's block of
+    vocab_padded / t (``tensor_parallel.vocab_ce``)."""
     targets = torch.as_tensor(targets, device=logits.device).long()
+    if tp_mod.degree() > 1:
+        return tp_mod.vocab_ce(logits, targets, vocab)
+    logits = mask_vocab(logits, vocab)
     gold = logits.gather(-1, targets[..., None])[..., 0]
     return (torch.logsumexp(logits, dim=-1) - gold).mean()
 

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dist import hints
+from ..dist import tensor_parallel as tp_mod
 from .layers import dense_init
 
 
@@ -62,6 +63,20 @@ def moe_init(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
     return p
 
 
+def tp_blocks(cfg) -> dict:
+    """The MoE leaves' compute blocks over the model ranks: the router
+    whole; each expert's (and the shared experts') d_ff split, the up
+    projections on their columns and the down one on its rows."""
+    ff = cfg.d_ff
+    b = {"router": tp_mod.WHOLE, "wg": tp_mod.split(2, ff),
+         "wu": tp_mod.split(2, ff), "wd": tp_mod.split(1, ff)}
+    if cfg.n_shared_experts:
+        sff = cfg.n_shared_experts * ff
+        b["shared"] = {"wg": tp_mod.split(1, sff), "wu": tp_mod.split(1, sff),
+                       "wd": tp_mod.split(0, sff)}
+    return b
+
+
 def _capacity(cfg, T: int) -> int:
     c = math.ceil(cfg.capacity_factor * T * cfg.moe_top_k / cfg.n_experts)
     return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
@@ -78,7 +93,8 @@ def _n_groups(N: int) -> int:
 
 def _shared(p, xf: torch.Tensor) -> torch.Tensor:
     sp = p["shared"]
-    return (F.silu(xf @ sp["wg"]) * (xf @ sp["wu"])) @ sp["wd"]
+    xf = tp_mod.enter(xf)
+    return tp_mod.leave((F.silu(xf @ sp["wg"]) * (xf @ sp["wu"])) @ sp["wd"])
 
 
 def moe_apply(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -247,8 +263,9 @@ def _experts(p, xf: torch.Tensor, topv: torch.Tensor, topi: torch.Tensor,
     buf[slot] = xf[ptok_s]
     buf = hints.constrain(buf[:-1].reshape(E, C, d), "moe_expert")
 
+    buf = tp_mod.enter(buf)
     h = F.silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wu"])
-    y = torch.bmm(h, p["wd"])                                   # (E, C, d)
+    y = tp_mod.leave(torch.bmm(h, p["wd"]))                     # (E, C, d)
     y = hints.constrain(y, "moe_expert")
     return combine(y, keep, slot, pw_s, ptok_s, N)
 

@@ -19,6 +19,17 @@ layout hints, as in the reference.  ``forward`` is the training
 form (each layer rematerialised in the backward, ``remat=True``) unless
 ``for_grad=False``, the reference's prefill form, which records no
 gradient; ``loss`` is the training objective.
+
+On a device mesh (``model_ranks`` bound, ``dist/tensor_parallel.py``)
+the model takes its leaves as stored (DTensors laid out by
+``param_specs``) and splits its work over the ``model`` ranks as the
+reference's GSPMD program does: each layer's compute blocks gathered
+inside the function ``remat`` checkpoints (attention heads, MLP and
+expert d_ff, ``attention.tp_blocks``, ``moe.tp_blocks``), the
+vocabulary split for the lookup, the head and the cross entropy,
+``prefill``'s logits vocabulary-split until the last position's are
+gathered, and decode caches split by sequence over the model ranks
+where their placements say so.
 """
 
 from __future__ import annotations
@@ -27,12 +38,16 @@ from typing import Dict, List, Optional
 
 import torch
 
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
 from ..core.pipeline import resolve_device
 from ..dist import hints
+from ..dist import tensor_parallel as tp_mod
 from . import attention as attn
 from . import moe as moe_mod
-from .layers import (dense_init, dtype_of, embed_init, mlp_apply, mlp_init,
-                     remat as remat_call, rmsnorm, rmsnorm_init, token_ce)
+from .layers import (dense_init, dtype_of, embed_init, mlp_apply, mlp_blocks,
+                     mlp_init, remat as remat_call, rmsnorm, rmsnorm_init,
+                     token_ce)
 
 
 def _onehot_embed(tokens: torch.Tensor, embed: torch.Tensor,
@@ -79,6 +94,8 @@ class DecoderModel:
     # the keys whose per-layer lists the reference stacks into (L, ...)
     # arrays (gradient compression takes one scale across their layers)
     stacked = ("layers",)
+    # splits its work over a mesh's model ranks (dist/tensor_parallel.py)
+    model_parallel = True
 
     def __init__(self, cfg, *, kv_quant: bool = False, device=None):
         if cfg.family not in ("dense", "moe", "vlm") or cfg.is_encdec:
@@ -136,7 +153,37 @@ class DecoderModel:
             return moe_mod.moe_apply(p["moe"], m, self.cfg)
         return mlp_apply(p["mlp"], m, self.cfg.mlp), 0.0
 
+    def _compute_blocks(self, p, decode: bool = False):
+        """One layer's leaves as this rank computes with them (the leaves
+        themselves unless ``model_ranks`` is bound)."""
+        if tp_mod.current() is None:
+            return p
+        spec = {"ln1": {"scale": tp_mod.WHOLE},
+                "attn": attn.tp_blocks(self.cfg, decode),
+                "ln2": {"scale": tp_mod.WHOLE}}
+        if self.cfg.n_experts:
+            spec["moe"] = moe_mod.tp_blocks(self.cfg)
+        else:
+            spec["mlp"] = mlp_blocks(self.cfg.mlp, self.cfg.d_ff)
+        return tp_mod.blocks(p, spec)
+
+    def _vocab(self, params) -> torch.Tensor:
+        """The embedding rows this rank computes with (all of them unless
+        ``model_ranks`` is bound)."""
+        if tp_mod.current() is None:
+            return params["embed"]
+        return tp_mod.weight(params["embed"],
+                             tp_mod.split(0, self.cfg.vocab_padded))
+
+    def _head(self, params, E, x) -> torch.Tensor:
+        """The final norm and the tied head's fp32 logits of x (the
+        rank's vocabulary block under ``model_ranks``)."""
+        x = rmsnorm(tp_mod.blocks(params["ln_f"], {"scale": tp_mod.WHOLE}),
+                    x)
+        return hints.constrain(tp_mod.enter(x) @ E.T, "logits").float()
+
     def _block(self, p, x, positions, window, backend):
+        p = self._compute_blocks(p)
         h = rmsnorm(p["ln1"], x)
         a, kv = attn.attention_full(p["attn"], h, positions, cfg=self.cfg,
                                     window=window, backend=backend)
@@ -145,16 +192,30 @@ class DecoderModel:
         return x + f, kv, aux
 
     def _tokens(self, tokens) -> torch.Tensor:
+        if isinstance(tokens, DTensor):
+            tokens = tokens.to_local()
         return torch.as_tensor(tokens, device=self.device).long()
 
-    def _embed(self, params, tokens, extra_embeds) -> torch.Tensor:
-        if hints.get("onehot_embed"):
-            x = _onehot_embed(self._tokens(tokens), params["embed"])
+    def _embed(self, params, E, tokens, extra_embeds) -> torch.Tensor:
+        """The embedded tokens (E: the embedding rows this rank holds),
+        after the projected frontend embeddings where given."""
+        if tp_mod.degree() > 1:
+            x = tp_mod.embed_lookup(E, self._tokens(tokens))
+        elif hints.get("onehot_embed"):
+            x = _onehot_embed(self._tokens(tokens), E)
         else:
-            x = params["embed"][self._tokens(tokens)]
+            x = E[self._tokens(tokens)]
         if self.cfg.frontend != "none" and extra_embeds is not None:
+            if isinstance(extra_embeds, DTensor):
+                extra_embeds = extra_embeds.to_local()
             fe = torch.as_tensor(extra_embeds, device=self.device)
-            fe = fe.to(x.dtype) @ params["frontend_proj"]
+            if tp_mod.current() is None:
+                fe = fe.to(x.dtype) @ params["frontend_proj"]
+            else:
+                # column-parallel, the columns gathered over the ranks
+                w = tp_mod.weight(params["frontend_proj"],
+                                  tp_mod.split(1, self.cfg.d_model))
+                fe = tp_mod.gather_last(tp_mod.enter(fe.to(x.dtype)) @ w)
             x = torch.cat([fe, x], dim=1)
         return hints.constrain(x, "activations")
 
@@ -169,23 +230,32 @@ class DecoderModel:
         list; aux is the MoE layers' summed load-balance loss (0.0 for a
         dense model).  ``remat``: each layer's activations recomputed in
         the backward; ``for_grad=False``: no gradient recorded (prefill).
-        The reference's chunk sizes are taken and ignored."""
+        The reference's chunk sizes are taken and ignored.  Under
+        ``model_ranks`` the logits are this rank's block of vocab_padded
+        / t and each (k, v) its kv heads."""
         with torch.set_grad_enabled(for_grad and torch.is_grad_enabled()):
-            x = self._embed(params, tokens, extra_embeds)
-            B, T, _ = x.shape
-            positions = self._positions(B, T)
-            kvs: Optional[List] = [] if collect_kv else None
-            aux_total = 0.0
-            for p, w in zip(params["layers"], self.windows):
-                x, kv, aux = remat_call(self._block, p, x, positions, w,
-                                        backend, enabled=remat)
-                aux_total = aux_total + aux
-                if collect_kv:
-                    kvs.append(kv)
-            x = rmsnorm(params["ln_f"], x)
-            logits = hints.constrain(x @ params["embed"].T,   # tied head
-                                     "logits").float()
+            E = self._vocab(params)
+            x, kvs, aux_total = self._trunk(params, E, tokens, extra_embeds,
+                                            remat, collect_kv, backend)
+            logits = self._head(params, E, x)              # tied head
         return logits, kvs, aux_total
+
+    def _trunk(self, params, E, tokens, extra_embeds, remat, collect_kv,
+               backend):
+        """(the last layer's output (B, F + T, d), [(k, v) per layer] or
+        None, aux) of the embedded tokens."""
+        x = self._embed(params, E, tokens, extra_embeds)
+        B, T, _ = x.shape
+        positions = self._positions(B, T)
+        kvs: Optional[List] = [] if collect_kv else None
+        aux_total = 0.0
+        for p, w in zip(params["layers"], self.windows):
+            x, kv, aux = remat_call(self._block, p, x, positions, w,
+                                    backend, enabled=remat)
+            aux_total = aux_total + aux
+            if collect_kv:
+                kvs.append(kv)
+        return x, kvs, aux_total
 
     def loss(self, params, batch, *, remat: bool = True,
              aux_weight: float = 0.01, backend: str = "auto", **_chunks):
@@ -220,7 +290,15 @@ class DecoderModel:
                 backend: str = "auto"):
         """Run the full prompt (after the frontend embeddings, if any) and
         build per-layer caches sized for max_len.  Returns (last-token
-        logits (B, vocab), caches, next_pos)."""
+        logits (B, vocab), caches, next_pos).  Under ``model_ranks``
+        (the leaves stored DTensors, ``tokens`` this rank's rows or a
+        DTensor of the batch) only the last position's logits are formed
+        and gathered over the vocabulary, and the caches are DTensors
+        split by sequence over the model ranks where t divides their
+        capacity (:meth:`_placed_cache`)."""
+        if tp_mod.current() is not None:
+            return self._prefill_split(params, tokens, extra_embeds,
+                                       max_len, backend)
         logits, kvs, _ = self.forward(params, tokens, extra_embeds,
                                       collect_kv=True, backend=backend,
                                       for_grad=False)
@@ -233,6 +311,89 @@ class DecoderModel:
                   for (k, v), cap in zip(kvs, self.cache_capacities(max_len))]
         return logits[:, -1, :self.cfg.vocab], caches, T
 
+    def _prefill_split(self, params, tokens, extra_embeds, max_len, backend):
+        E = self._vocab(params)
+        x, kvs, _ = self._trunk(params, E, tokens, extra_embeds, False, True,
+                                backend)
+        logits = tp_mod.gather_last(self._head(params, E, x[:, -1:]))
+        T = x.shape[1]
+        del x
+        caches = []
+        for li, cap in enumerate(self.cache_capacities(max_len)):
+            k, v = (self._whole_heads(t_) for t_ in kvs[li])
+            kvs[li] = None
+            caches.append(self._placed_cache(k, v, T, cap, tokens))
+            del k, v
+        return logits[:, -1, :self.cfg.vocab], caches, T
+
+    def _whole_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, KV, hd) from the ranks' kv heads (B, T, KV_l, hd):
+        gathered over the model ranks, each head taken from the first
+        rank that holds it."""
+        if tp_mod.degree() == 1:
+            return x
+        t = tp_mod.degree()
+        both = tp_mod.gather_last(x.movedim(2, -1).contiguous())
+        KVl = x.shape[2]
+        heads = []
+        for r in range(t):
+            k0 = attn.head_plan(self.cfg, t, r)[2]
+            heads += [r * KVl + j for j in range(KVl)
+                      if k0 + j == len(heads)]
+        idx = torch.tensor(heads, device=x.device)
+        return both.index_select(-1, idx).movedim(-1, 2).contiguous()
+
+    def _placed_cache(self, k, v, T: int, S: int, tokens):
+        """The prefill's (k, v) (B, T, KV, hd) written into a cache of S
+        slots (positions from 0) as DTensors on the binding's mesh: this
+        rank's rows of the batch (split over the data dims as ``tokens``
+        is, where it is a DTensor) and, where t divides S, its S / t
+        slots."""
+        tp = tp_mod.current()
+        mesh = tp.mesh
+        t = tp.size
+        split = t > 1 and S % t == 0
+        S_l = S // t if split else S
+        first = tp.index * S_l if split else 0
+        B = k.shape[0]
+        cache = self._cache_init(B, S_l)
+        # the position each of this rank's slots holds: slot s holds
+        # position s (S >= T) or the last of [T - S, T) that is s mod S
+        slots = torch.arange(first, first + S_l, device=k.device)
+        if S >= T:
+            pos = torch.where(slots < T, slots, -1)
+        else:
+            pos = T - S + (slots - (T - S)) % S
+        have = (pos >= 0)
+        src = pos.clamp(min=0)
+        kk, vv = k[:, src], v[:, src]
+        if self.kv_quant:
+            (qk, sk), (qv, sv) = attn._quant(kk), attn._quant(vv)
+            new = (qk, qv, sk, sv)
+        else:
+            new = (kk, vv)
+        for f, val in zip(cache[:-1], new):
+            keep = have.reshape((1, S_l) + (1,) * (val.dim() - 2))
+            f.copy_(torch.where(keep, val, f))
+        cache.slot_pos.copy_(torch.where(have, pos, -1).to(torch.int32)
+                             .expand(B, S_l))
+        lay = [Replicate()] * mesh.ndim
+        if isinstance(tokens, DTensor):
+            for i, p_ in enumerate(tokens.placements):
+                if i != tp.dim and isinstance(p_, Shard):
+                    lay[i] = Shard(0)
+        if split:
+            lay[tp.dim] = Shard(1)
+        B_all = tokens.shape[0] if isinstance(tokens, DTensor) else B
+
+        def placed(x):
+            shape = (B_all, S) + tuple(x.shape[2:])
+            return DTensor.from_local(
+                x, mesh, tuple(lay), run_check=False, shape=shape,
+                stride=torch.empty(shape, device="meta").stride())
+
+        return type(cache)(*(placed(x) for x in cache))
+
     def decode_state(self, batch: int, max_len: int) -> list:
         """Empty decode caches (slot_pos -1 everywhere)."""
         return [self._cache_init(batch, cap)
@@ -241,21 +402,45 @@ class DecoderModel:
     @torch.no_grad()
     def decode_step(self, params, caches, token, pos):
         """token: (B,) integers; pos: an int or a (B,) tensor.  Updates
-        ``caches`` in place; returns (logits (B, vocab) f32, caches)."""
+        ``caches`` in place; returns (logits (B, vocab) f32, caches).
+        Under ``model_ranks`` the leaves are stored DTensors, ``token``
+        this rank's rows (or a DTensor of them) and a cache whose leaves
+        are DTensors split by sequence over the model ranks (dim 1) is
+        read over this rank's slots."""
         cfg = self.cfg
         dec = attn.attention_decode_quant if self.kv_quant \
             else attn.attention_decode
-        x = params["embed"][self._tokens(token)][:, None, :]   # (B, 1, d)
+        E = self._vocab(params)
+        if tp_mod.degree() > 1:
+            x = tp_mod.embed_lookup(E, self._tokens(token))[:, None, :]
+        else:
+            x = E[self._tokens(token)][:, None, :]           # (B, 1, d)
         for li, p in enumerate(params["layers"]):
+            p = self._compute_blocks(p, decode=True)
+            cache, seq = _local_cache(caches[li])
             h = rmsnorm(p["ln1"], x)
-            a, _ = dec(p["attn"], h, caches[li], pos, cfg=cfg,
-                       window=self.windows[li])
+            a, _ = dec(p["attn"], h, cache, pos, cfg=cfg,
+                       window=self.windows[li], seq=seq)
             x = x + a
             f, _ = self._ffn(p, rmsnorm(p["ln2"], x))
             x = x + f
-        x = rmsnorm(params["ln_f"], x)
-        logits = (x @ params["embed"].T).float()
+        logits = tp_mod.gather_last(self._head(params, E, x))
         return logits[:, 0, :cfg.vocab], caches
+
+
+def _local_cache(cache):
+    """(the cache's local tensors, seq): seq = (first slot, S) where its
+    leaves are DTensors split by sequence over the model ranks, else
+    None."""
+    if not isinstance(cache.k, DTensor):
+        return cache, None
+    local = type(cache)(*(x.to_local() for x in cache))
+    tp = tp_mod.current()
+    if tp is None or tp.dim is None \
+            or not isinstance(cache.k.placements[tp.dim], Shard):
+        return local, None
+    S_l = local.k.shape[1]
+    return local, (tp.index * S_l, cache.k.shape[1])
 
 
 def check_generator(gen: torch.Generator, device: torch.device) -> None:

@@ -15,16 +15,23 @@ Its parameters and AdamW moments are DTensors laid out by
 ``param_shardings`` and its batch is laid out by ``batch_shardings``.
 Each rank
 
-  1. gathers every sharded leaf whole (``full_tensor``: ZeRO-3), so that
-     the model, the flash forward and the backward kernels see plain
-     tensors, and takes the loss and gradients of its own rows of the
-     batch;
-  2. sums the gradients over the data ranks, divides by their number
-     and keeps its block of each leaf under the moments' placements (a
-     reduce-scatter where the leaf is sharded over data, an all-reduce
-     where it is not; with microbatches, each microbatch's gradients in
-     fp32 as they come, their blocks added up in fp32), and averages the
-     loss and the model's metrics over the data ranks;
+  1. takes the loss and gradients of its own rows of the batch.  A
+     dense, MoE or VLM model (``model_parallel``) gets the leaves as
+     stored and splits its work over the mesh's ``model`` ranks as the
+     reference's GSPMD program does (``dist/tensor_parallel.py``, bound
+     as ``model_ranks``): each layer's leaves gathered over the data
+     ranks inside the function ``layers.remat`` checkpoints (so one
+     layer's at a time, and again in the backward's recomputation), the
+     rank's heads, d_ff columns and vocabulary rows cut from them, and
+     each gradient summed over the data ranks back into the leaf's
+     stored layout by the gather's backward (a reduce-scatter).  Any
+     other model gets each leaf gathered whole (``full_tensor``:
+     ZeRO-3) and its gradients summed over the data ranks after;
+  2. divides the gradients by the number of data ranks and keeps its
+     block of each leaf under the moments' placements (with
+     microbatches, each microbatch's gradients in fp32 as they come,
+     their blocks added up in fp32), and averages the loss and the
+     model's metrics over the data ranks;
   3. takes the quantities that span every shard of a leaf globally: the
      int8 scale of ``compress_grads`` (a max of the shards' maxima,
      shared across a stack's layers as in ``compression.compress_tree``)
@@ -32,6 +39,11 @@ Each rank
      each block counted once);
   4. applies AdamW to its blocks and returns new DTensors of the
      inputs' placements.
+
+Where a leaf's parameters are placed otherwise than its moments
+(``weights_mode="tp_only"``: replicated over data), its gradient comes
+out of the gathers summed over the data ranks whole and the rank keeps
+the moments' block of it.
 
 With ``m`` microbatches the reference's microbatch i is rows [i B/m,
 (i + 1) B/m) of the global batch; one all-gather of the batch at the
@@ -50,6 +62,7 @@ without a mesh.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Optional
 
@@ -59,6 +72,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..dist import compression, hints
 from ..dist import sharding as sh
+from ..dist import tensor_parallel
 from . import optimizer
 from .tree import leaves, unflatten
 
@@ -227,27 +241,49 @@ def _placed_step(model, run_cfg, mesh, m: int, loss_kwargs):
         with torch.no_grad():
             return {k: mine(sh.whole(v)) for k, v in batch.items()}, ranks
 
+    split_model = getattr(model, "model_parallel", False)
+
     def train_step(params, opt_state, batch):
         flat_p = leaves(params)
         dev = sh.local(flat_p[0]).device
-        # ZeRO-3: each leaf whole for the model
-        with torch.no_grad():
-            whole = [sh.whole(p) for p in flat_p]
         rows, ranks = data_rows(batch)
         mu = leaves(opt_state.mu)
         nu = leaves(opt_state.nu)
         lay_p = [layout(p) for p in flat_p]
         lay_o = [layout(u) for u in mu]
-        model_params = unflatten(params, whole)
-        del whole
         # each microbatch's gradients summed over the data ranks into this
         # rank's blocks as they come (the reference's reduce-scatter a
         # microbatch), added up in fp32 there at m > 1: no whole fp32 sums
-        # beside the whole leaves
-        with hints.hints(moe_data=ranks):
+        if split_model:
+            # the leaves as stored: the model gathers a layer's over the
+            # data ranks as it reaches it and computes its share over the
+            # model ranks (dist/tensor_parallel.py)
+            model_params = unflatten(params, [
+                p if isinstance(p, DTensor)
+                else sh.from_whole(p, mesh, lay) for p, lay in
+                zip(flat_p, lay_p)])
+            scope = tensor_parallel.bind(mesh)
+
+            def reduce(j, g):
+                # the gradient of leaf j as stored, summed over the data
+                # ranks by the model's gathers: this rank's block of the
+                # moments' placements, divided by their number
+                if lay_p[j] != lay_o[j]:
+                    g = g.redistribute(mesh, lay_o[j])
+                return g.to_local() / n_data
+        else:
+            # ZeRO-3: each leaf whole for the model
+            with torch.no_grad():
+                model_params = unflatten(params, [sh.whole(p)
+                                                  for p in flat_p])
+
+            def reduce(j, g):
+                return reduced(g, lay_o[j])
+
+            scope = contextlib.nullcontext()
+        with hints.hints(moe_data=ranks), scope:
             loss, metrics, g_loc = _loss_and_grads(
-                model, model_params, rows, m, loss_kwargs,
-                reduce=lambda j, g: reduced(g, lay_o[j]))
+                model, model_params, rows, m, loss_kwargs, reduce=reduce)
         del model_params
         g_loc = leaves(g_loc)
 

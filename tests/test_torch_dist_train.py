@@ -15,12 +15,18 @@ mesh and against JAX's single-device step, on the CPU under gloo.
   * World size 4, one spawned group (``tests/torch_dist_worker.py``,
     task ``train4``; the ranks import torch and ``repro_torch`` only):
     the reduced granite-3-8b (2 layers, fp32, global batch 4, lr 1e-5)
-    trained 2 steps on (4, 1) and (2, 2) meshes (and on (2, 2) with the
-    parameters TP-sharded only, ``weights_mode="tp_only"``, the moments
-    2-D: ZeRO-1), with leaves of 512
+    trained 2 steps on (4, 1), (2, 2) and (1, 4) meshes (and on (2, 2)
+    with the parameters TP-sharded only, ``weights_mode="tp_only"``, the
+    moments 2-D: ZeRO-1; on (1, 4) also a granite of 2 heads and 1 kv
+    head, fewer heads than model ranks), with leaves of 512
     elements and up sharded (the reduced model's leaves are all under
     the real 65536), against JAX's jitted single-device step from the
-    same weights on the same batches; ``remesh`` and a checkpoint from
+    same weights on the same batches, each rank's flash calls seeing
+    its H / t heads (one where H < t) and its MLP products d_ff / t
+    columns; placed prefill and decode on (2, 2) (granite, also with
+    int8 caches, and gemma3-4b's window rings; caches split by sequence
+    over the model ranks, both holding entries) within 1e-6 of the
+    unplaced model; ``remesh`` and a checkpoint from
     (4, 1) onto (2, 2); the plain run's checkpoint read onto (4, 1) and
     the mesh run's read plain; ``psum_compressed`` over the data axis;
     a leaf sharded over ("pod", "data") split rank by rank as JAX splits
@@ -222,6 +228,10 @@ def train4(tmp_path_factory, granite):
     np.savez(tmp / "train4.npz", **{f"{k}{s}": b[k] for s, b in
                                     enumerate(batches)
                                     for k in ("tokens", "targets")})
+    r = np.random.default_rng(41)
+    np.savez(tmp / "serve4.npz",
+             prompts=r.integers(0, cfg.vocab, (4, 20)).astype(np.int32),
+             nexts=r.integers(0, cfg.vocab, (3, 4)).astype(np.int32))
     checkpoint.save((p0, optimizer.init(p0)), str(tmp / "ckpt_plain"), 0)
     env = dict(os.environ, PYTHONPATH=SRC)
     env.pop("XLA_FLAGS", None)
@@ -238,21 +248,28 @@ def train4(tmp_path_factory, granite):
 
     thread = threading.Thread(target=run)
     thread.start()
-    jm = jax_build(jax_get_config("granite-3-8b").reduced(n_layers=2))
-    jp0 = zoo.jax_params(model, jm)
     want = {}
-    for compress in (False, True):
-        jstep = zoo.jit(jmake(jm, JRunConfig(
-            lr=LR, warmup_steps=1, total_steps=10, compress_grads=compress)))
-        jp, jo = jp0, joptim.init(jp0)
-        losses, norms = [], []
-        for b in batches:
-            jp, jo, met = jstep(jp, jo, {k: jnp.asarray(v)
-                                         for k, v in b.items()})
-            losses.append(float(met["loss"]))
-            norms.append(float(met["grad_norm"]))
-        want[compress] = (losses, norms,
-                          [zoo.npf(x) for x in leaves(params_from_jax(jp))])
+    for arch_key, over, compresses in (
+            ("granite", {}, (False, True)),
+            ("h2", dict(n_heads=2, n_kv_heads=1), (False,))):
+        jm = jax_build(jax_get_config("granite-3-8b").reduced(n_layers=2,
+                                                              **over))
+        jp0 = zoo.jax_params(build_model(get_config("granite-3-8b").reduced(
+            n_layers=2, **over), device="cpu"), jm)
+        for compress in compresses:
+            jstep = zoo.jit(jmake(jm, JRunConfig(
+                lr=LR, warmup_steps=1, total_steps=10,
+                compress_grads=compress)))
+            jp, jo = jp0, joptim.init(jp0)
+            losses, norms = [], []
+            for b in batches:
+                jp, jo, met = jstep(jp, jo, {k: jnp.asarray(v)
+                                             for k, v in b.items()})
+                losses.append(float(met["loss"]))
+                norms.append(float(met["grad_norm"]))
+            want[arch_key, compress] = (
+                losses, norms,
+                [zoo.npf(x) for x in leaves(params_from_jax(jp))])
     stdout, stderr = proc.communicate(timeout=300)
     thread.join()
     if "error" in ranks:
@@ -273,7 +290,7 @@ def test_train4_ranks_agree(train4):
 
 def test_train4_layouts_shard_leaves(train4):
     outs, _, _, _ = train4
-    for name in ("4x1", "2x2", "2x2tp"):
+    for name in ("4x1", "2x2", "2x2tp", "1x4", "h2_1x4"):
         assert outs[0][f"sharded_{name}"].sum() >= 8, name
     # ZeRO-1: some parameters placed otherwise than their moments
     assert outs[0]["zero1_2x2tp"] > 0 and outs[0]["zero1_2x2"] == 0
@@ -281,12 +298,13 @@ def test_train4_layouts_shard_leaves(train4):
 
 @pytest.mark.parametrize("name,compress", [
     ("4x1", False), ("4x1", True), ("2x2", False), ("2x2", True),
-    ("2x2tp", False)])
+    ("2x2tp", False), ("1x4", False), ("h2_1x4", False)])
 def test_train4_placed_step_matches_jax(train4, name, compress):
     outs, want, _, _ = train4
     o = outs[0]
     assert o[f"layout_kept_{name}_{int(compress)}"]
-    losses, norms, params = want[compress]
+    losses, norms, params = want["h2" if name.startswith("h2") else
+                                 "granite", compress]
     key = f"{name}_{int(compress)}"
     assert np.abs(o[f"loss_{key}"] - losses).max() <= 1e-6
     assert (np.abs(o[f"gnorm_{key}"] - norms)
@@ -295,6 +313,32 @@ def test_train4_placed_step_matches_jax(train4, name, compress):
     for i, w in enumerate(params):
         d = np.abs(o[f"p_{key}_{i}"] - w).max()
         assert d <= tol, (i, d)
+
+
+# mesh -> (each flash call's (q heads, kv heads), the MLP's d_ff columns)
+# on a rank: the reduced granite has 4 heads, 2 kv heads and d_ff 128;
+# "h2" 2 heads and 1 kv head, each head computed by 2 of the 4 ranks
+RANK_SHAPES = {"4x1": ((4, 2), 128), "2x2": ((2, 1), 64),
+               "2x2tp": ((2, 1), 64), "1x4": ((1, 1), 32),
+               "h2_1x4": ((1, 1), 32)}
+
+
+@pytest.mark.parametrize("name", list(RANK_SHAPES))
+def test_train4_rank_computes_its_heads_and_columns(train4, name):
+    outs, _, _, _ = train4
+    heads, ff = RANK_SHAPES[name]
+    for o in outs:
+        np.testing.assert_array_equal(o[f"heads_{name}_0"], [heads])
+        np.testing.assert_array_equal(o[f"ff_{name}_0"], [ff])
+
+
+@pytest.mark.parametrize("tag", ["granite", "granite_int8", "gemma"])
+def test_train4_placed_prefill_and_decode_match_unplaced(train4, tag):
+    outs, _, _, _ = train4
+    o = outs[0]
+    assert o[f"serve_diff_{tag}"][0] <= 1e-6
+    assert o[f"serve_split_{tag}"]
+    assert (o[f"serve_filled_{tag}"] > 0).all()
 
 
 def test_train4_remesh_and_restore_onto_another_mesh(train4):

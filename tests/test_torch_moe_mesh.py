@@ -21,7 +21,10 @@ the JAX package's MoE and train step on the global batch.
     step at 1 and 2 microbatches in two regimes: "small" (64 tokens a
     microbatch, one dispatch group spanning the ranks) and "large"
     (16384 tokens a microbatch, 8 groups of 2048: 4 whole groups a rank
-    at world 2, 2 at world 4), against JAX's jitted single-device step
+    at world 2, 2 at world 4), and at world 4 three of the cases again
+    on a ("data", "model") (2, 2) mesh (each expert's d_ff split over
+    the model ranks, the routing replicated over them), against JAX's
+    jitted single-device step
     on the global batch: the loss and the aux within 1e-5 (1e-6
     relative to the loss's scale), the gradient norm within 1e-6
     relative, the pairs dropped in the forward summed over the ranks
@@ -317,29 +320,41 @@ def test_moe_mesh_ranks_agree(moe_mesh, world):
                                               err_msg=key)
 
 
-@pytest.mark.parametrize("case", list(CASES))
-@pytest.mark.parametrize("world", [2, 4])
-def test_moe_mesh_step_matches_jax(moe_mesh, world, case):
-    outs = moe_mesh[0][world]
-    met, drops, params, mu, nu = moe_mesh[1][case]
+def _check_step(outs, want, case, key):
+    """The step of ``case`` saved under ``key`` against JAX's."""
+    met, drops, params, mu, nu = want
     o = outs[0]
-    assert sum(int(r[f"{case}_drops"]) for r in outs) == drops > 0
-    loss = float(o[f"{case}_met_loss"])
+    assert sum(int(r[f"{key}_drops"]) for r in outs) == drops > 0
+    loss = float(o[f"{key}_met_loss"])
     assert abs(loss - met["loss"]) <= 1e-6 * max(1.0, abs(met["loss"]))
-    gn = float(o[f"{case}_met_grad_norm"])
+    gn = float(o[f"{key}_met_grad_norm"])
     assert abs(gn - met["grad_norm"]) <= 1e-6 * max(1.0, met["grad_norm"])
     if CASES[case][0] == 1:
-        assert abs(float(o[f"{case}_met_aux"]) - met["aux"]) <= 1e-6
-        assert abs(float(o[f"{case}_met_ce"]) - met["ce"]) <= 1e-6 * max(
+        assert abs(float(o[f"{key}_met_aux"]) - met["aux"]) <= 1e-6
+        assert abs(float(o[f"{key}_met_ce"]) - met["ce"]) <= 1e-6 * max(
             1.0, met["ce"])
     for i, w in enumerate(params):
-        d = np.abs(o[f"{case}_p_{i}"] - w).max()
+        d = np.abs(o[f"{key}_p_{i}"] - w).max()
         assert d <= 1e-6, ("p", i, d)
     # after one step mu is (1 - b1) g: each leaf's gradient, held
     # relative to that leaf's largest entry
     for i, w in enumerate(mu):
-        d = np.abs(o[f"{case}_mu_{i}"] - w).max()
+        d = np.abs(o[f"{key}_mu_{i}"] - w).max()
         assert d <= 1e-5 * np.abs(w).max(), ("mu", i, d)
     for i, w in enumerate(nu):
-        d = np.abs(o[f"{case}_nu_{i}"] - w).max()
+        d = np.abs(o[f"{key}_nu_{i}"] - w).max()
         assert d <= 1e-6 * max(1.0, np.abs(w).max()), ("nu", i, d)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("world", [2, 4])
+def test_moe_mesh_step_matches_jax(moe_mesh, world, case):
+    _check_step(moe_mesh[0][world], moe_mesh[1][case], case, case)
+
+
+@pytest.mark.parametrize("case", worker.MOE_TP_CASES)
+def test_moe_mesh_tp_step_matches_jax(moe_mesh, case):
+    """The step on a ("data", "model") (2, 2) mesh: the experts' d_ff
+    split over the 2 model ranks, the global dispatch groups over the 2
+    data ranks."""
+    _check_step(moe_mesh[0][4], moe_mesh[1][case], case, f"tp_{case}")
